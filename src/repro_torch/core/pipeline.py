@@ -162,14 +162,15 @@ class CFedRAGSystem:
         batched aggregation pass, then generation through the engine's
         continuous-batching slot pool (when the generator is an
         ``engine_generator``).  Each result carries its ``latency_s``
-        (submit -> finish).  Without an engine-backed generator this is
-        ``answer_batch``."""
+        (submit -> finish).  Without an engine-backed generator, or with a
+        lock-step one, this is ``answer_batch``."""
         queries = list(query_texts)
         if not queries:
             return []
         orch = self.orchestrator
         engine = getattr(orch.generator, "engine", None)
-        if orch.generator is None or engine is None:
+        continuous = getattr(orch.generator, "mode", "continuous") == "continuous"
+        if orch.generator is None or engine is None or not continuous:
             try:
                 return self.answer_batch(queries)
             except QuorumNotMet as e:

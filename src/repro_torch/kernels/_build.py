@@ -32,7 +32,7 @@ NVCC_FLAGS = [
 ]
 
 # ctypes signatures of each library's C entry points
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "retrieval_topk": {
         # q, corpus, part_s, part_i, out_s, out_i, nq, n, d, k, splits,
@@ -48,6 +48,11 @@ SIGNATURES = {
         # q, k_pool, v_pool, tables, lengths, out, b, h, kv, dh, bs, n_t,
         # is_bf16, stream
         "paged_decode_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    },
+    "flash_attention": {
+        # q, k, v, out, b, sq, sk, h, kv, dh, q strides (batch, seq, head),
+        # k strides, v strides, causal, is_bf16, stream
+        "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, L, L, L, I, I, P],
     },
 }
 

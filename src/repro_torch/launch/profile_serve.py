@@ -1,9 +1,11 @@
 """Where the time of one full-width serve goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--queries 16] [--trace out.json]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--system paged] [--queries 16] [--trace out.json]
 
-Builds the configuration ``chip_smoke.py`` serves
-(``launch.serve.full_width_system``, random weights from ``--seed``), warms it up,
+Builds one of the configurations ``chip_smoke.py`` serves, random
+weights from ``--seed``: ``--system paged`` (default) or ``contiguous``
+is ``launch.serve.full_width_system`` with that engine layout, ``paper``
+is ``launch.serve.paper_models_system``.  It warms the system up,
 then runs ``CFedRAGSystem.serve`` on ``--queries`` queries under
 ``torch.profiler`` and prints the wall time, the device's busy share
 (summed kernel time over wall time; one stream, so kernels never
@@ -19,6 +21,8 @@ import time
 
 def _kind(name: str) -> str:
     n = name.lower()
+    if "flash_attention" in n:
+        return "flash_attention kernel"
     if "mixed_prefill" in n:
         return "mixed_prefill kernel"
     if "paged_decode" in n:
@@ -38,6 +42,7 @@ def _kind(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--system", default="paged", choices=["paged", "contiguous", "paper"])
     ap.add_argument("--queries", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
@@ -47,7 +52,7 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.serve import full_width_system
+    from repro_torch.launch.serve import full_width_system, paper_models_system
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
@@ -55,7 +60,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-    sys_, _, texts = full_width_system(args.queries, "cuda", args.seed)
+    if args.system == "paper":
+        sys_, _, texts = paper_models_system(args.queries, "cuda", args.seed)
+    else:
+        sys_, _, texts = full_width_system(args.queries, "cuda", args.seed, paged=args.system == "paged")
     sys_.serve(texts[:2], max_new_tokens=2)  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -67,11 +75,12 @@ def main(argv=None) -> int:
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
-    print(f"[{smi}] torch {torch.__version__}")
+    print(f"[{smi}] torch {torch.__version__}, system {args.system}")
     print(
         f"serve of {len(texts)} queries: wall {wall * 1e3:.1f} ms (profiled), device busy "
         f"{busy_ms:.1f} ms = {100 * busy_ms / (wall * 1e3):.1f}% of wall, {launches} kernel launches, "
-        f"{st['mixed_dispatches']} mixed + {st['decode_dispatches']} decode engine dispatches"
+        f"{st['admit_dispatches']} admit + {st['mixed_dispatches']} mixed + "
+        f"{st['decode_dispatches']} decode engine dispatches"
     )
     by_kind: dict[str, list] = {}
     for e in kernels:

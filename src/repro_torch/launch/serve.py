@@ -2,15 +2,19 @@
 providers + enclave orchestrator, and answer queries.
 
   python -m repro_torch.launch.serve --queries 5 --aggregation rerank
-  python -m repro_torch.launch.serve --queries 16 --generate --paged --device cuda
+  python -m repro_torch.launch.serve --queries 16 --generate --device cuda
   python -m repro_torch.launch.serve --queries 16 --generate --paged --token-budget 32
 
 Uses the bag embedder + lexical-overlap reranker (training-free).
 ``--generate`` stands up a random-init, smoke-width LM ``ServeEngine``
-(paged, the only engine layout ported so far) and routes the whole query
-set through ``CFedRAGSystem.serve``, printing per-request p50/p95.
-Everything runs on ``--device`` (default ``cuda``; ``cpu`` runs the
-kernels' plain versions).
+(contiguous cache stripes, or the paged block pool with ``--paged``) and
+routes the whole query set through ``CFedRAGSystem.serve``, printing
+per-request p50/p95.  Everything runs on ``--device`` (default ``cuda``;
+``cpu`` runs the kernels' plain versions).
+
+``full_width_system`` and ``paper_models_system`` build the two
+configurations measured on the card (``chip_smoke.py``,
+``launch/profile_serve.py``).
 """
 from __future__ import annotations
 
@@ -19,9 +23,15 @@ import argparse
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.pipeline import CFedRAGConfig, CFedRAGSystem
 from repro_torch.data.corpus import make_federated_corpus
 from repro_torch.data.tokenizer import HashTokenizer
+from repro_torch.models import cross_encoder as CE
+from repro_torch.models import dual_encoder as DE
+from repro_torch.models import lm as LM
+from repro_torch.models.params import ParamTree, init_params, map_tree
+from repro_torch.serving.engine import ServeConfig, ServeEngine, engine_generator
 
 
 def overlap_reranker(tok: HashTokenizer):
@@ -47,17 +57,14 @@ def overlap_reranker(tok: HashTokenizer):
     return rerank
 
 
-def make_demo_engine(max_new_tokens: int = 16, block_size: int = 32, pool_blocks: int | None = None,
-                     max_batch: int = 4, token_budget: int | None = None,
-                     vocab_size: int = 8192, device: str = "cuda", seed: int = 0):
+def make_demo_engine(max_new_tokens: int = 16, paged: bool = False, block_size: int = 32,
+                     pool_blocks: int | None = None, max_batch: int = 4,
+                     token_budget: int | None = None, vocab_size: int = 8192,
+                     device: str = "cuda", seed: int = 0):
     """Random-init smoke-width qwen3-0.6b ``ServeEngine`` + generator
-    adapter.  The model's vocabulary is ``vocab_size``, which must cover
-    the tokenizer the prompts come from (an id outside it raises)."""
-    from repro_torch.configs import get_config, smoke_config
-    from repro_torch.models import lm as LM
-    from repro_torch.models.params import ParamTree, init_params
-    from repro_torch.serving.engine import ServeConfig, ServeEngine, engine_generator
-
+    adapter, over contiguous stripes or (``paged``) the block pool.  The
+    model's vocabulary is ``vocab_size``, which must cover the tokenizer
+    the prompts come from (an id outside it raises)."""
     cfg = smoke_config(get_config("qwen3-0.6b")).with_overrides(
         dtype="float32", vocab_size=vocab_size
     )
@@ -67,7 +74,7 @@ def make_demo_engine(max_new_tokens: int = 16, block_size: int = 32, pool_blocks
         cfg, params,
         ServeConfig(
             max_batch=max_batch, max_prompt_len=256, max_new_tokens=max_new_tokens,
-            paged=True, block_size=block_size, n_pool_blocks=pool_blocks,
+            paged=paged, block_size=block_size, n_pool_blocks=pool_blocks,
             token_budget=token_budget,
         ),
         device=device,
@@ -75,36 +82,74 @@ def make_demo_engine(max_new_tokens: int = 16, block_size: int = 32, pool_blocks
     return engine_generator(engine)
 
 
+def _on(tree, device):
+    return map_tree(lambda t: t.to(device), tree)
+
+
+def _full_width_engine(tok: HashTokenizer, device: str, seed: int, paged: bool):
+    """qwen3-0.6b at full width (28 layers, bf16 activations and KV cache,
+    random weights from ``seed``) behind ``ServeConfig(max_batch=8,
+    max_prompt_len=256, max_new_tokens=16)``."""
+    cfg = get_config("qwen3-0.6b")
+    if tok.vocab_size > cfg.vocab_size:
+        raise ValueError("tokenizer vocabulary exceeds the model's")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = ParamTree(init_params(LM.param_specs(cfg), gen, device=device))
+    scfg = ServeConfig(paged=paged, max_batch=8, max_prompt_len=256, max_new_tokens=16)
+    return ServeEngine(cfg, params, scfg, device=device)
+
+
 def full_width_system(n_queries: int = 16, device: str = "cuda", seed: int = 0,
-                      generate: bool = True):
-    """The one configuration measured on the card, built here for both
-    ``chip_smoke.py`` and ``launch/profile_serve.py``: qwen3-0.6b at full
-    width (28 layers, bf16 activations and KV pool, random weights from
-    ``seed``) behind ``ServeConfig(paged=True, max_batch=8,
-    max_prompt_len=256, max_new_tokens=16)``, over a 128-fact +
+                      generate: bool = True, paged: bool = True):
+    """The bag-embedder configuration measured on the card: the full-width
+    qwen3-0.6b engine (``_full_width_engine``; paged block pool, or
+    contiguous stripes with ``paged=False``) over a 128-fact +
     128-distractor federated corpus with the overlap reranker.
 
     Returns ``(system, engine, texts)``, ``texts`` being the corpus's
     first ``n_queries`` questions.  ``generate=False`` builds the same
     federation with no model (``engine`` is None), for retrieval alone."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import lm as LM
-    from repro_torch.models.params import ParamTree, init_params
-    from repro_torch.serving.engine import ServeConfig, ServeEngine, engine_generator
-
     tok = HashTokenizer()
     corpus = make_federated_corpus(n_facts=128, n_distractors=128, n_queries=n_queries, seed=seed)
-    engine = None
-    if generate:
-        cfg = get_config("qwen3-0.6b")
-        if tok.vocab_size > cfg.vocab_size:
-            raise ValueError("tokenizer vocabulary exceeds the model's")
-        gen = torch.Generator(device=device).manual_seed(seed)
-        params = ParamTree(init_params(LM.param_specs(cfg), gen, device=device))
-        scfg = ServeConfig(paged=True, max_batch=8, max_prompt_len=256, max_new_tokens=16)
-        engine = ServeEngine(cfg, params, scfg, device=device)
+    engine = _full_width_engine(tok, device, seed, paged) if generate else None
     system = CFedRAGSystem(
         corpus, CFedRAGConfig(device=device), tokenizer=tok, reranker=overlap_reranker(tok),
+        generator=engine_generator(engine) if engine is not None else None,
+    )
+    return system, engine, [q.text for q in corpus.queries[:n_queries]]
+
+
+def paper_models_system(n_queries: int = 16, device: str = "cuda", seed: int = 0,
+                        generate: bool = True, encoder_dtype: str = "bfloat16"):
+    """C-FedRAG with the models the paper names, on the same corpus as
+    ``full_width_system``: ``contriever-110m`` (dual encoder, F_emb) as
+    every provider's ``embed_fn`` and ``bge-reranker-base`` (cross encoder,
+    F_aggr) through ``make_reranker``, both at full width (12 layers,
+    d_model 768, 12 heads of 64) in ``encoder_dtype``, plus the paged
+    full-width qwen3-0.6b engine.  The encoders' random weights are drawn
+    from ``seed`` on the CPU and moved to ``device``, so a CPU and a card
+    build hold the same encoders.  Building the system embeds every
+    provider's chunks (its index).
+
+    Returns ``(system, engine, texts)`` as ``full_width_system`` does."""
+    tok = HashTokenizer()
+    e_cfg = get_config("contriever-110m").with_overrides(dtype=encoder_dtype)
+    r_cfg = get_config("bge-reranker-base").with_overrides(dtype=encoder_dtype)
+    for cfg in (e_cfg, r_cfg):
+        if tok.vocab_size > cfg.vocab_size:
+            raise ValueError(f"tokenizer vocabulary exceeds {cfg.name}'s")
+    gen = torch.Generator().manual_seed(seed)
+    e_params = _on(init_params(DE.param_specs(e_cfg), gen, device="cpu"), device)
+    r_params = _on(init_params(CE.param_specs(r_cfg), gen, device="cpu"), device)
+
+    def embed_fn(tokens):
+        return DE.encode(e_cfg, e_params, torch.as_tensor(np.asarray(tokens), device=device))
+
+    corpus = make_federated_corpus(n_facts=128, n_distractors=128, n_queries=n_queries, seed=seed)
+    engine = _full_width_engine(tok, device, seed, paged=True) if generate else None
+    system = CFedRAGSystem(
+        corpus, CFedRAGConfig(device=device), tokenizer=tok, embed_fn=embed_fn,
+        reranker=CE.make_reranker(r_cfg, r_params),
         generator=engine_generator(engine) if engine is not None else None,
     )
     return system, engine, [q.text for q in corpus.queries[:n_queries]]
@@ -130,13 +175,13 @@ def main(argv=None):
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument(
         "--paged", action="store_true",
-        help="paged KV cache (block pool); the only engine layout the port runs, "
-        "so --generate implies it",
+        help="paged KV cache: block-pool memory manager instead of one "
+        "contiguous stripe per slot",
     )
-    ap.add_argument("--block-size", type=int, default=32, help="tokens per KV block")
+    ap.add_argument("--block-size", type=int, default=32, help="tokens per KV block (--paged)")
     ap.add_argument(
         "--pool-blocks", type=int, default=None,
-        help="KV pool size in blocks; default = max-batch full-length requests",
+        help="KV pool size in blocks (--paged); default = max-batch full-length requests",
     )
     ap.add_argument("--max-batch", type=int, default=4, help="engine decode slots")
     ap.add_argument(
@@ -147,7 +192,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.token_budget is not None:
-        args.generate = True
+        args.paged = args.generate = True
 
     corpus = make_federated_corpus(n_facts=args.n_facts, n_distractors=args.n_facts, n_queries=args.queries)
     tok = HashTokenizer()
@@ -164,7 +209,7 @@ def main(argv=None):
         tokenizer=tok,
         reranker=overlap_reranker(tok) if args.aggregation == "rerank" else None,
         generator=make_demo_engine(
-            args.max_new_tokens, block_size=args.block_size,
+            args.max_new_tokens, paged=args.paged, block_size=args.block_size,
             pool_blocks=args.pool_blocks, max_batch=args.max_batch,
             token_budget=args.token_budget, vocab_size=tok.vocab_size, device=args.device,
         ) if args.generate else None,
@@ -228,7 +273,7 @@ def main(argv=None):
             print(line)
         if st.get("engine_steps"):
             print(
-                f"dispatches: {st['decode_dispatches']} decode + "
+                f"dispatches: {st['admit_dispatches']} admit + {st['decode_dispatches']} decode + "
                 f"{st['mixed_dispatches']} mixed over {st['engine_steps']} "
                 f"engine steps ({st['dispatches_per_step']:.2f}/step)"
             )

@@ -1,0 +1,40 @@
+"""Contriever-style dual encoder: the paper's embedding model F_emb.
+
+Token encoder + mean pooling over the non-PAD tokens, L2-normalised.
+Shared weights for the query and document towers.  The layer stack is
+bidirectional (``attn_apply(..., causal=False)``), so its attention runs
+through ``kernels/flash_attention``.  As in the reference, attention
+itself does not mask PAD keys; only the pooling does.  Training
+(``info_nce_loss``) is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.lm import _stack_specs, encoder_stack
+from repro_torch.models.params import ParamSpec
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    block = {
+        "mixer_norm": ParamSpec((d,), ("norm",), "ones"),
+        "attn": L.attn_specs(cfg),
+        "ffn_norm": ParamSpec((d,), ("norm",), "ones"),
+        "mlp": L.mlp_specs(cfg),
+    }
+    return {
+        "embed": L.embed_specs(cfg),
+        "blocks": _stack_specs(block, cfg.n_layers),
+        "final_norm": ParamSpec((d,), ("norm",), "ones"),
+    }
+
+
+def encode(cfg: ModelConfig, params, tokens, pad_id: int = 0):
+    """tokens: (B, S) -> L2-normalised f32 embeddings (B, d)."""
+    h = encoder_stack(cfg, params, L.embed_apply(cfg, params["embed"], tokens))
+    msk = (tokens != pad_id).float()[..., None]
+    pooled = (h.float() * msk).sum(1) / torch.clamp(msk.sum(1), min=1.0)
+    return pooled / torch.clamp(torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), min=1e-9)

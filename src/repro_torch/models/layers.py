@@ -1,18 +1,21 @@
-"""Transformer layers of the dense decoder: RMSNorm, RoPE, GQA attention
-through the paged KV pool, SwiGLU MLP, embedding and head.
+"""Transformer layers: RMSNorm, RoPE, GQA attention (dense, over a
+contiguous cache, and through the paged KV pool), SwiGLU MLP, embedding
+and head.
 
 Plain functions on tensors with the JAX package's layouts (activations
 ``(B, S, d)``, heads ``(B, S, H, hd)``, weights ``wq (d, H, hd)`` ...).
 Parameters are stored f32 and cast to the activation dtype at each
 matmul; norms, RoPE and softmax run in f32.
 
-The paged attention functions update the KV pool IN PLACE (the JAX
-package returns a new pool): the fresh K/V of every live lane is
-scattered into its pool slot first, then attention reads the pool alone,
-through ``kernels/chunked_prefill`` (mixed steps) or
-``kernels/decode_attention`` (decode steps).  On CUDA tensors those ops
-launch the hand-written kernels; on CPU tensors they run their plain
-versions.
+Dense attention (``attention_core``: prefill, forward, the encoders) goes
+through ``kernels/flash_attention``.  The cache-writing attention
+functions update their cache IN PLACE (the JAX package returns a new
+one): ``attn_decode`` writes each row's fresh K/V into its contiguous
+stripe; the paged functions scatter every live lane's K/V into its pool
+slot first, then attend through ``kernels/chunked_prefill`` (mixed steps)
+or ``kernels/decode_attention`` (decode steps).  On CUDA tensors the
+kernel ops launch the hand-written kernels; on CPU tensors they run their
+plain versions.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.chunked_prefill.ops import mixed_prefill_attention
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.params import ParamSpec
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -61,7 +65,73 @@ def apply_rope(x, positions, theta: float):
 
 
 # --------------------------------------------------------------------- #
-# attention
+# attention cores  (q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd))
+# --------------------------------------------------------------------- #
+
+
+def _gqa_logits(q, k):
+    """f32 logits (B, KV, G, Sq, Sk); query head h reads KV head h // G."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    return torch.einsum("bqkgd,bskd->bkgqs", q.reshape(b, sq, kv, h // kv, hd).float(), k.float())
+
+
+def _gqa_out(probs, v, out_dtype):
+    b, kv, g, sq, _ = probs.shape
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return out.reshape(b, sq, kv * g, v.shape[-1]).to(out_dtype)
+
+
+def _causal_mask(sq: int, sk: int, q_offset, device):
+    return (q_offset + torch.arange(sq, device=device))[:, None] >= torch.arange(sk, device=device)[None, :]
+
+
+def naive_attention(q, k, v, *, causal: bool, q_offset=0):
+    """Materialised ``Sq x Sk`` logits: the plain oracle."""
+    logits = _gqa_logits(q, k) / np.sqrt(q.shape[-1])
+    if causal:
+        mask = _causal_mask(q.shape[1], k.shape[1], q_offset, q.device)
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    return _gqa_out(torch.softmax(logits, dim=-1), v, q.dtype)
+
+
+def flash_jnp_attention(q, k, v, *, causal: bool, chunk: int, q_offset=0):
+    """Online softmax over KV chunks of ``chunk`` positions, in plain
+    tensor ops: the oracle of the reference's chunked path."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if sk % chunk:
+        raise ValueError(f"flash_jnp_attention: Sk={sk} is not a multiple of chunk={chunk}")
+    g = h // kv
+    m = torch.full((b, kv, g, sq), -torch.inf, device=q.device)
+    l = torch.zeros((b, kv, g, sq), device=q.device)
+    acc = torch.zeros((b, kv, g, sq, hd), device=q.device)
+    for c0 in range(0, sk, chunk):
+        kc, vc = k[:, c0 : c0 + chunk], v[:, c0 : c0 + chunk]
+        logits = _gqa_logits(q, kc) / np.sqrt(hd)
+        if causal:
+            mask = _causal_mask(sq, sk, q_offset, q.device)[:, c0 : c0 + chunk]
+            logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p.to(vc.dtype), vc).float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def attention_core(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset=0):
+    """Dense attention through ``kernels/flash_attention``: the kernel for
+    CUDA tensors, its plain version for CPU tensors, whatever
+    ``cfg.attn_impl`` names (the reference picks between its oracles and
+    its Pallas kernel by it; they compute the same function)."""
+    return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+
+# --------------------------------------------------------------------- #
+# attention block
 # --------------------------------------------------------------------- #
 
 
@@ -98,6 +168,39 @@ def attn_qkv(cfg: ModelConfig, p, x, positions):
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
+
+
+def attn_apply(cfg: ModelConfig, p, x, positions, *, causal=None):
+    """Self-attention over the whole sequence (no cache).  x: (B, S, d)."""
+    causal = cfg.causal if causal is None else causal
+    q, k, v = attn_qkv(cfg, p, x, positions)
+    return _out_proj(attention_core(cfg, q, k, v, causal=causal), p["wo"])
+
+
+def attn_decode(cfg: ModelConfig, p, x, k_cache, v_cache, pos):
+    """Single-token decode over contiguous caches.  x: (B, 1, d); caches
+    (B, S, KV, hd), written IN PLACE; ``pos``: a scalar write position, or
+    (B,) per-row positions for ragged batches (each row writes its own
+    slot, which must lie below S, and attends to its own prefix
+    ``[0, pos]``).  Returns (B, 1, d)."""
+    b, s = x.shape[0], k_cache.shape[1]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    per_row = pos.dim() == 1
+    positions = pos[:, None] if per_row else pos.expand(b, 1)
+    q, k_new, v_new = attn_qkv(cfg, p, x, positions)
+    if per_row:
+        rows = torch.arange(b, device=x.device)
+        k_cache[rows, pos.long()] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[rows, pos.long()] = v_new[:, 0].to(v_cache.dtype)
+    else:
+        k_cache[:, int(pos)] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[:, int(pos)] = v_new[:, 0].to(v_cache.dtype)
+    logits = _gqa_logits(q, k_cache.to(q.dtype)) / np.sqrt(q.shape[-1])  # (B, KV, G, 1, S)
+    kpos = torch.arange(s, device=x.device)
+    valid = (kpos[None, :] <= pos[:, None]).reshape(b, 1, 1, 1, s) if per_row else (kpos <= pos)
+    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    out = _gqa_out(torch.softmax(logits, dim=-1), v_cache.to(q.dtype), q.dtype)  # (B, 1, H, hd)
+    return _out_proj(out, p["wo"])
 
 
 def attn_mixed_paged(cfg: ModelConfig, p, x, k_pool, v_pool, positions, block_tables,

@@ -1,30 +1,48 @@
-"""RAG serving engine: continuous batching over a paged KV cache.
+"""RAG serving engine: continuous batching over a contiguous or paged KV
+cache, and the lock-step baseline.
 
-The paged unified path of the JAX package's engine, run eagerly.  Every
-engine step with a prompt chunk in flight is ONE ``mixed_step`` over
-per-row ``(q_start, q_len)`` descriptors: decode rows take one query
-lane each, and the prompts of admitted requests stream in FIFO through
-the remaining lanes of the ``token_budget``, so a long prompt never
-stalls the rows already decoding.  When no prompt is in flight, the
-loop runs a fused decode chunk of up to ``sched_chunk`` ``decode_step``s
-instead.  ``mixed_dispatches`` and ``decode_dispatches`` count the two.
+Serving modes (all share the slot-state contract):
 
-Memory: attention K/V live in one pool of ``n_pool_blocks`` blocks of
-``block_size`` tokens (plus a trash block that unallocated table entries
-and dead lanes point at), addressed through per-slot block tables.  A
-request is admitted only while free blocks cover its prompt and first
-decode token; tables grow at step boundaries; a row that cannot grow is
-force-retired ``truncated`` with what it has emitted, and its neighbours
-are unharmed.  ``AdmissionDeadlock`` is the typed stall of the fill
-dependency resolver: the stuck rows retire empty and ``deadlocked``.
+  * **Lock-step** (``step_batch``): drain the queue in fixed ``max_batch``
+    chunks, one packed prefill + one decode loop per chunk.  The
+    deterministic baseline the continuous paths are held against.  Always
+    contiguous.
+  * **Continuous, contiguous** (``paged=False``, the default): a fixed
+    pool of ``max_batch`` decode slots over per-slot cache stripes of
+    ``max_prompt_len + max_new_tokens`` positions.  Finished rows (EOS or
+    per-request budget) retire and free their slot; queued requests are
+    admitted into free slots in power-of-2 groups, each group ONE packed
+    prefill (``LM.prefill``, whose attention runs through
+    ``kernels/flash_attention``) scattered into the groups' stripes, so
+    ``k`` waiting requests cost ``O(log k)`` admit dispatches.  Decode runs
+    in fused chunks of at most ``sched_chunk`` steps.
+    ``admit_dispatches`` and ``decode_dispatches`` count the two.
+  * **Continuous, paged** (``paged=True``): every engine step with a
+    prompt chunk in flight is ONE ``mixed_step`` over per-row
+    ``(q_start, q_len)`` descriptors: decode rows take one query lane
+    each, and the prompts of admitted requests stream in FIFO through the
+    remaining lanes of the ``token_budget``, so a long prompt never stalls
+    the rows already decoding.  When no prompt is in flight, the loop runs
+    a fused decode chunk of up to ``sched_chunk`` ``decode_step``s
+    instead.  ``mixed_dispatches`` and ``decode_dispatches`` count the
+    two.
 
-The pool, tables and device cache are resident: created on first use
-and kept across ``serve`` calls until ``reset_cache``.
+Paged memory: attention K/V live in one pool of ``n_pool_blocks`` blocks
+of ``block_size`` tokens (plus a trash block that unallocated table
+entries and dead lanes point at), addressed through per-slot block
+tables.  A request is admitted only while free blocks cover its prompt
+and first decode token; tables grow at step boundaries; a row that cannot
+grow is force-retired ``truncated`` with what it has emitted, and its
+neighbours are unharmed.  ``AdmissionDeadlock`` is the typed stall of the
+fill dependency resolver: the stuck rows retire empty and ``deadlocked``.
+The pool, tables and device cache are resident: created on first use and
+kept across ``serve`` calls until ``reset_cache``.  The contiguous cache
+is made anew by each serve call.
 
-Options of the JAX package's engine that this port does not run yet
-raise ``NotImplementedError``: the contiguous layout (``paged=False``),
-the prefix cache and its host spill tier, speculative decoding and the
-sharded pool.
+Both layouts give the same tokens for the same admission order.  Options
+of the JAX package's engine that this port does not run yet raise
+``NotImplementedError``: the prefix cache and its host spill tier,
+speculative decoding and the sharded pool.
 """
 from __future__ import annotations
 
@@ -70,17 +88,17 @@ def resolve_fill_deps(fill_deps: dict[int, frozenset], pending) -> list[int]:
 
 @dataclasses.dataclass
 class ServeConfig:
-    max_batch: int = 8  # decode slots
+    max_batch: int = 8  # decode slots (continuous) / chunk size (lock-step)
     max_prompt_len: int = 512
     max_new_tokens: int = 16  # hard cap; per-request budgets clamp to this
     sched_chunk: int = 8  # max fused decode steps between scheduler runs
-    paged: bool = False  # must be True: the port runs the paged engine only
-    block_size: int = 32  # tokens per KV block
+    paged: bool = False  # paged KV cache (block pool) vs contiguous stripes
+    block_size: int = 32  # tokens per KV block (paged mode)
     # pool size in blocks; None -> max_batch full-length requests
     n_pool_blocks: int | None = None
     prefix_cache: bool = False  # not ported yet
-    # query lanes per mixed step; None -> max_prompt_len (a whole prompt
-    # may prefill in one step)
+    # query lanes per mixed step (paged only); None -> max_prompt_len (a
+    # whole prompt may prefill in one step)
     token_budget: int | None = None
     spill_bytes: int | None = None  # not ported yet
     draft_k: int = 0  # speculative decoding: not ported yet
@@ -99,8 +117,6 @@ class ServeEngine:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServeEngine: device='cuda' asked for but no CUDA device is present")
-        if not scfg.paged:
-            raise _not_ported("the contiguous cache layout (paged=False)", "contiguous and lock-step engine")
         if scfg.prefix_cache:
             raise _not_ported("the prefix cache (prefix_cache=True)", "prefix-cache")
         if scfg.spill_bytes is not None:
@@ -111,37 +127,49 @@ class ServeEngine:
             raise _not_ported("speculative decoding (draft_k > 0)", "speculative-decoding")
         if scfg.shards is not None:
             raise _not_ported("the sharded KV pool (shards)", "multi-device")
-        if any(cfg.mixer_kind(i) != "attn" for i in range(cfg.n_layers)):
+        if scfg.paged and any(cfg.mixer_kind(i) != "attn" for i in range(cfg.n_layers)):
             raise ValueError(
                 "paged serving runs the unified chunked-prefill path, which "
                 "requires an all-attention model: SSM/conv state folds the "
                 "whole sequence and cannot resume a chunked prompt"
             )
-        if scfg.token_budget is not None and scfg.token_budget < 1:
-            raise ValueError(f"token_budget={scfg.token_budget} must be >= 1")
+        if scfg.token_budget is not None:
+            if scfg.token_budget < 1:
+                raise ValueError(f"token_budget={scfg.token_budget} must be >= 1")
+            if not scfg.paged:
+                raise ValueError(
+                    "token_budget (unified chunked prefill) requires paged=True: "
+                    "mixed dispatches read and write K/V through the shared block pool"
+                )
         self.cfg, self.scfg = cfg, scfg
         self.params = params.tree() if isinstance(params, torch.nn.Module) else params
         cache_len = scfg.max_prompt_len + scfg.max_new_tokens
+        self._cache_len = cache_len
         bs = scfg.block_size
         self._blocks_per_slot = blocks_for(cache_len, bs)
         self._cache_len_padded = self._blocks_per_slot * bs
-        n_pool = (
-            scfg.n_pool_blocks if scfg.n_pool_blocks is not None
-            else scfg.max_batch * self._blocks_per_slot
-        )
-        if n_pool < self._blocks_per_slot:
-            raise ValueError(
-                f"n_pool_blocks={n_pool} cannot hold one max-size request "
-                f"({self._blocks_per_slot} blocks of {bs})"
+        if scfg.paged:
+            n_pool = (
+                scfg.n_pool_blocks if scfg.n_pool_blocks is not None
+                else scfg.max_batch * self._blocks_per_slot
             )
-        self._n_pool_blocks = n_pool
-        self._trash_block = n_pool  # extra pool index for masked writes
+            if n_pool < self._blocks_per_slot:
+                raise ValueError(
+                    f"n_pool_blocks={n_pool} cannot hold one max-size request "
+                    f"({self._blocks_per_slot} blocks of {bs})"
+                )
+            self._n_pool_blocks = n_pool
+            self._trash_block = n_pool  # extra pool index for masked writes
         self._token_budget = (
             scfg.token_budget if scfg.token_budget is not None else scfg.max_prompt_len
         )
-        # dispatch observability: the O(1)-dispatch-per-step gauges
+        # dispatch observability: fused admit prefills (contiguous), fused
+        # decode chunks and unified mixed steps (paged)
+        self.admit_dispatches = 0
+        self.admit_rows_total = 0
         self.decode_dispatches = 0
         self.mixed_dispatches = 0
+        self.queue: list[np.ndarray] = []  # lock-step requests (submit / step_batch)
         self._pool: BlockPool | None = None
         self._row_tables: list[BlockTable] | None = None
         self._tables_h: np.ndarray | None = None
@@ -190,10 +218,11 @@ class ServeEngine:
         )
         return cur, lengths, emitted, done, budget, out
 
-    def _decode_chunk(self, st, n_steps: int, tables):
+    def _decode_chunk(self, st, n_steps: int, cache, tables=None):
         """Fused decode of up to ``n_steps`` tokens across all slots, until
-        every row is done.  Tokens go to a dense (B, sched_chunk) buffer
-        by step; the ragged merge into each row's own ``[emitted0,
+        every row is done, over the contiguous ``cache`` or (with
+        ``tables``) the paged pool.  Tokens go to a dense (B, sched_chunk)
+        buffer by step; the ragged merge into each row's own ``[emitted0,
         emitted)`` output span happens once per chunk."""
         cur, lengths, emitted, done, budget, out = st
         b, t_cap, sc = self.scfg.max_batch, self.scfg.max_new_tokens, self.scfg.sched_chunk
@@ -204,8 +233,8 @@ class ServeEngine:
             if bool(done.all()):
                 break
             logits = LM.decode_step(
-                self.cfg, self.params, self._cache, cur[:, None], lengths + emitted - 1,
-                tables, self.scfg.block_size,
+                self.cfg, self.params, cache, cur[:, None], lengths + emitted - 1,
+                block_tables=tables, block_size=self.scfg.block_size,
             )
             nxt = torch.argmax(logits[:, -1, :], -1).to(torch.int32)
             nxt = torch.where(done, torch.full_like(nxt, PAD), nxt)
@@ -219,6 +248,74 @@ class ServeEngine:
         keep = out[rows[:, None], idx]
         out[rows[:, None], idx] = torch.where(valid, chunk, keep)
         return cur, lengths, emitted, done, budget, out
+
+    def _prefill(self, tokens, lengths):
+        """Packed prefill into a fresh contiguous cache of ``cache_len``
+        positions per row; returns (each row's first token, taken at its
+        own last prompt position, and the cache)."""
+        logits, cache = LM.prefill(self.cfg, self.params, {"tokens": tokens}, cache_len=self._cache_len)
+        last = logits[torch.arange(tokens.shape[0], device=self.device), (lengths - 1).long()]
+        return torch.argmax(last, -1).to(torch.int32), cache
+
+    def _admit_rows(self, st, cache, rows_tokens, slot_ids, row_lens, b_new):
+        """Prefill ``g`` requests and scatter them into contiguous cache
+        stripes ``slot_ids`` in one fused call."""
+        cur, lengths, emitted, done, budget, out = st
+        first, row_cache = self._prefill(rows_tokens, row_lens)
+        sl = slot_ids.long()
+        for key, leaves in cache.items():
+            for kk, leaf in leaves.items():
+                leaf[:, sl] = row_cache[key][kk]
+        cur[sl] = first
+        lengths[sl] = row_lens
+        emitted[sl] = 1
+        budget[sl] = b_new
+        out[sl] = 0
+        out[sl, 0] = first
+        done[sl] = (first == EOS) | (b_new <= 1)
+        return cur, lengths, emitted, done, budget, out
+
+    def _decode_loop(self, cache, first_tok, lengths):
+        """Greedy decode of a prefilled batch until every row has emitted
+        EOS or ``max_new_tokens``; rows already done emit PAD.  Returns
+        (out (B, max_new_tokens), steps taken)."""
+        t_max = self.scfg.max_new_tokens
+        out = torch.zeros((first_tok.shape[0], t_max), dtype=torch.int32, device=self.device)
+        out[:, 0] = first_tok
+        cur, done, t = first_tok, first_tok == EOS, 1
+        while t < t_max and not bool(done.all()):
+            logits = LM.decode_step(self.cfg, self.params, cache, cur[:, None], lengths + t - 1)
+            nxt = torch.argmax(logits[:, -1, :], -1).to(torch.int32)
+            nxt = torch.where(done, torch.full_like(nxt, PAD), nxt)  # finished rows stay PAD
+            out[:, t] = nxt
+            cur, done, t = nxt, done | (nxt == EOS), t + 1
+        return out, t
+
+    # ------------------------------------------------------------------ #
+    # lock-step path (deterministic baseline)
+    # ------------------------------------------------------------------ #
+    def submit(self, prompt_tokens: np.ndarray):
+        self.queue.append(np.asarray(prompt_tokens).ravel())
+
+    def _pack(self, prompts: list[np.ndarray]) -> np.ndarray:
+        """Left-aligned PAD-tail packing; each row decodes from its own
+        length, so ragged rows never attend to PAD keys."""
+        width = self.scfg.max_prompt_len
+        out = np.zeros((len(prompts), width), np.int32)
+        for i, p in enumerate(prompts):
+            p = p[-width:]
+            out[i, : len(p)] = p
+        return out
+
+    def step_batch(self) -> list[np.ndarray]:
+        """Serve up to max_batch queued requests; returns answer token rows."""
+        if not self.queue:
+            return []
+        batch, self.queue = self.queue[: self.scfg.max_batch], self.queue[self.scfg.max_batch :]
+        lengths = self._dev([min(len(p), self.scfg.max_prompt_len) for p in batch])
+        first, cache = self._prefill(self._dev(self._pack(batch)), lengths)
+        out, n_steps = self._decode_loop(cache, first, lengths)
+        return list(out[:, :n_steps].cpu().numpy())
 
     # ------------------------------------------------------------------ #
     # resident paged state
@@ -258,11 +355,110 @@ class ServeEngine:
         """Yield ``(rid, answer_tokens)`` as each slot retires.  With
         ``drain=False`` the stream waits for more submissions until the
         scheduler is closed."""
-        yield from self._serve_unified(scheduler, drain)
+        if self.scfg.paged:
+            yield from self._serve_unified(scheduler, drain)
+        else:
+            yield from self._serve_contiguous(scheduler, drain)
+
+    def _serve_contiguous(self, scheduler: Scheduler, drain: bool):
+        """Continuous batching over contiguous cache stripes: the same
+        admission order and decode semantics as the paged path, with
+        pow-2 bucketed admit prefills."""
+        scfg = self.scfg
+        B, t_cap, width = scfg.max_batch, scfg.max_new_tokens, scfg.max_prompt_len
+        scheduler.begin_window()
+        cache = LM.init_cache(self.cfg, B, self._cache_len, dtype=torch_dtype(self.cfg.dtype), device=self.device)
+        i32 = dict(dtype=torch.int32, device=self.device)
+        st = (
+            torch.zeros((B,), **i32),  # cur
+            torch.ones((B,), **i32),  # lengths
+            torch.ones((B,), **i32),  # emitted
+            torch.ones((B,), dtype=torch.bool, device=self.device),  # done: free slots read as done
+            torch.ones((B,), **i32),  # budget
+            torch.zeros((B, t_cap + 1), **i32),  # out
+        )
+        slots: list[Request | None] = [None] * B
+        # host mirrors keep the loop at one device sync per chunk; a
+        # just-admitted row's done flag is only known on the device (its
+        # first token may be EOS), so it is mirrored as live
+        em_h = np.ones((B,), np.int64)
+        dn_h = np.ones((B,), bool)
+        bu_h = np.ones((B,), np.int64)
+        steps = 0
+        a0, d0, m0 = self.admit_dispatches, self.decode_dispatches, self.mixed_dispatches
+
+        while True:
+            # ---- admit queued requests into free slots (bucketed) ----
+            admits: list[tuple[int, np.ndarray, int, int]] = []
+            for slot in range(B):
+                if slots[slot] is not None:
+                    continue
+                req = scheduler.pop_ready()
+                if req is None:
+                    break
+                p = req.tokens[-width:]
+                length = len(p)
+                # prefill always emits one token, so the budget floor is 1;
+                # None means the engine cap
+                b_new = t_cap if req.max_new_tokens is None else req.max_new_tokens
+                b_new = max(1, min(int(b_new), t_cap))
+                admits.append((slot, p, length, b_new))
+                scheduler.record_tenant_admit(req.tenant, prefill_tokens=length)
+                slots[slot] = req
+                em_h[slot], dn_h[slot] = 1, b_new <= 1
+                bu_h[slot] = b_new
+            while admits:
+                # power-of-2 groups: k waiting requests prefill in O(log k)
+                # dispatches
+                g = 1 << (len(admits).bit_length() - 1)
+                group, admits = admits[:g], admits[g:]
+                st = self._admit_rows(
+                    st, cache, self._dev(self._pack([p for _, p, _, _ in group])),
+                    self._dev([s for s, _, _, _ in group]),
+                    self._dev([ln for _, _, ln, _ in group]), self._dev([bn for _, _, _, bn in group]),
+                )
+                self.admit_dispatches += 1
+                self.admit_rows_total += g
+            active = [i for i in range(B) if slots[i] is not None]
+            scheduler.record_occupancy(free_slots=B - len(active))
+            scheduler.record_dispatch_stats(
+                admit_dispatches=self.admit_dispatches - a0,
+                decode_dispatches=self.decode_dispatches - d0,
+                mixed_dispatches=self.mixed_dispatches - m0,
+                steps=steps,
+                lifetime=self._dispatch_lifetime(),
+            )
+            if not active:
+                if drain or scheduler.closed:
+                    if scheduler.has_pending:
+                        continue  # a submit raced the close / empty check
+                    return
+                scheduler.wait_for_work()
+                continue
+
+            remaining = [int(bu_h[i] - em_h[i]) for i in active if not dn_h[i]]
+            if remaining:
+                # budgets and EOS are enforced on the device, so the chunk
+                # length is only a scheduling granularity
+                n = max(1, min(max(remaining), scfg.sched_chunk))
+                st = self._decode_chunk(st, n, cache)
+                self.decode_dispatches += 1
+                steps += 1
+            em_h, dn_h = st[2].cpu().numpy().astype(np.int64), st[3].cpu().numpy().copy()
+
+            retired = [i for i in active if dn_h[i]]
+            if retired:
+                out_h = st[5].cpu().numpy()
+                for i in retired:
+                    req = slots[i]
+                    ans = out_h[i, : int(em_h[i])].copy()
+                    scheduler.finish(req, ans)
+                    slots[i] = None  # retire: the slot is free for the next admit
+                    yield req.rid, ans
 
     def _dispatch_lifetime(self) -> dict:
         return {
-            "admit_dispatches": 0,  # admission is host-only: prompts enter through mixed steps
+            "admit_dispatches": self.admit_dispatches,
             "decode_dispatches": self.decode_dispatches,
             "mixed_dispatches": self.mixed_dispatches,
         }
@@ -441,7 +637,7 @@ class ServeEngine:
                         need = min(ln_h[i] + min(em_h[i] + n, bu_h[i]) - 1, self._cache_len_padded)
                         self._grow(i, need, oom, dn_h, oom_slots)
                     st = mark_oom(st, oom)
-                    st = self._decode_chunk(st, n, self._dev(tables_h))
+                    st = self._decode_chunk(st, n, self._cache, self._dev(tables_h))
                     self.decode_dispatches += 1
                     steps += 1
                     em_h, dn_h = st[2].cpu().numpy().astype(np.int64), st[3].cpu().numpy().copy()
@@ -490,12 +686,23 @@ class ServeEngine:
 def engine_generator(engine: ServeEngine, mode: str = "continuous") -> Callable:
     """Adapt a ServeEngine to the orchestrator's generator contract:
     callable (1, S) -> (1, T) for a single prompt, plus ``generate_batch``
-    (list of prompts -> list of answer rows) through the slot scheduler."""
-    if mode != "continuous":
-        raise _not_ported(f"engine_generator mode={mode!r}", "contiguous and lock-step engine")
+    (list of prompts -> list of answer rows).  ``mode="continuous"`` routes
+    batches through the slot scheduler; ``mode="lockstep"`` runs the
+    fixed-chunk baseline (``step_batch``)."""
+    if mode not in ("continuous", "lockstep"):
+        raise ValueError(f"engine_generator: mode={mode!r} is not 'continuous' or 'lockstep'")
 
     def generate_batch(prompts: list[np.ndarray]) -> list[np.ndarray]:
-        return engine.serve_prompts([np.asarray(p) for p in prompts])
+        if engine.queue:
+            raise RuntimeError("engine_generator requires exclusive use of the engine queue")
+        if mode == "continuous":
+            return engine.serve_prompts([np.asarray(p) for p in prompts])
+        for p in prompts:
+            engine.submit(np.asarray(p))
+        outs: list[np.ndarray] = []
+        while engine.queue:
+            outs.extend(engine.step_batch())
+        return outs
 
     def generate(prompt_tokens: np.ndarray) -> np.ndarray:
         return generate_batch([np.asarray(prompt_tokens)])[0][None, :]

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.chunked_prefill import ops as cp_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.retrieval_topk import ops as rt_ops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -149,3 +150,45 @@ def test_kernels_trash_poison_never_leaks(cuda_device):
         t[6] = 1e4
         t[3, 4:] = -1e4
     assert torch.equal(da_ops.paged_decode_attention(q[:, 0], kp3, vp3, tables, lens), base_d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize(
+    "b,sq,sk,h,kv,dh",
+    [
+        (2, 32, 32, 4, 4, 16), (2, 64, 64, 8, 2, 32), (2, 128, 128, 4, 1, 64),  # the reference sweep
+        (3, 24, 24, 12, 12, 64), (5, 40, 40, 12, 12, 64), (2, 24, 40, 8, 2, 32),  # ragged path lengths
+        (2, 65, 65, 16, 8, 128), (1, 1, 7, 2, 1, 128), (4, 100, 100, 16, 8, 128),
+    ],
+)
+def test_flash_attention_matches_plain(cuda_device, b, sq, sk, h, kv, dh, causal, dtype):
+    rng = np.random.default_rng(b * sq + sk * h + dh)
+    q = torch.as_tensor(rng.standard_normal((b, sq, h, dh)), dtype=dtype, device=cuda_device)
+    k = torch.as_tensor(rng.standard_normal((b, sk, kv, dh)), dtype=dtype, device=cuda_device)
+    v = torch.as_tensor(rng.standard_normal((b, sk, kv, dh)), dtype=dtype, device=cuda_device)
+    o = fa_ops.flash_attention(q, k, v, causal=causal)
+    o_p = fa_ops.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == (b, sq, h, dh)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(o.float().cpu().numpy(), o_p.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_reads_strided_views(cuda_device):
+    """q, k, v sliced out of one fused (B, S, H + 2 KV, dh) projection are
+    read in place through their strides and give the contiguous answer."""
+    rng = np.random.default_rng(7)
+    b, s, h, kv, dh = 3, 50, 8, 2, 64
+    qkv = torch.as_tensor(rng.standard_normal((b, s, h + 2 * kv, dh)), dtype=torch.float32, device=cuda_device)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h : h + kv], qkv[:, :, h + kv :]
+    assert not q.is_contiguous()
+    for causal in (True, False):
+        o = fa_ops.flash_attention(q, k, v, causal=causal)
+        o_c = fa_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o_c)
+        np.testing.assert_allclose(
+            o.cpu().numpy(), fa_ops.flash_attention_plain(q, k, v, causal=causal).cpu().numpy(),
+            rtol=2e-5, atol=2e-5,
+        )

@@ -3,8 +3,8 @@ the reference Pallas kernels in interpret mode and the reference oracles.
 
 Tolerances: top-k scores 1e-5 and ids exact (inputs are integer-valued,
 so every score is exact and the ties built in are true ties); attention
-2e-5 in f32, as tests/test_kernels.py holds the reference; dead lanes and
-poisoned trash blocks are held bitwise.
+2e-5 in f32 and 2e-2 in bf16, as tests/test_kernels.py holds the
+reference; dead lanes and poisoned trash blocks are held bitwise.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,10 +16,13 @@ from repro.kernels.chunked_prefill.kernel import mixed_prefill_attention_pallas 
 from repro.kernels.chunked_prefill.ref import mixed_prefill_attention_ref  # noqa: E402
 from repro.kernels.decode_attention.kernel import paged_decode_attention_pallas  # noqa: E402
 from repro.kernels.decode_attention.ref import paged_decode_attention_ref  # noqa: E402
+from repro.kernels.flash_attention.kernel import flash_attention_pallas  # noqa: E402
+from repro.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro.kernels.retrieval_topk.kernel import retrieval_topk_pallas  # noqa: E402
 from repro.kernels.retrieval_topk.ref import retrieval_topk_ref  # noqa: E402
 from repro_torch.kernels.chunked_prefill import ops as cp_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.retrieval_topk import ops as rt_ops  # noqa: E402
 
 T = torch.as_tensor
@@ -62,6 +65,8 @@ def test_ops_refuse_other_devices():
         )
     with pytest.raises(ValueError):
         da_ops.paged_decode_attention(torch.empty((1, 2, 16), device="meta"), None, None, None, None)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(*(torch.empty((1, 4, 2, 16), device="meta"),) * 3)
 
 
 # ---------------- mixed prefill attention ----------------
@@ -162,3 +167,52 @@ def test_paged_decode_trash_poison_never_leaks():
         a[3, 4:] = -1e4
     poisoned = da_ops.paged_decode_attention(*map(T, (q, kp2, vp2, tables, lens)))
     assert torch.equal(base, poisoned)
+
+
+# ---------------- dense flash attention ----------------
+def _qkv(seed, b, sq, sk, h, kv, dh):
+    rng = np.random.default_rng(seed)
+    return (
+        rng.standard_normal((b, sq, h, dh)).astype(np.float32),
+        rng.standard_normal((b, sk, kv, dh)).astype(np.float32),
+        rng.standard_normal((b, sk, kv, dh)).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("sq,sk,h,kv,dh", [(32, 32, 4, 4, 16), (64, 64, 8, 2, 32), (128, 128, 4, 1, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas_and_ref(sq, sk, h, kv, dh, causal, dtype):
+    """The reference sweep's shapes (tests/test_kernels.py)."""
+    args = _qkv(sq + h, 2, sq, sk, h, kv, dh)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    o = fa_ops.flash_attention(*(T(a).to(tdt) for a in args), causal=causal)
+    assert o.dtype == tdt and o.shape == (2, sq, h, dh)
+    ja = [jnp.asarray(a, jdt) for a in args]
+    o_p = flash_attention_pallas(*ja, causal=causal, bq=16, bk=16)
+    o_r = flash_attention_ref(*ja, causal=causal)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    for o_x in (o_p, o_r):
+        np.testing.assert_allclose(o.float().numpy(), np.asarray(o_x, np.float32), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,h,kv,dh",
+    [(3, 24, 24, 4, 2, 16), (2, 40, 40, 4, 4, 64), (2, 24, 40, 8, 2, 32), (1, 1, 7, 2, 1, 128), (2, 65, 65, 12, 12, 64)],
+)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ragged_matches_ref(b, sq, sk, h, kv, dh, causal):
+    """Lengths the path gives the kernel (24-token queries, 40-token
+    chunks) and others off any tile multiple, which the reference's Pallas
+    wrapper cannot take (it asserts Sq % bq == 0 and Sk % bk == 0)."""
+    args = _qkv(sq * sk + h, b, sq, sk, h, kv, dh)
+    o = fa_ops.flash_attention(*map(T, args), causal=causal)
+    o_r = flash_attention_ref(*map(jnp.asarray, args), causal=causal)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_r), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_rejects_q_offset():
+    q, k, v = map(T, _qkv(0, 1, 4, 4, 2, 2, 16))
+    with pytest.raises(ValueError, match="q_offset"):
+        fa_ops.flash_attention(q, k, v, causal=True, q_offset=3)
+    assert torch.equal(fa_ops.flash_attention(q, k, v, q_offset=0), fa_ops.flash_attention_plain(q, k, v, causal=True))

@@ -1,10 +1,12 @@
 """The port's dense LM against the reference, with the reference's own
 weights carried over by ``params.from_reference``.
 
-``mixed_step`` and paged ``decode_step`` logits and updated pools are
-held to ``repro.models.lm`` run with ``attn_impl="pallas"`` (interpret
-mode on the CPU) at atol 1e-4 in f32, for qwen3-0.6b (qk-norm, tied
-embeddings) and llama3-8b (untied head) at smoke width.
+``mixed_step``, ``forward``, ``prefill`` and ``decode_step`` (paged and
+contiguous) logits and updated caches are held to ``repro.models.lm`` run
+with ``attn_impl="pallas"`` (interpret mode on the CPU) at atol 1e-4 in
+f32, for qwen3-0.6b (qk-norm, tied embeddings) and llama3-8b (untied
+head) at smoke width; the port's whole-sequence attention also against
+the reference's oracles (``naive``, and ``flash_jnp`` past one chunk).
 """
 import jax
 import jax.numpy as jnp
@@ -73,6 +75,79 @@ def test_mixed_then_decode_match_reference(name):
             np.testing.assert_allclose(
                 tcache[k][kk].numpy()[:, :-1], np.asarray(cache[k][kk])[:, :-1], rtol=0, atol=1e-4
             )
+
+
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "llama3-8b"])
+@pytest.mark.parametrize("attn_impl", ["pallas", "naive", "flash_jnp"])
+def test_forward_and_prefill_match_reference(name, attn_impl):
+    """Whole-sequence logits; the prefill's contiguous cache; and the same
+    logits from the port's paged ``mixed_step`` over the same prompt."""
+    cfg, tcfg, params, tparams = _bridged(name)
+    cfg = cfg.with_overrides(attn_impl=attn_impl, attn_chunk=16)  # flash_jnp: 48 keys = 3 chunks
+    tok = np.random.default_rng(2).integers(0, cfg.vocab_size, size=(2, 48)).astype(np.int32)
+    lr, _ = RLM.forward(cfg, POL, params, {"tokens": jnp.asarray(tok)})
+    lt, aux = TLM.forward(tcfg, tparams, {"tokens": T(tok)})
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lr), rtol=0, atol=1e-4)
+
+    lr_p, cache = RLM.prefill(cfg, POL, params, {"tokens": jnp.asarray(tok)}, cache_len=56)
+    lt_p, tcache = TLM.prefill(tcfg, tparams, {"tokens": T(tok)}, cache_len=56)
+    np.testing.assert_allclose(lt_p.numpy(), np.asarray(lr_p), rtol=0, atol=1e-4)
+    for k in cache:
+        for kk in cache[k]:
+            assert tcache[k][kk].shape == cache[k][kk].shape
+            np.testing.assert_allclose(tcache[k][kk].numpy(), np.asarray(cache[k][kk]), rtol=0, atol=1e-4)
+
+    bs = 8
+    pool = TLM.init_paged_cache(tcfg, 2 * 6 + 1, bs, dtype=torch.float32, device="cpu")
+    tables = T(np.arange(12, dtype=np.int32).reshape(2, 6))
+    lm = TLM.mixed_step(tcfg, tparams, T(tok), pool, tables, T([0, 0]), T([48, 48]), bs)
+    np.testing.assert_allclose(lm.numpy(), lt.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("per_row", [True, False], ids=["per_row_pos", "scalar_pos"])
+def test_contiguous_decode_matches_reference(per_row):
+    """``decode_step`` without block tables over ``prefill``'s stripes:
+    logits and the updated stripes, per-row (ragged) and scalar pos."""
+    cfg, tcfg, params, tparams = _bridged("qwen3-0.6b")
+    rng = np.random.default_rng(4)
+    tok = rng.integers(0, cfg.vocab_size, size=(3, 12)).astype(np.int32)
+    _, cache = RLM.prefill(cfg, POL, params, {"tokens": jnp.asarray(tok)}, cache_len=20)
+    _, tcache = TLM.prefill(tcfg, tparams, {"tokens": T(tok)}, cache_len=20)
+    pos = np.array([12, 7, 9], np.int32) if per_row else np.int32(12)
+    for step in range(3):
+        dtok = rng.integers(0, cfg.vocab_size, size=(3, 1)).astype(np.int32)
+        lr, cache = RLM.decode_step(cfg, POL, params, cache, jnp.asarray(dtok), jnp.asarray(pos + step))
+        lt = TLM.decode_step(tcfg, tparams, tcache, T(dtok), T(pos + step))
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lr), rtol=0, atol=1e-4)
+    for k in cache:
+        for kk in cache[k]:
+            np.testing.assert_allclose(tcache[k][kk].numpy(), np.asarray(cache[k][kk]), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_core_matches_oracles(causal, dtype):
+    """``attention_core`` (the kernel's plain version on the CPU) against
+    the port's and the reference's materialised and chunked oracles."""
+    from repro.models import layers as RL
+
+    rng = np.random.default_rng(9)
+    q, k, v = (rng.standard_normal((2, 32, h, 16)).astype(np.float32) for h in (8, 2, 2))
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tq, tk, tv = (T(a).to(tdt) for a in (q, k, v))
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    tcfg = t_smoke(t_get("qwen3-0.6b"))
+    got = TL.attention_core(tcfg, tq, tk, tv, causal=causal).float().numpy()
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    wants = [
+        TL.naive_attention(tq, tk, tv, causal=causal).float().numpy(),
+        TL.flash_jnp_attention(tq, tk, tv, causal=causal, chunk=8).float().numpy(),
+        np.asarray(RL.naive_attention(jq, jk, jv, causal=causal), np.float32),
+        np.asarray(RL.flash_jnp_attention(jq, jk, jv, causal=causal, chunk=8), np.float32),
+    ]
+    for want in wants:
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
 
 
 def test_param_specs_match_reference_tree():

@@ -1,10 +1,14 @@
 """End to end, port vs reference: ``CFedRAGSystem.serve`` on the same
-corpus, queries and (bridged) smoke-width weights.
+corpus, queries and (bridged) smoke-width weights, over the paged and the
+contiguous engine; and the engines themselves (contiguous, paged,
+lock-step) on the same prompts.
 
 Prompts must be identical, dispatch counts equal, statuses and OOM
 truncation flags equal, and answer tokens equal; a token may differ only
 where the reference's top-2 logit margin at that step is under 1e-4
-(a near-tie that float reassociation may flip).
+(a near-tie that float reassociation may flip).  Within the port, the
+contiguous and paged engines give equal tokens for the same admission
+order.
 """
 import jax
 import jax.numpy as jnp
@@ -53,17 +57,28 @@ def _margin(cfg, params, prompt, answer_prefix):
     return float(top2[1] - top2[0])
 
 
+def _assert_same_tokens(cfg, params, prompt, want, got):
+    """Equal, or first different where the reference's margin is a near-tie."""
+    want, got = np.asarray(want), np.asarray(got)
+    if not np.array_equal(want, got):
+        j = next((i for i in range(min(len(want), len(got))) if want[i] != got[i]), None)
+        assert j is not None, (want, got)
+        assert _margin(cfg, params, prompt, want[:j]) < 1e-4, (want, got)
+
+
 @pytest.mark.parametrize(
     "serve_kw",
     [
         dict(max_batch=3, token_budget=40, block_size=8),  # prompts chunk across steps
         dict(max_batch=3, block_size=8, n_pool_blocks=16),  # tight pool: OOM truncation
+        dict(max_batch=3, paged=False),  # contiguous stripes, bucketed admit prefills
     ],
-    ids=["chunked", "oom"],
+    ids=["chunked", "oom", "contiguous"],
 )
 def test_serve_matches_reference(bridged, serve_kw):
     cfg, tcfg, params, tparams = bridged
-    scfg = dict(paged=True, max_prompt_len=96, max_new_tokens=12, **serve_kw)
+    scfg = dict(paged=True, max_prompt_len=96, max_new_tokens=12)
+    scfg.update(serve_kw)
     kw = dict(n_facts=24, n_distractors=24, n_queries=8, seed=11)
     rc, tc = r_corpus(**kw), t_corpus(**kw)
     rtok, ttok = RTok(), TTok()
@@ -84,23 +99,116 @@ def test_serve_matches_reference(bridged, serve_kw):
         assert np.array_equal(a["prompt"], b["prompt"])
         assert a["status"] == b["status"] == "done"
         assert a.get("truncated", False) == b.get("truncated", False)
-        ra, ta = np.asarray(a["answer_tokens"]), np.asarray(b["answer_tokens"])
-        if not np.array_equal(ra, ta):
-            j = next(i for i in range(min(len(ra), len(ta))) if ra[i] != ta[i])
-            assert _margin(cfg, params, a["prompt"], ra[:j]) < 1e-4, (ra, ta)
+        _assert_same_tokens(cfg, params, a["prompt"], a["answer_tokens"], b["answer_tokens"])
     rs, ts = r_sys.last_serve_stats, t_sys.last_serve_stats
-    for key in ("mixed_dispatches", "decode_dispatches", "engine_steps", "n_truncated"):
+    for key in ("admit_dispatches", "mixed_dispatches", "decode_dispatches", "engine_steps", "n_truncated"):
         assert rs[key] == ts[key], key
     if "n_pool_blocks" in serve_kw:
         assert ts["n_truncated"] > 0  # the tight pool really truncated someone
-    else:
+    elif scfg["paged"]:
         assert ts["mixed_dispatches"] > 0 and ts["decode_dispatches"] > 0
+    else:
+        assert ts["admit_dispatches"] > 0 and ts["decode_dispatches"] > 0 and ts["mixed_dispatches"] == 0
+
+
+_RAGGED = dict(lens=(9, 11, 6, 3, 11, 7), budgets=[5, 1, 4, 5, 2, 5],
+               kw=dict(max_batch=2, max_prompt_len=11, max_new_tokens=5, sched_chunk=2))
+
+
+@pytest.fixture(scope="module")
+def ragged_reference(bridged):
+    """The reference's contiguous engine on a ragged prompt / budget mix."""
+    cfg, _, params, _ = bridged
+    rng = np.random.default_rng(42)
+    prompts = [rng.integers(8, VOCAB, size=n).astype(np.int32) for n in _RAGGED["lens"]]
+    want = REngine(cfg, POL, params, RServe(**_RAGGED["kw"])).serve_prompts(prompts, max_new_tokens=_RAGGED["budgets"])
+    return prompts, want
+
+
+@pytest.mark.parametrize("block_size", [4, 8, 16])
+def test_contiguous_matches_reference_and_paged(bridged, ragged_reference, block_size):
+    """The port's contiguous engine gives the reference contiguous
+    engine's tokens, and the port's paged engine gives the port's
+    contiguous tokens exactly, for the same admission order
+    (tests/test_serving.py ``test_paged_matches_contiguous_bitwise``)."""
+    cfg, tcfg, params, tparams = bridged
+    prompts, want = ragged_reference
+    cont = TE.ServeEngine(tcfg, tparams, TE.ServeConfig(**_RAGGED["kw"]), device="cpu")
+    got = cont.serve_prompts(prompts, max_new_tokens=_RAGGED["budgets"])
+    paged = TE.ServeEngine(
+        tcfg, tparams, TE.ServeConfig(paged=True, block_size=block_size, **_RAGGED["kw"]), device="cpu"
+    ).serve_prompts(prompts, max_new_tokens=_RAGGED["budgets"])
+    for p, w, g, pg in zip(prompts, want, got, paged):
+        _assert_same_tokens(cfg, params, p, w, g)
+        assert np.array_equal(g, pg), (g, pg)
+    assert cont.admit_dispatches >= 2 and cont.admit_rows_total == len(prompts)
+
+
+def test_lockstep_matches_reference(bridged):
+    """``step_batch``: a ragged batch gives the reference's tokens, each row
+    equals serving it alone (short rows never attend to PAD keys), and a
+    queue of 5 drains as 2 + 2 + 1 (tests/test_serving.py)."""
+    cfg, tcfg, params, tparams = bridged
+    kw = dict(max_batch=3, max_prompt_len=16, max_new_tokens=4)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(8, VOCAB, size=n).astype(np.int32) for n in (10, 16, 13)]
+    r_eng = REngine(cfg, POL, params, RServe(**kw))
+    t_eng = TE.ServeEngine(tcfg, tparams, TE.ServeConfig(**kw), device="cpu")
+    for p in prompts:
+        r_eng.submit(p)
+        t_eng.submit(p)
+    want, got = r_eng.step_batch(), t_eng.step_batch()
+    assert len(got) == 3 and t_eng.step_batch() == []
+    for p, w, g in zip(prompts, want, got):
+        _assert_same_tokens(cfg, params, p, w, g)
+    solo = TE.ServeEngine(tcfg, tparams, TE.ServeConfig(**{**kw, "max_batch": 1}), device="cpu")
+    for p, g in zip(prompts, got):
+        solo.submit(p)
+        s = solo.step_batch()[0]
+        n = min(len(g), len(s))
+        assert np.array_equal(g[:n], s[:n])
+    small = TE.ServeEngine(tcfg, tparams, TE.ServeConfig(max_batch=2, max_prompt_len=8, max_new_tokens=2), device="cpu")
+    for _ in range(5):
+        small.submit(np.arange(1, 9, dtype=np.int32))
+    sizes = []
+    while small.queue:
+        sizes.append(len(small.step_batch()))
+    assert sizes == [2, 2, 1]
+
+
+def test_lockstep_generator_serves_like_reference(bridged):
+    """``engine_generator(mode="lockstep")`` behind ``CFedRAGSystem.serve``
+    (which then answers through ``answer_batch``) gives the reference's
+    prompts and answers."""
+    cfg, tcfg, params, tparams = bridged
+    kw = dict(n_facts=16, n_distractors=16, n_queries=4, seed=5)
+    sys_kw = dict(aggregation="rerank", m_local=4, n_global=4, chunk_max_len=16)
+    scfg = dict(max_batch=3, max_prompt_len=64, max_new_tokens=5)
+    rtok, ttok = RTok(), TTok()
+    r_sys = RSystem(r_corpus(**kw), RConfig(**sys_kw), tokenizer=rtok, reranker=r_rerank(rtok),
+                    generator=r_gen(REngine(cfg, POL, params, RServe(**scfg)), mode="lockstep"))
+    t_sys = TSystem(t_corpus(**kw), TConfig(device="cpu", **sys_kw), tokenizer=ttok,
+                    reranker=t_launch.overlap_reranker(ttok),
+                    generator=TE.engine_generator(TE.ServeEngine(tcfg, tparams, TE.ServeConfig(**scfg), device="cpu"),
+                                                  mode="lockstep"))
+    texts = [q.text for q in r_sys.corpus.queries]
+    for a, b in zip(r_sys.serve(texts), t_sys.serve(texts)):
+        assert np.array_equal(a["prompt"], b["prompt"])
+        _assert_same_tokens(cfg, params, a["prompt"], a["answer_tokens"], b["answer_tokens"])
+
+
+def test_contiguous_refuses_paged_only_options(bridged):
+    _, tcfg, _, tparams = bridged
+    with pytest.raises(ValueError, match="requires paged=True"):
+        TE.ServeEngine(tcfg, tparams, TE.ServeConfig(token_budget=8), device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        TE.engine_generator(TE.ServeEngine(tcfg, tparams, TE.ServeConfig(), device="cpu"), mode="greedy")
 
 
 @pytest.mark.parametrize(
     "override",
-    [dict(paged=False), dict(prefix_cache=True), dict(spill_bytes=1 << 20), dict(draft_k=2), dict(shards=2)],
-    ids=["contiguous", "prefix_cache", "spill", "draft_k", "shards"],
+    [dict(prefix_cache=True), dict(spill_bytes=1 << 20), dict(draft_k=2), dict(shards=2)],
+    ids=["prefix_cache", "spill", "draft_k", "shards"],
 )
 def test_unported_engine_options_raise(bridged, override):
     _, tcfg, _, tparams = bridged
@@ -138,6 +246,17 @@ def test_launcher_main_runs_on_cpu(capsys):
                    "--device", "cpu", "--token-budget", "48", "--block-size", "16"])
     out = capsys.readouterr().out
     assert "generation latency on cpu" in out and "recall@8" in out
+    assert "0 admit" in out and "KV blocks" in out  # --token-budget implies --paged
+
+
+def test_launcher_generate_defaults_to_contiguous(capsys):
+    """``--generate`` without ``--paged`` serves through the contiguous
+    engine, as the reference's launcher does."""
+    t_launch.main(["--queries", "3", "--n-facts", "16", "--generate", "--max-new-tokens", "3",
+                   "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "generation latency on cpu" in out and "recall@8" in out
+    assert "2 admit + 1 decode + 0 mixed" in out and "KV blocks" not in out  # 3 admits: groups of 2 + 1
 
 
 def test_full_width_system_federation_matches_reference():
