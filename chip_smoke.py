@@ -8,7 +8,7 @@ Phases (any failure exits non-zero, and the final ok line is printed
 only when every phase passed):
 
 1. device     the card's name and power limit, as nvidia-smi reports them;
-2. build      the four CUDA kernels, one nvcc each, all started together;
+2. build      the six CUDA kernels, one nvcc each, all started together;
 3. kernels    each kernel against its plain PyTorch version on the card at
               the full-width path shapes, f32 and bf16 (tolerance 2e-5 f32:
               both sum in f32 but in another order; 2e-2 bf16), the ±1e4
@@ -16,8 +16,13 @@ only when every phase passed):
               1,048,576 x D = 256 f32, Q = 32, k = 8) with bitwise
               batch-of-1 == batch-of-32 scores, flash attention at the
               rerank, chunk-index and admit-prefill shapes and a ragged
-              causal one; times of kernel, plain version, one PyTorch
-              library call (never called by the port) and the bound;
+              causal one, contiguous flash-decode at the phase-6 decode
+              shape with its partials combined over 4 sequence shards
+              against the monolithic answer, and the SSD chunk at the
+              phase-7 admit shape (its outputs reach the hundreds, so its
+              error is taken relative to the largest output); times of
+              kernel, plain version, one PyTorch library call (never called
+              by the port) where one computes the function, and the bound;
 4. paged      ``CFedRAGSystem.serve`` on 16 queries at the full width of
               qwen3-0.6b (28 layers, bf16, random weights from a seed) on
               the paged engine with the bag embedder; then retrieval
@@ -28,9 +33,17 @@ only when every phase passed):
               and queries, bge-reranker-base reranks; then the contexts of
               an f32 build against its CPU run, near-ties aside;
 6. contiguous the phase-4 system on the contiguous engine (the
-              reference's default); then, at smoke width and f32 on the
-              card, contiguous == paged == lock-step tokens, and the
-              card's contiguous tokens == the CPU run's.
+              reference's default), its decode through flash-decode; then,
+              at smoke width and f32 on the card, contiguous == paged ==
+              lock-step tokens, and the card's contiguous tokens == the CPU
+              run's;
+7. mamba2     the phase-4 federation serving mamba2-1.3b at full width (48
+              layers, bf16, random weights from a seed) on the contiguous
+              engine, its prefills through the SSD chunk kernel; the
+              full-width logits of one prompt finite; then, at smoke width
+              (chunk 16, so the prefill carries state over many chunks) and
+              f32 on the card, contiguous == lock-step tokens, and the
+              card's tokens == the CPU run's.
 
 Every kernel's launch counter is set to 0 just before each main-path run
 (the serves, and phase 5's index build) and read just after; a kernel of
@@ -41,6 +54,7 @@ nvidia-smi line, then ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -94,8 +108,10 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in ev) / iters
 
 
-def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    t_b, t_o = nbytes / MEM_BW * 1e3, flops / PEAK[dtype] * 1e3
+def bound(nbytes: float, *ops: tuple[float, str]) -> tuple[float, str]:
+    """The larger of the bytes' time and the operations' time, in ms; ``ops``
+    are (FLOPs, operand dtype) pairs, each part at its type's peak."""
+    t_b, t_o = nbytes / MEM_BW * 1e3, sum(f / PEAK[dt] for f, dt in ops) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -112,22 +128,27 @@ def check(name: str, err: float, dtype: str) -> None:
 
 
 def counters():
-    """The launch counter of every kernel, by name."""
+    """The launch counter of every kernel, by name: (module, attribute)."""
     from repro_torch.kernels.chunked_prefill import ops as cp
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.retrieval_topk import ops as rt
+    from repro_torch.kernels.ssd_scan import ops as ss
 
-    return {"retrieval_topk": rt, "mixed_prefill": cp, "paged_decode": da, "flash_attention": fa}
+    return {
+        "retrieval_topk": (rt, "launches"), "mixed_prefill": (cp, "launches"), "paged_decode": (da, "launches"),
+        "flash_attention": (fa, "launches"), "flash_decode": (da, "flash_decode_launches"),
+        "ssd_chunk": (ss, "launches"),
+    }
 
 
 def reset_launches() -> None:
-    for mod in counters().values():
-        mod.launches = 0
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
 
 
 def read_launches(what: str, need) -> dict:
-    got = {name: mod.launches for name, mod in counters().items()}
+    got = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
     print(f"  launches during {what}: {got}", flush=True)
     if any(got[n] == 0 for n in need):
         fail(f"a kernel of the path was never launched during {what}: {got}")
@@ -141,6 +162,7 @@ def kernel_phase(torch, timer) -> dict:
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.retrieval_topk import ops as rt
+    from repro_torch.kernels.ssd_scan import ops as ss
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -172,7 +194,7 @@ def kernel_phase(torch, timer) -> dict:
                 fail(f"retrieval_topk {dtype}: batch-of-1 scores of query {r} differ from batch-of-32")
         print(f"  retrieval_topk {dtype}: batch-of-1 == batch-of-32 bitwise (queries 0, 13, 31)", flush=True)
         es = qs.element_size()
-        b_ms, b_by = bound(nq * d * es + n * d * es + nq * k * 8, 2 * nq * n * d, dtype)
+        b_ms, b_by = bound(nq * d * es + n * d * es + nq * k * 8, (2 * nq * n * d, dtype))
         rows["retrieval_topk", dtype] = dict(
             ms=timer.ms(lambda: rt.retrieval_topk(qs, cs, k)),
             plain_ms=timer.ms(lambda: rt.retrieval_topk_plain(qs, cs, k), iters=5),
@@ -249,7 +271,7 @@ def kernel_phase(torch, timer) -> dict:
         qt = q.permute(0, 2, 1, 3)
         nbytes = (n_q * H * DH * es + R * W * H * DH * es  # q of live lanes in, every lane out
                   + 2 * sum(n_kv) * KV * DH * es + desc.numel() * 4 + sum(-(-n // BS) for n in n_kv) * 4)
-        b_ms, b_by = bound(nbytes, flops_m, dtype)
+        b_ms, b_by = bound(nbytes, (flops_m, dtype))
         rows["mixed_prefill", dtype] = dict(
             ms=timer.ms(lambda: cp.mixed_prefill_attention(q, kp, vp, tables, desc)),
             plain_ms=timer.ms(lambda: cp.mixed_prefill_attention_plain(q, kp, vp, tables, desc)),
@@ -260,7 +282,7 @@ def kernel_phase(torch, timer) -> dict:
         )
         nbytes_d = (2 * R * H * DH * es + 2 * sum(lens_h) * KV * DH * es
                     + sum(-(-n // BS) for n in lens_h) * 4 + R * 4)  # table entries the lengths reach
-        b_ms, b_by = bound(nbytes_d, flops_d, dtype)
+        b_ms, b_by = bound(nbytes_d, (flops_d, dtype))
         rows["paged_decode", dtype] = dict(
             ms=timer.ms(lambda: da.paged_decode_attention(qd, kp, vp, tables, lens)),
             plain_ms=timer.ms(lambda: da.paged_decode_attention_plain(qd, kp, vp, tables, lens)),
@@ -291,7 +313,7 @@ def kernel_phase(torch, timer) -> dict:
             shape = f"B={b} S={sl} H={h} KV={kv} dh={dh} {'causal' if causal else 'non-causal'} {dtype}"
             check(f"flash_attention {label} {shape}", err, dtype)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            b_ms, b_by = bound(es * (2 * b * sl * h * dh + 2 * b * sl * kv * dh), 4 * b * h * dh * pairs, dtype)
+            b_ms, b_by = bound(es * (2 * b * sl * h * dh + 2 * b * sl * kv * dh), (4 * b * h * dh * pairs, dtype))
             rows["flash_attention", dtype, label] = dict(
                 ms=timer.ms(lambda: fa.flash_attention(q, k, v, causal=causal)),
                 plain_ms=timer.ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal)),
@@ -301,17 +323,95 @@ def kernel_phase(torch, timer) -> dict:
             )
             del q, k, v, qt, kt, vt
 
+    # ---- contiguous flash-decode at the phase-6 decode shape ----
+    S = 272  # max_prompt_len + max_new_tokens: the contiguous engine's stripe
+    lens_c = [272, 17, 200, 64, 250, 131, 99, 1]  # ragged, one full stripe, one single position
+    lens_t = torch.tensor(lens_c, dtype=torch.int32, device=dev)
+    mask_c = (torch.arange(S, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
+    shards, step = 4, S // 4
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        es = torch.empty((), dtype=tdt).element_size()
+        qd = torch.randn(R, H, DH, generator=gen, device=dev).to(tdt)
+        kc = torch.randn(R, S, KV, DH, generator=gen, device=dev).to(tdt)
+        vc = torch.randn(R, S, KV, DH, generator=gen, device=dev).to(tdt)
+        o = da.decode_attention(qd, kc, vc, lens_t)
+        err = (o.float() - da.decode_attention_plain(qd, kc, vc, lens_t).float()).abs().max().item()
+        check(f"flash_decode B={R} S={S} {dtype}", err, dtype)
+        # partials of 4 sequence shards, combined, against the monolithic partials
+        o_m, _, l_m = da.decode_attention(qd, kc, vc, lens_t, return_partials=True)
+        parts = [
+            da.decode_attention(qd, kc[:, i * step : (i + 1) * step], vc[:, i * step : (i + 1) * step],
+                                torch.clamp(lens_t - i * step, 0, step), return_partials=True)
+            for i in range(shards)
+        ]
+        err_c = (da.combine_partials(*zip(*parts)) - o_m / torch.clamp(l_m, min=1e-30)).abs().max().item()
+        check(f"flash_decode partials, {shards} shards combined vs monolithic, {dtype} cache", err_c, "float32")
+        b_ms, b_by = bound(es * (2 * R * H * DH + 2 * sum(lens_c) * KV * DH) + 4 * R, (4 * sum(lens_c) * H * DH, dtype))
+        rows["flash_decode", dtype] = dict(
+            ms=timer.ms(lambda: da.decode_attention(qd, kc, vc, lens_t)),
+            plain_ms=timer.ms(lambda: da.decode_attention_plain(qd, kc, vc, lens_t)),
+            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask_c, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err, combine_err=err_c,
+            shape=f"B={R} H={H} KV={KV} dh={DH} S={S} lengths {min(lens_c)}-{max(lens_c)} (sum {sum(lens_c)}) {dtype}",
+        )
+        del qd, kc, vc
+
+    # ---- SSD chunk at the phase-7 admit shape (mamba2-1.3b, one group) ----
+    SB, SL, SH, SHD, SDS, SG = 8, 256, 64, 64, 128, 1
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        es = torch.empty((), dtype=tdt).element_size()
+        # as the mixer hands them over: silu'd x, B, C (one group, expanded
+        # over the heads), softplus'd dt, a = -exp(A_log)
+        x = F.silu(torch.randn(SB, SL, SH, SHD, generator=gen, device=dev)).to(tdt)
+        bg = F.silu(torch.randn(SB, SL, SG, SDS, generator=gen, device=dev)).to(tdt).expand(SB, SL, SH, SDS)
+        cg = F.silu(torch.randn(SB, SL, SG, SDS, generator=gen, device=dev)).to(tdt).expand(SB, SL, SH, SDS)
+        dt = F.softplus(torch.randn(SB, SL, SH, generator=gen, device=dev))
+        a = -torch.exp(0.5 * torch.randn(SH, generator=gen, device=dev))
+        outs, plain = ss.ssd_chunk(x, bg, cg, dt, a), ss.ssd_chunk_plain(x, bg, cg, dt, a)
+        err = max((o - p).abs().max().item() for o, p in zip(outs, plain))
+        rel = max((o - p).abs().max().item() / p.abs().max().item() for o, p in zip(outs, plain))
+        print(f"  ssd_chunk B={SB} L={SL} H={SH} {dtype}: max |kernel - plain| = {err:.3e} at max |y| = "
+              f"{plain[0].abs().max().item():.3e}", flush=True)
+        # bf16 inputs are upcast exactly and every product is f32, so both
+        # rows are held to the f32 tolerance
+        check(f"ssd_chunk B={SB} L={SL} H={SH} hd={SHD} ds={SDS} {dtype}, error / max |output|", rel, "float32")
+        # bytes: x in, one group of B and C, dt, a; y, state, decay out.
+        # FLOPs over the causal half (j <= i) that the function needs: C.B^T
+        # once per (batch, group), on the inputs' own type (bf16 x bf16 is
+        # exact with f32 accumulation); the score-weighted x and the state
+        # product once per (batch, head), f32 since the decay weights are f32
+        tri = SL * (SL + 1) // 2
+        nbytes = es * (SB * SL * SH * SHD + 2 * SB * SL * SG * SDS) + 4 * (SB * SL * SH + SH) \
+            + 4 * (SB * SL * SH * SHD + SB * SH * SHD * SDS + SB * SH)
+        b_ms, b_by = bound(
+            nbytes,
+            (SB * SG * tri * 2 * SDS, dtype),
+            (SB * SH * (tri * 2 * SHD + 2 * SL * SHD * SDS), "float32"),
+        )
+        rows["ssd_chunk", dtype] = dict(
+            ms=timer.ms(lambda: ss.ssd_chunk(x, bg, cg, dt, a)),
+            plain_ms=timer.ms(lambda: ss.ssd_chunk_plain(x, bg, cg, dt, a)),
+            library_ms=None,  # no single PyTorch call computes the chunk terms
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err, max_rel_err=rel,
+            shape=f"B={SB} L={SL} H={SH} hd={SHD} ds={SDS} G={SG} {dtype} x/B/C, f32 dt/a",
+        )
+        del x, bg, cg, dt, outs, plain
+
     for key, row in rows.items():
+        lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
         print(
             f"  {key[0]} [{row['shape']}]: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+            f"library {lib}, bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
             flush=True,
         )
     return rows
 
 
 # --------------------------------------------------------------------- #
-# phases 4-6: end to end
+# phases 4-7: end to end
 # --------------------------------------------------------------------- #
 
 
@@ -320,8 +420,10 @@ def serve_phase(torch, smi: str, sys_, engine, texts, label: str, need) -> tuple
     launch counter at 0 just before and read just after; every status
     must be ``done`` and every answer token in the vocabulary."""
     sys_.serve(texts[:2], max_new_tokens=2)  # warm-up: allocator, first launches
+    gc.collect()  # earlier phases' systems, held only by reference cycles
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     reset_launches()
     t0 = time.perf_counter()
     results = sys_.serve(texts)
@@ -341,21 +443,22 @@ def serve_phase(torch, smi: str, sys_, engine, texts, label: str, need) -> tuple
     print(
         f"  e2e {label}: {len(texts)} queries, max_batch {engine.scfg.max_batch}: p50 {p50 * 1e3:.1f} ms, "
         f"p95 {p95 * 1e3:.1f} ms, {n_tok / wall:.1f} tokens/s ({n_tok} tokens in {wall:.3f} s), "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {st['admit_dispatches']} admit + "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB resident "
+        f"before the serve), {st['admit_dispatches']} admit + "
         f"{st['mixed_dispatches']} mixed + {st['decode_dispatches']} decode dispatches [{smi}]",
         flush=True,
     )
     return results, launches
 
 
-def small_model(torch, vocab: int):
-    """Smoke-width qwen3-0.6b in f32, weights drawn on the CPU from SEED:
+def small_model(torch, vocab: int, arch: str = "qwen3-0.6b"):
+    """Smoke-width ``arch`` in f32, weights drawn on the CPU from SEED:
     the CPU copy and the card copy hold the same numbers."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.models import lm as LM
     from repro_torch.models.params import init_params, map_tree
 
-    small = smoke_config(get_config("qwen3-0.6b")).with_overrides(dtype="float32", vocab_size=vocab)
+    small = smoke_config(get_config(arch)).with_overrides(dtype="float32", vocab_size=vocab)
     p_cpu = init_params(LM.param_specs(small), torch.Generator().manual_seed(SEED), device="cpu")
     return small, p_cpu, map_tree(lambda t: t.to("cuda"), p_cpu)
 
@@ -472,7 +575,7 @@ def contiguous_phase(torch, smi: str) -> dict:
     sys_, engine, texts = full_width_system(16, "cuda", SEED, paged=False)
     results, launches = serve_phase(
         torch, smi, sys_, engine, texts, "contiguous qwen3-0.6b full width bf16, bag embedder",
-        ("retrieval_topk", "flash_attention"),
+        ("retrieval_topk", "flash_attention", "flash_decode"),
     )
     prompts = [np.asarray(r["prompt"]).reshape(-1) for r in results[:4]]
     vocab = sys_.tok.vocab_size
@@ -496,6 +599,47 @@ def contiguous_phase(torch, smi: str) -> dict:
     print(f"  smoke-width contiguous tokens on the card equal: {checks}", flush=True)
     if not all(checks.values()):
         fail(f"smoke-width contiguous tokens differ: {checks}")
+    return launches
+
+
+def mamba2_phase(torch, smi: str) -> dict:
+    import numpy as np
+
+    from repro_torch.launch.serve import full_width_system
+    from repro_torch.models import lm as LM
+    from repro_torch.serving.engine import ServeConfig, ServeEngine, engine_generator
+
+    # mamba2-1.3b at full width, 48 layers, bf16 activations, f32 SSM state
+    sys_, engine, texts = full_width_system(16, "cuda", SEED, paged=False, arch="mamba2-1.3b")
+    results, launches = serve_phase(
+        torch, smi, sys_, engine, texts, "contiguous mamba2-1.3b full width bf16, bag embedder",
+        ("retrieval_topk", "ssd_chunk"),
+    )
+    cfg = engine.cfg
+    prompt = torch.as_tensor(np.asarray(results[0]["prompt"]).reshape(1, -1), device="cuda")
+    logits, _ = LM.forward(cfg, engine.params, {"tokens": prompt})
+    if tuple(logits.shape) != (1, prompt.shape[1], cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        fail(f"mamba2 full-width logits: shape {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    print(f"  mamba2 full-width logits {tuple(logits.shape)} all finite", flush=True)
+    prompts = [np.asarray(r["prompt"]).reshape(-1) for r in results[:4]]
+    vocab = sys_.tok.vocab_size
+    del sys_, engine, logits
+
+    # smoke width (ssd_chunk 16: a 256-wide prefill runs 16 chunks), f32:
+    # contiguous == lock-step on the card, and the card's tokens == the CPU run's
+    small, p_cpu, p_gpu = small_model(torch, vocab, "mamba2-1.3b")
+    kw = dict(max_batch=4, max_prompt_len=256, max_new_tokens=8)
+    cont = ServeEngine(small, p_gpu, ServeConfig(**kw), device="cuda").serve_prompts(prompts)
+    lock = engine_generator(ServeEngine(small, p_gpu, ServeConfig(**kw), device="cuda"), mode="lockstep")
+    lock = lock.generate_batch(prompts)
+    cpu = ServeEngine(small, p_cpu, ServeConfig(**kw), device="cpu").serve_prompts(prompts)
+    checks = {
+        "lock-step": all(np.array_equal(a, b[: len(a)]) for a, b in zip(cont, lock)),
+        "CPU": all(np.array_equal(a, b) for a, b in zip(cont, cpu)),
+    }
+    print(f"  smoke-width mamba2 tokens on the card equal: {checks}", flush=True)
+    if not all(checks.values()):
+        fail(f"smoke-width mamba2 tokens differ: {checks}")
     return launches
 
 
@@ -536,20 +680,25 @@ def main() -> int:
     runs += paper_phase(torch, smi)
     print("[6] end to end: contiguous engine", flush=True)
     runs.append(contiguous_phase(torch, smi))
+    print("[7] end to end: mamba2-1.3b, contiguous engine", flush=True)
+    runs.append(mamba2_phase(torch, smi))
 
     meta = {
         "retrieval_topk": ("src/repro_torch/kernels/csrc/retrieval_topk.cu", "src/repro/kernels/retrieval_topk/kernel.py:105"),
         "mixed_prefill": ("src/repro_torch/kernels/csrc/mixed_prefill.cu", "src/repro/kernels/chunked_prefill/kernel.py:80"),
         "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu", "src/repro/kernels/decode_attention/kernel.py:160"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:68"),
+        "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu", "src/repro/kernels/decode_attention/kernel.py:63"),
+        "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu", "src/repro/kernels/ssd_scan/kernel.py:49"),
     }
     # one row per kernel at the dtype the path gives it (f32 provider
     # embeddings; bf16 activations, KV pool and encoders) and, for
     # flash_attention, its largest path shape (the rerank); launches are
-    # summed over the main-path runs of phases 4-6
+    # summed over the main-path runs of phases 4-7
     path_row = {
         "retrieval_topk": ("retrieval_topk", "float32"), "mixed_prefill": ("mixed_prefill", "bfloat16"),
         "paged_decode": ("paged_decode", "bfloat16"), "flash_attention": ("flash_attention", "bfloat16", "rerank"),
+        "flash_decode": ("flash_decode", "bfloat16"), "ssd_chunk": ("ssd_chunk", "bfloat16"),
     }
     kernels = []
     for name, (src, rep) in meta.items():
@@ -559,6 +708,7 @@ def main() -> int:
             "launches": sum(r[name] for r in runs), "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
+            **{k: row[k] for k in ("combine_err", "max_rel_err") if k in row},
         })
     if any(not math.isfinite(k["ms"]) for k in kernels):
         fail("a kernel time is not finite")

@@ -54,6 +54,17 @@ SIGNATURES = {
         # k strides, v strides, causal, is_bf16, stream
         "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, L, L, L, I, I, P],
     },
+    "flash_decode": {
+        # q, k_cache, v_cache, lengths, out, o, m, l, b, h, kv, dh, s,
+        # k strides (batch, seq, head), v strides, partials, is_bf16, stream
+        "flash_decode_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, I, I, P],
+    },
+    "ssd_chunk": {
+        # x, b, c, dt, a, y, state, decay, b, l, h, hd, ds, x strides
+        # (batch, seq, head), b strides, c strides, dt strides, is_bf16,
+        # stream
+        "ssd_chunk_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, L, L, L, L, L, L, I, P],
+    },
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,14 @@
-"""Paged flash-decode: one new token per row against the block pool.
+"""Flash-decode: one new token per row, against a contiguous cache or
+through block tables into the paged pool.
 
-``paged_decode_attention`` launches the hand-written kernel
-(``kernels/csrc/paged_decode.cu``) for CUDA tensors and runs
-``paged_decode_attention_plain`` for CPU tensors; anything else raises.
-``launches`` counts kernel launches.  Row ``b`` attends the first
-``lengths[b]`` positions of ``block_tables[b]``.
+``decode_attention`` (contiguous ``(B, S, KV, dh)`` cache, kernel
+``kernels/csrc/flash_decode.cu``) and ``paged_decode_attention`` (block
+pool, kernel ``kernels/csrc/paged_decode.cu``) launch their hand-written
+kernels for CUDA tensors and run their plain versions for CPU tensors;
+anything else raises.  ``flash_decode_launches`` and ``launches`` count
+the launches of the two kernels.  Row ``b`` attends its first
+``lengths[b]`` positions.  ``combine_partials`` merges the ``(o, m, l)``
+partials of disjoint cache shards.
 """
 from __future__ import annotations
 
@@ -15,29 +19,107 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0
+launches = 0  # paged_decode kernel
+flash_decode_launches = 0  # flash_decode kernel
 
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 16
+
+
+def _check_decode(name, q, k, v, lengths) -> None:
+    """The shapes, dtypes and devices both decode kernels take; raises."""
+    b, h, dh = q.shape
+    kv, dh_k = k.shape[2], k.shape[3]
+    if (
+        v.shape != k.shape or dh_k != dh or kv == 0 or h % kv or dh not in _HEAD_DIMS
+        or h // kv > _MAX_GROUP or lengths.shape != (b,)
+    ):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"lengths {tuple(lengths.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: dtypes {q.dtype} / {k.dtype} / {v.dtype}")
+    for t in (k, v, lengths):
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on {q.device} and {t.device}")
+
+
+def decode_attention_plain(q, k_cache, v_cache, lengths, return_partials: bool = False):
+    """Dense masked softmax in f32.  q (B, H, dh); caches (B, S, KV, dh);
+    row ``b`` attends positions ``< lengths[b]``.  Returns (B, H, dh) in
+    q's dtype, or with ``return_partials`` the un-normalised f32 partials
+    ``(o (B, KV, G, dh), m (B, KV, G, 1), l (B, KV, G, 1))``.  A row with
+    ``lengths[b] == 0`` has every logit at -1e30, so its weights are
+    uniform: mean(V), or ``m = -1e30, l = S, o = sum(V)``."""
+    b, h, dh = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    qr = q.float().reshape(b, kv, h // kv, dh)
+    logits = torch.einsum("bkgd,bskd->bkgs", qr, k_cache.float()) / math.sqrt(dh)
+    valid = torch.arange(s, device=q.device)[None, None, None, :] < lengths.long()[:, None, None, None]
+    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    if return_partials:
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp(logits - m)
+        return torch.einsum("bkgs,bskd->bkgd", p, v_cache.float()), m, p.sum(dim=-1, keepdim=True)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(b, h, dh).to(q.dtype)
+
+
+def combine_partials(o, m, l):
+    """Merge lists of ``(o, m, l)`` partials from disjoint cache shards
+    into the normalised output (B, KV, G, dh) f32."""
+    m_g = torch.stack(m).amax(dim=0)
+    l_g = sum(li * torch.exp(mi - m_g) for mi, li in zip(m, l))
+    o_g = sum(oi * torch.exp(mi - m_g) for mi, oi in zip(m, o))
+    return o_g / torch.clamp(l_g, min=1e-30)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, return_partials: bool = False):
+    """Single-token attention over a contiguous cache.  The caches are
+    read in place through their batch / sequence / head strides (head_dim
+    must be contiguous)."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, lengths, return_partials)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: tensor on {q.device}")
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape[0] != q.shape[0]:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)}, k {tuple(k_cache.shape)}")
+    _check_decode("decode_attention", q, k_cache, v_cache, lengths)
+    b, h, dh = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    q = q.contiguous()
+    k_cache, v_cache = (t if t.stride(-1) == 1 else t.contiguous() for t in (k_cache, v_cache))
+    lengths = lengths.to(torch.int32).contiguous()
+    if return_partials:  # (o, m, l), f32
+        shapes = ((b, kv, h // kv, dh), (b, kv, h // kv, 1), (b, kv, h // kv, 1))
+        result = tuple(torch.empty(sh, dtype=torch.float32, device=q.device) for sh in shapes)
+        ptrs = (0, *(t.data_ptr() for t in result))
+    else:
+        result = torch.empty_like(q)
+        ptrs = (result.data_ptr(), 0, 0, 0)
+    if b:
+        lib = _build.load("flash_decode")
+        err = lib.flash_decode_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), *ptrs,
+            b, h, kv, dh, s, *k_cache.stride()[:3], *v_cache.stride()[:3], int(return_partials),
+            int(q.dtype == torch.bfloat16), ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+        )
+        _build.check(err, "decode_attention")
+        global flash_decode_launches
+        flash_decode_launches += 1
+    return result
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths):
     """Gather each row's contiguous view from its table, dense masked
     softmax.  q (B, H, dh); pools (n_pool, bs, KV, dh); block_tables
     (B, n_t); lengths (B,) -> (B, H, dh) in q's dtype."""
-    b, h, dh = q.shape
-    bs, kv = k_pool.shape[1], k_pool.shape[2]
+    b, n_t = block_tables.shape
+    bs, kv, dh = k_pool.shape[1:]
     tbl = block_tables.long()
-    s_pad = tbl.shape[1] * bs
-    k_view = k_pool[tbl].reshape(b, s_pad, kv, dh).float()
-    v_view = v_pool[tbl].reshape(b, s_pad, kv, dh).float()
-    qr = q.float().reshape(b, kv, h // kv, dh)
-    logits = torch.einsum("bkgd,bskd->bkgs", qr, k_view) / math.sqrt(dh)
-    valid = torch.arange(s_pad, device=q.device)[None, None, None, :] < lengths.long()[:, None, None, None]
-    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
-    p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p, v_view)
-    return out.reshape(b, h, dh).to(q.dtype)
+    k_view = k_pool[tbl].reshape(b, n_t * bs, kv, dh)
+    v_view = v_pool[tbl].reshape(b, n_t * bs, kv, dh)
+    return decode_attention_plain(q, k_view, v_view, lengths)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
@@ -47,21 +129,14 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: tensor on {q.device}")
     b, h, dh = q.shape
-    n_pool, bs, kv, dh_k = k_pool.shape
-    if (
-        v_pool.shape != k_pool.shape or dh_k != dh or h % kv or dh not in _HEAD_DIMS
-        or h // kv > _MAX_GROUP or block_tables.dim() != 2 or block_tables.shape[0] != b
-        or lengths.shape != (b,)
-    ):
+    bs, kv = k_pool.shape[1], k_pool.shape[2]
+    if block_tables.dim() != 2 or block_tables.shape[0] != b:
         raise ValueError(
-            f"paged_decode_attention: q {tuple(q.shape)}, pools {tuple(k_pool.shape)}, "
-            f"tables {tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}"
+            f"paged_decode_attention: q {tuple(q.shape)}, tables {tuple(block_tables.shape)}"
         )
-    if not (q.dtype == k_pool.dtype == v_pool.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"paged_decode_attention: dtypes {q.dtype} / {k_pool.dtype} / {v_pool.dtype}")
-    for t in (k_pool, v_pool, block_tables, lengths):
-        if t.device != q.device:
-            raise ValueError(f"paged_decode_attention: tensors on {q.device} and {t.device}")
+    _check_decode("paged_decode_attention", q, k_pool, v_pool, lengths)
+    if block_tables.device != q.device:
+        raise ValueError(f"paged_decode_attention: tensors on {q.device} and {block_tables.device}")
     q = q.contiguous()
     k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
     tables = block_tables.to(torch.int32).contiguous()

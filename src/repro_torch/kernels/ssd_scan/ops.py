@@ -1,0 +1,93 @@
+"""Mamba2 SSD intra-chunk terms (the state-space-duality chunk of the
+Mamba2 mixer).
+
+``ssd_chunk`` launches the hand-written kernel
+(``kernels/csrc/ssd_chunk.cu``) for CUDA tensors and runs
+``ssd_chunk_plain`` for CPU tensors; anything else raises.  ``launches``
+counts kernel launches.  For one chunk of ``L`` positions per (batch,
+head), with ``cum`` the inclusive prefix sum of ``dt * a`` over the chunk:
+
+    y_intra[i] = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
+    state      = sum_j exp(cum_L - cum_j) dt_j x_j^T B_j
+    decay      = exp(cum_L)
+
+``b`` and ``c`` carry one row per head; a single group shared by every
+head may come as an ``expand``ed view (head stride 0), which the kernel
+reads in place.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+launches = 0
+
+_DIMS = (16, 32, 64, 128)
+
+
+def ssd_chunk_plain(x, b, c, dt, a):
+    """Materialised ``L x L`` scores in f32.  x (B, L, H, hd); b, c
+    (B, L, H, ds); dt (B, L, H) f32; a (H,) f32 -> y_intra (B, L, H, hd),
+    state (B, H, hd, ds), decay (B, H), all f32."""
+    xf, bf, cf = x.float(), b.float(), c.float()
+    cum = torch.cumsum(dt * a[None, None, :], dim=1)  # (B, L, H)
+    cum_h = cum.transpose(1, 2)  # (B, H, L)
+    cb = torch.einsum("bihs,bjhs->bhij", cf, bf)
+    l = x.shape[1]
+    mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
+    arg = torch.where(mask, cum_h[:, :, :, None] - cum_h[:, :, None, :], torch.full((), -1e30, device=x.device))
+    scores = cb * torch.exp(arg) * dt.transpose(1, 2)[:, :, None, :]
+    y = torch.einsum("bhij,bjhp->bihp", scores, xf)
+    wgt = torch.exp(cum[:, -1:, :] - cum) * dt  # (B, L, H)
+    st = torch.einsum("bjh,bjhs,bjhp->bhps", wgt, bf, xf)
+    return y, st, torch.exp(cum[:, -1, :])
+
+
+def ssd_chunk(x, b, c, dt, a):
+    """One chunk's SSD terms per (batch, head); see the module docstring."""
+    if x.device.type == "cpu":
+        return ssd_chunk_plain(x, b, c, dt, a)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk: tensor on {x.device}")
+    if x.dim() != 4 or b.dim() != 4 or dt.dim() != 3:
+        raise ValueError(f"ssd_chunk: x {tuple(x.shape)}, b {tuple(b.shape)}, dt {tuple(dt.shape)}")
+    bsz, l, h, hd = x.shape
+    ds = b.shape[3]
+    if (
+        b.shape != (bsz, l, h, ds) or c.shape != b.shape or dt.shape != (bsz, l, h) or a.shape != (h,)
+        or hd not in _DIMS or ds not in _DIMS or l == 0
+    ):
+        raise ValueError(
+            f"ssd_chunk: x {tuple(x.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}, "
+            f"dt {tuple(dt.shape)}, a {tuple(a.shape)}"
+        )
+    if not (x.dtype == b.dtype == c.dtype) or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"ssd_chunk: dtypes {x.dtype} / {b.dtype} / {c.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise ValueError(f"ssd_chunk: dt {dt.dtype} and a {a.dtype} must be float32")
+    for t in (b, c, dt, a):
+        if t.device != x.device:
+            raise ValueError(f"ssd_chunk: tensors on {x.device} and {t.device}")
+    # read in place through the strides; only the last axis must be contiguous
+    x, b, c, dt = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, b, c, dt))
+    a = a.contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty((bsz, l, h, hd), **f32)
+    st = torch.empty((bsz, h, hd, ds), **f32)
+    dec = torch.empty((bsz, h), **f32)
+    if bsz == 0 or h == 0:
+        return y, st, dec
+    lib = _build.load("ssd_chunk")
+    err = lib.ssd_chunk_launch(
+        x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(), a.data_ptr(), y.data_ptr(),
+        st.data_ptr(), dec.data_ptr(), bsz, l, h, hd, ds, *x.stride()[:3], *b.stride()[:3],
+        *c.stride()[:3], *dt.stride(), int(x.dtype == torch.bfloat16),
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+    )
+    _build.check(err, "ssd_chunk")
+    global launches
+    launches += 1
+    return y, st, dec

@@ -5,7 +5,8 @@
 Builds one of the configurations ``chip_smoke.py`` serves, random
 weights from ``--seed``: ``--system paged`` (default) or ``contiguous``
 is ``launch.serve.full_width_system`` with that engine layout, ``paper``
-is ``launch.serve.paper_models_system``.  It warms the system up,
+is ``launch.serve.paper_models_system``, ``mamba2`` is
+``full_width_system`` with mamba2-1.3b on the contiguous engine.  It warms the system up,
 then runs ``CFedRAGSystem.serve`` on ``--queries`` queries under
 ``torch.profiler`` and prints the wall time, the device's busy share
 (summed kernel time over wall time; one stream, so kernels never
@@ -27,6 +28,10 @@ def _kind(name: str) -> str:
         return "mixed_prefill kernel"
     if "paged_decode" in n:
         return "paged_decode kernel"
+    if "flash_decode" in n:
+        return "flash_decode kernel"
+    if "ssd_chunk" in n:
+        return "ssd_chunk kernel"
     if "topk_partial" in n or "topk_merge" in n:
         return "retrieval_topk kernel"
     if "gemm" in n or "cutlass" in n or "sm90_xmma" in n or "nvjet" in n:
@@ -42,7 +47,7 @@ def _kind(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--system", default="paged", choices=["paged", "contiguous", "paper"])
+    ap.add_argument("--system", default="paged", choices=["paged", "contiguous", "paper", "mamba2"])
     ap.add_argument("--queries", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
@@ -62,6 +67,8 @@ def main(argv=None) -> int:
     ).stdout.strip()
     if args.system == "paper":
         sys_, _, texts = paper_models_system(args.queries, "cuda", args.seed)
+    elif args.system == "mamba2":
+        sys_, _, texts = full_width_system(args.queries, "cuda", args.seed, paged=False, arch="mamba2-1.3b")
     else:
         sys_, _, texts = full_width_system(args.queries, "cuda", args.seed, paged=args.system == "paged")
     sys_.serve(texts[:2], max_new_tokens=2)  # warm-up

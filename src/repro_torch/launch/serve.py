@@ -12,8 +12,9 @@ routes the whole query set through ``CFedRAGSystem.serve``, printing
 per-request p50/p95.  Everything runs on ``--device`` (default ``cuda``;
 ``cpu`` runs the kernels' plain versions).
 
-``full_width_system`` and ``paper_models_system`` build the two
-configurations measured on the card (``chip_smoke.py``,
+``full_width_system`` (qwen3-0.6b on the paged or contiguous engine, or
+mamba2-1.3b on the contiguous engine) and ``paper_models_system`` build
+the configurations measured on the card (``chip_smoke.py``,
 ``launch/profile_serve.py``).
 """
 from __future__ import annotations
@@ -86,13 +87,16 @@ def _on(tree, device):
     return map_tree(lambda t: t.to(device), tree)
 
 
-def _full_width_engine(tok: HashTokenizer, device: str, seed: int, paged: bool):
-    """qwen3-0.6b at full width (28 layers, bf16 activations and KV cache,
-    random weights from ``seed``) behind ``ServeConfig(max_batch=8,
-    max_prompt_len=256, max_new_tokens=16)``."""
-    cfg = get_config("qwen3-0.6b")
+def _full_width_engine(tok: HashTokenizer, device: str, seed: int, paged: bool, arch: str = "qwen3-0.6b"):
+    """``arch`` at full width (qwen3-0.6b: 28 layers, bf16 activations and
+    KV cache; mamba2-1.3b: 48 layers, bf16 activations, f32 SSM state, on
+    the contiguous engine only), random weights from ``seed``, behind
+    ``ServeConfig(max_batch=8, max_prompt_len=256, max_new_tokens=16)``."""
+    cfg = get_config(arch)
     if tok.vocab_size > cfg.vocab_size:
         raise ValueError("tokenizer vocabulary exceeds the model's")
+    if paged and cfg.family == "ssm":
+        raise ValueError(f"{arch} serves on the contiguous engine only: pass paged=False")
     gen = torch.Generator(device=device).manual_seed(seed)
     params = ParamTree(init_params(LM.param_specs(cfg), gen, device=device))
     scfg = ServeConfig(paged=paged, max_batch=8, max_prompt_len=256, max_new_tokens=16)
@@ -100,10 +104,11 @@ def _full_width_engine(tok: HashTokenizer, device: str, seed: int, paged: bool):
 
 
 def full_width_system(n_queries: int = 16, device: str = "cuda", seed: int = 0,
-                      generate: bool = True, paged: bool = True):
+                      generate: bool = True, paged: bool = True, arch: str = "qwen3-0.6b"):
     """The bag-embedder configuration measured on the card: the full-width
-    qwen3-0.6b engine (``_full_width_engine``; paged block pool, or
-    contiguous stripes with ``paged=False``) over a 128-fact +
+    ``arch`` engine (``_full_width_engine``; qwen3-0.6b by default on the
+    paged block pool, or contiguous stripes with ``paged=False``;
+    ``arch="mamba2-1.3b"`` needs ``paged=False``) over a 128-fact +
     128-distractor federated corpus with the overlap reranker.
 
     Returns ``(system, engine, texts)``, ``texts`` being the corpus's
@@ -111,7 +116,7 @@ def full_width_system(n_queries: int = 16, device: str = "cuda", seed: int = 0,
     federation with no model (``engine`` is None), for retrieval alone."""
     tok = HashTokenizer()
     corpus = make_federated_corpus(n_facts=128, n_distractors=128, n_queries=n_queries, seed=seed)
-    engine = _full_width_engine(tok, device, seed, paged) if generate else None
+    engine = _full_width_engine(tok, device, seed, paged, arch) if generate else None
     system = CFedRAGSystem(
         corpus, CFedRAGConfig(device=device), tokenizer=tok, reranker=overlap_reranker(tok),
         generator=engine_generator(engine) if engine is not None else None,

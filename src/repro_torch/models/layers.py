@@ -11,11 +11,12 @@ Dense attention (``attention_core``: prefill, forward, the encoders) goes
 through ``kernels/flash_attention``.  The cache-writing attention
 functions update their cache IN PLACE (the JAX package returns a new
 one): ``attn_decode`` writes each row's fresh K/V into its contiguous
-stripe; the paged functions scatter every live lane's K/V into its pool
-slot first, then attend through ``kernels/chunked_prefill`` (mixed steps)
-or ``kernels/decode_attention`` (decode steps).  On CUDA tensors the
-kernel ops launch the hand-written kernels; on CPU tensors they run their
-plain versions.
+stripe, then attends through ``kernels/decode_attention``'s contiguous
+flash-decode; the paged functions scatter every live lane's K/V into its
+pool slot first, then attend through ``kernels/chunked_prefill`` (mixed
+steps) or ``kernels/decode_attention``'s paged kernel (decode steps).
+On CUDA tensors the kernel ops launch the hand-written kernels; on CPU
+tensors they run their plain versions.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.chunked_prefill.ops import mixed_prefill_attention
-from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+from repro_torch.kernels.decode_attention.ops import decode_attention, paged_decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.params import ParamSpec
 
@@ -182,8 +183,9 @@ def attn_decode(cfg: ModelConfig, p, x, k_cache, v_cache, pos):
     (B, S, KV, hd), written IN PLACE; ``pos``: a scalar write position, or
     (B,) per-row positions for ragged batches (each row writes its own
     slot, which must lie below S, and attends to its own prefix
-    ``[0, pos]``).  Returns (B, 1, d)."""
-    b, s = x.shape[0], k_cache.shape[1]
+    ``[0, pos]``), through ``kernels/decode_attention`` with ``lengths =
+    pos + 1``.  Returns (B, 1, d)."""
+    b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     per_row = pos.dim() == 1
     positions = pos[:, None] if per_row else pos.expand(b, 1)
@@ -195,11 +197,8 @@ def attn_decode(cfg: ModelConfig, p, x, k_cache, v_cache, pos):
     else:
         k_cache[:, int(pos)] = k_new[:, 0].to(k_cache.dtype)
         v_cache[:, int(pos)] = v_new[:, 0].to(v_cache.dtype)
-    logits = _gqa_logits(q, k_cache.to(q.dtype)) / np.sqrt(q.shape[-1])  # (B, KV, G, 1, S)
-    kpos = torch.arange(s, device=x.device)
-    valid = (kpos[None, :] <= pos[:, None]).reshape(b, 1, 1, 1, s) if per_row else (kpos <= pos)
-    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
-    out = _gqa_out(torch.softmax(logits, dim=-1), v_cache.to(q.dtype), q.dtype)  # (B, 1, H, hd)
+    lengths = (pos + 1).expand(b)  # row b attends [0, pos[b]]
+    out = decode_attention(q[:, 0], k_cache, v_cache, lengths)[:, None]  # (B, 1, H, hd)
     return _out_proj(out, p["wo"])
 
 

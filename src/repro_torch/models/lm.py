@@ -1,4 +1,5 @@
-"""Dense causal LM: full forward, prefill and the serving steps.
+"""Causal LM: full forward, prefill and the serving steps, for the dense
+and the ``ssm`` (all-Mamba2) families.
 
 ``forward`` is the whole-sequence pass; ``prefill`` runs it over a prompt
 batch and fills the contiguous cache ``init_cache`` builds, and
@@ -8,18 +9,24 @@ stripes (the contiguous engine and the lock-step baseline).
 chunks and decode rows, one pass over the layer stack), and
 ``decode_step`` with block tables decodes one token per row through the
 pool that ``init_paged_cache`` builds.  Whole-sequence attention runs
-through ``kernels/flash_attention``.
+through ``kernels/flash_attention``, contiguous decode attention through
+``kernels/decode_attention``, and the Mamba2 mixer (``models/mamba2``)
+through ``kernels/ssd_scan``.
 
 Parameters keep the JAX package's tree: ``blocks`` holds one scan
 period's ``pos{j}`` subtrees stacked on a leading ``n_blocks`` axis, so
 ``params.from_reference`` maps the reference's tree one to one.  The
 layer loop is a Python loop over that axis; the cache keeps the same
-stacked layout and each layer updates its slice in place.
+stacked layout and each layer updates its slice in place.  An attention
+layer caches ``{"k", "v"}``; a Mamba2 layer caches ``{"conv": (x, B, C)
+conv histories, "ssm": state}``, which has no sequence axis to page, so
+the paged steps (``mixed_step``, ``init_paged_cache``) take attention
+models only, as the reference's unified path does.
 
-Only dense all-attention configs are ported so far: MoE, Mamba and the
-hybrid families raise ``NotImplementedError``.  The encoders
-(``dual_encoder``, ``cross_encoder``) declare their own trees with
-``_stack_specs`` and run their layers through ``encoder_stack``.
+MoE, the hybrid family and the patch frontend are not ported yet and
+raise ``NotImplementedError``.  The encoders (``dual_encoder``,
+``cross_encoder``) declare their own trees with ``_stack_specs`` and run
+their layers through ``encoder_stack``.
 """
 from __future__ import annotations
 
@@ -29,22 +36,35 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models.params import ParamSpec, map_tree
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.n_experts or any(
-        cfg.mixer_kind(i) != "attn" for i in range(cfg.n_layers)
-    ):
+def _check_ported(cfg: ModelConfig) -> None:
+    """Dense all-attention and all-Mamba2 (``ssm``) models are ported."""
+    dense = cfg.family == "dense" and all(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    if cfg.n_experts or not (dense or cfg.family == "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: only dense all-attention models are ported so far "
-            "(MoE, Mamba and hybrid families come with the model-families slice)"
+            f"{cfg.name}: only dense all-attention and all-Mamba2 models are ported so far "
+            "(the MoE and hybrid families come with a later model-families slice)"
+        )
+
+
+def _check_attention(cfg: ModelConfig, what: str) -> None:
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: {what} needs every mixer to be attention: SSM/conv state "
+            "folds the whole sequence and cannot restart mid-prompt"
         )
 
 
 def _position_specs(cfg: ModelConfig) -> dict:
     d = cfg.d_model
-    s: dict[str, Any] = {"mixer_norm": ParamSpec((d,), ("norm",), "ones"), "attn": L.attn_specs(cfg)}
+    s: dict[str, Any] = {"mixer_norm": ParamSpec((d,), ("norm",), "ones")}
+    if cfg.family == "ssm":
+        s["mamba"] = M.mamba_specs(cfg)
+    else:
+        s["attn"] = L.attn_specs(cfg)
     if cfg.d_ff > 0:
         s["ffn_norm"] = ParamSpec((d,), ("norm",), "ones")
         s["mlp"] = L.mlp_specs(cfg)
@@ -62,7 +82,7 @@ def _stack_specs(tree, n: int):
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    _check_dense(cfg)
+    _check_ported(cfg)
     block = {f"pos{j}": _position_specs(cfg) for j in range(cfg.scan_period)}
     specs = {
         "embed": L.embed_specs(cfg),
@@ -75,9 +95,25 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16, device="cuda") -> dict:
-    """Contiguous K/V: per period position ``{"k", "v"}`` leaves of shape
-    ``(n_blocks, batch, cache_len, kv, hd)``, one stripe per row."""
-    _check_dense(cfg)
+    """Contiguous decode cache per period position.  Attention: ``{"k",
+    "v"}`` leaves of shape ``(n_blocks, batch, cache_len, kv, hd)``, one
+    stripe per row.  Mamba2: ``{"conv": three (n_blocks, batch, W - 1, C)
+    leaves in ``dtype`` (C = d_inner, G * ds, G * ds), "ssm": (n_blocks,
+    batch, H, hd, ds) f32}``; ``cache_len`` does not apply."""
+    _check_ported(cfg)
+    if cfg.family == "ssm":
+        n, w, gds = cfg.n_blocks, cfg.conv_width, cfg.ssm_groups * cfg.ssm_state
+        return {
+            f"pos{j}": {
+                "conv": tuple(
+                    torch.zeros((n, batch, w - 1, c), dtype=dtype, device=device) for c in (cfg.d_inner, gds, gds)
+                ),
+                "ssm": torch.zeros(
+                    (n, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), dtype=torch.float32, device=device
+                ),
+            }
+            for j in range(cfg.scan_period)
+        }
     shape = (cfg.n_blocks, batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {
         f"pos{j}": {
@@ -93,8 +129,9 @@ def init_paged_cache(cfg: ModelConfig, n_pool_blocks: int, block_size: int,
     """Paged K/V: per period position ``{"k", "v"}`` leaves of shape
     ``(n_blocks, n_pool_blocks, block_size, kv, hd)``.  The caller keeps
     one pool index (the last) as the trash block that unallocated table
-    entries and dead lanes point at."""
-    _check_dense(cfg)
+    entries and dead lanes point at.  Attention models only."""
+    _check_ported(cfg)
+    _check_attention(cfg, "the paged KV cache")
     shape = (cfg.n_blocks, n_pool_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {
         f"pos{j}": {
@@ -116,7 +153,7 @@ def _ffn(cfg, pp, h):
 
 
 def _embed_tokens(cfg: ModelConfig, params, tokens):
-    _check_dense(cfg)
+    _check_ported(cfg)
     if cfg.frontend == "patches":
         raise NotImplementedError(f"{cfg.name}: the patch-embedding frontend is not ported yet")
     return L.embed_apply(cfg, params["embed"], tokens)
@@ -137,7 +174,11 @@ def forward(cfg: ModelConfig, params, batch):
         for j in range(cfg.scan_period):
             pp = _layer_params(params, i, j)
             x = L.rmsnorm(h, pp["mixer_norm"], cfg.norm_eps)
-            h = _ffn(cfg, pp, h + L.attn_apply(cfg, pp["attn"], x, positions))
+            if cfg.family == "ssm":
+                o, _ = M.mamba_apply(cfg, pp["mamba"], x)
+            else:
+                o = L.attn_apply(cfg, pp["attn"], x, positions)
+            h = _ffn(cfg, pp, h + o)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return L.head_apply(cfg, params, h), torch.zeros((), device=tokens.device)
 
@@ -156,11 +197,17 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int | None = None):
             pp = _layer_params(params, i, j)
             c = cache[f"pos{j}"]
             x = L.rmsnorm(h, pp["mixer_norm"], cfg.norm_eps)
-            q, k, v = L.attn_qkv(cfg, pp["attn"], x, positions)
-            o = L.attention_core(cfg, q, k, v, causal=cfg.causal)
-            c["k"][i, :, :s] = k.to(c["k"].dtype)
-            c["v"][i, :, :s] = v.to(c["v"].dtype)
-            h = _ffn(cfg, pp, h + L._out_proj(o, pp["attn"]["wo"]))
+            if cfg.family == "ssm":
+                o, (conv, ssm) = M.mamba_apply(cfg, pp["mamba"], x)
+                for leaf, new in zip(c["conv"], conv):
+                    leaf[i] = new
+                c["ssm"][i] = ssm
+            else:
+                q, k, v = L.attn_qkv(cfg, pp["attn"], x, positions)
+                c["k"][i, :, :s] = k.to(c["k"].dtype)
+                c["v"][i, :, :s] = v.to(c["v"].dtype)
+                o = L._out_proj(L.attention_core(cfg, q, k, v, causal=cfg.causal), pp["attn"]["wo"])
+            h = _ffn(cfg, pp, h + o)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return L.head_apply(cfg, params, h), cache
 
@@ -184,7 +231,9 @@ def mixed_step(cfg: ModelConfig, params, tokens, cache, block_tables, q_start, q
     ``q_len[b]`` live tokens from absolute position ``q_start[b]`` (a
     decode row has ``q_len == 1``, an idle slot ``q_len == 0``).  Earlier
     positions must already be in the pool blocks of ``block_tables``.
-    Returns logits (B, W, V); ``cache`` is updated in place."""
+    Returns logits (B, W, V); ``cache`` is updated in place.  Attention
+    models only."""
+    _check_attention(cfg, "the unified mixed step")
     b, w = tokens.shape
     h = L.embed_apply(cfg, params["embed"], tokens)
     q_start = q_start.to(torch.int32)
@@ -209,7 +258,11 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, block_tables=None,
     position or (B,) per-row positions (row ``b`` attends ``[0, pos[b]]``).
     Without ``block_tables`` the cache is ``init_cache``'s contiguous
     stripes; with them (per-row ``pos``) it is ``init_paged_cache``'s pool.
+    A Mamba2 layer takes its recurrent step from its ``conv`` / ``ssm``
+    leaves (``pos`` does not apply; paged Mamba2 decode raises).
     Returns logits (B, 1, V); ``cache`` is updated in place."""
+    if block_tables is not None:
+        _check_attention(cfg, "paged decode")
     h = L.embed_apply(cfg, params["embed"], tokens)
     pos = torch.as_tensor(pos, device=tokens.device).to(torch.int32)
     for i in range(cfg.n_blocks):
@@ -217,7 +270,12 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, block_tables=None,
             pp = _layer_params(params, i, j)
             c = cache[f"pos{j}"]
             x = L.rmsnorm(h, pp["mixer_norm"], cfg.norm_eps)
-            if block_tables is None:
+            if cfg.family == "ssm":
+                o, conv, ssm = M.mamba_decode(cfg, pp["mamba"], x, tuple(t[i] for t in c["conv"]), c["ssm"][i])
+                for leaf, new in zip(c["conv"], conv):
+                    leaf[i] = new
+                c["ssm"][i] = ssm
+            elif block_tables is None:
                 o = L.attn_decode(cfg, pp["attn"], x, c["k"][i], c["v"][i], pos)
             else:
                 o = L.attn_decode_paged(cfg, pp["attn"], x, c["k"][i], c["v"][i], pos, block_tables, block_size)

@@ -39,7 +39,10 @@ The pool, tables and device cache are resident: created on first use and
 kept across ``serve`` calls until ``reset_cache``.  The contiguous cache
 is made anew by each serve call.
 
-Both layouts give the same tokens for the same admission order.  Options
+Both layouts give the same tokens for the same admission order.  An
+all-Mamba2 model (``ssm`` family) serves on the contiguous path and the
+lock-step baseline, whose admit prefills carry its conv and SSM state into
+the slot; the paged path refuses it, as the reference's does.  Options
 of the JAX package's engine that this port does not run yet raise
 ``NotImplementedError``: the prefix cache and its host spill tier,
 speculative decoding and the sharded pool.
@@ -259,13 +262,17 @@ class ServeEngine:
 
     def _admit_rows(self, st, cache, rows_tokens, slot_ids, row_lens, b_new):
         """Prefill ``g`` requests and scatter them into contiguous cache
-        stripes ``slot_ids`` in one fused call."""
+        stripes ``slot_ids`` in one fused call (for a Mamba2 layer, its
+        conv histories and SSM state)."""
         cur, lengths, emitted, done, budget, out = st
         first, row_cache = self._prefill(rows_tokens, row_lens)
         sl = slot_ids.long()
         for key, leaves in cache.items():
             for kk, leaf in leaves.items():
-                leaf[:, sl] = row_cache[key][kk]
+                # a Mamba2 layer's "conv" is a tuple of three leaves
+                pairs = zip(leaf, row_cache[key][kk]) if isinstance(leaf, tuple) else [(leaf, row_cache[key][kk])]
+                for dst, src in pairs:
+                    dst[:, sl] = src
         cur[sl] = first
         lengths[sl] = row_lens
         emitted[sl] = 1

@@ -8,7 +8,9 @@ the card and without JAX run them with
 
 Tolerances: f32 2e-5 (the kernel sums in another order than the plain
 version's batched products), bf16 2e-2, top-k ids exact on inputs with
-exact integer-valued scores.
+exact integer-valued scores; the SSD chunk terms at rtol = atol = 1e-4,
+the reference's own SSD tolerance (tests/test_kernels.py), since its
+outputs reach the hundreds.
 """
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from repro_torch.kernels.chunked_prefill import ops as cp_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.retrieval_topk import ops as rt_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ss_ops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -192,3 +195,126 @@ def test_flash_attention_reads_strided_views(cuda_device):
             o.cpu().numpy(), fa_ops.flash_attention_plain(q, k, v, causal=causal).cpu().numpy(),
             rtol=2e-5, atol=2e-5,
         )
+
+
+# ---------------- contiguous flash-decode ----------------
+def _decode_case(rng, device, b, s, h, kv, dh, dtype):
+    q = torch.as_tensor(rng.standard_normal((b, h, dh)), dtype=dtype, device=device)
+    k = torch.as_tensor(rng.standard_normal((b, s, kv, dh)), dtype=dtype, device=device)
+    v = torch.as_tensor(rng.standard_normal((b, s, kv, dh)), dtype=dtype, device=device)
+    lens = rng.integers(1, s + 1, size=b)
+    lens[0] = s
+    return q, k, v, torch.as_tensor(lens, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,s,h,kv,dh",
+    [(2, 64, 8, 4, 32), (4, 128, 4, 4, 16), (1, 256, 16, 2, 64),  # the reference sweep
+     (8, 272, 16, 8, 128), (3, 100, 16, 8, 128), (2, 33, 32, 2, 64)],  # serving shape, S off 64
+)
+def test_flash_decode_matches_plain(cuda_device, b, s, h, kv, dh, dtype):
+    q, k, v, lens = _decode_case(np.random.default_rng(b * s + h + dh), cuda_device, b, s, h, kv, dh, dtype)
+    o = da_ops.decode_attention(q, k, v, lens)
+    o_p = da_ops.decode_attention_plain(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == (b, h, dh)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(o.float().cpu().numpy(), o_p.float().cpu().numpy(), rtol=tol, atol=tol)
+    # partials: the running max, the sum and the normalised output
+    o_k, m_k, l_k = da_ops.decode_attention(q, k, v, lens, return_partials=True)
+    o_q, m_q, l_q = da_ops.decode_attention_plain(q, k, v, lens, return_partials=True)
+    torch.cuda.synchronize()
+    assert o_k.shape == (b, kv, h // kv, dh) and m_k.shape == l_k.shape == (b, kv, h // kv, 1)
+    np.testing.assert_allclose(m_k.cpu().numpy(), m_q.cpu().numpy(), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(l_k.cpu().numpy(), l_q.cpu().numpy(), rtol=2e-5, atol=0)
+    np.testing.assert_allclose((o_k / l_k).cpu().numpy(), (o_q / l_q).cpu().numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_decode_partials_combine_and_strided_cache(cuda_device):
+    """4 sequence shards combined == the monolithic answer; a cache read
+    through the strides of a wider buffer == the contiguous cache."""
+    b, s, h, kv, dh, shards = 8, 272, 16, 8, 128, 4
+    rng = np.random.default_rng(11)
+    q = torch.as_tensor(rng.standard_normal((b, h, dh)), dtype=torch.float32, device=cuda_device)
+    buf = torch.as_tensor(rng.standard_normal((b, s, 2, kv, dh)), dtype=torch.float32, device=cuda_device)
+    k, v = buf[:, :, 0], buf[:, :, 1]
+    assert not k.is_contiguous()
+    lens = torch.as_tensor([272, 17, 200, 64, 250, 131, 99, 1], dtype=torch.int32, device=cuda_device)
+    full = da_ops.decode_attention(q, k, v, lens)
+    assert torch.equal(full, da_ops.decode_attention(q, k.contiguous(), v.contiguous(), lens))
+    step = s // shards
+    parts = [
+        da_ops.decode_attention(q, k[:, i * step : (i + 1) * step], v[:, i * step : (i + 1) * step],
+                                torch.clamp(lens - i * step, 0, step), return_partials=True)
+        for i in range(shards)
+    ]
+    combined = da_ops.combine_partials(*zip(*parts)).reshape(b, h, dh)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(combined.cpu().numpy(), full.cpu().numpy(), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        full.cpu().numpy(), da_ops.decode_attention_plain(q, k, v, lens).cpu().numpy(), rtol=2e-5, atol=2e-5
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_empty_row_is_mean_of_v(cuda_device, dtype):
+    """lengths[b] == 0: every logit is masked, the TPU kernel weighs all S
+    positions equally (m = -1e30, l = S, o = sum V), so the answer is mean(V)."""
+    b, s, h, kv, dh = 3, 70, 8, 4, 64
+    q, k, v, _ = _decode_case(np.random.default_rng(5), cuda_device, b, s, h, kv, dh, dtype)
+    lens = torch.as_tensor([0, 9, 0], dtype=torch.int32, device=cuda_device)
+    o = da_ops.decode_attention(q, k, v, lens)
+    o_k, m_k, l_k = da_ops.decode_attention(q, k, v, lens, return_partials=True)
+    torch.cuda.synchronize()
+    mean_v = v.float().mean(dim=1).repeat_interleave(h // kv, dim=1)  # (B, H, dh)
+    tol = _tol(dtype)
+    for r in (0, 2):
+        np.testing.assert_allclose(o[r].float().cpu().numpy(), mean_v[r].cpu().numpy(), rtol=tol, atol=tol)
+        assert bool((m_k[r] == -1e30).all()) and bool((l_k[r] == s).all())
+    np.testing.assert_allclose(
+        o.float().cpu().numpy(), da_ops.decode_attention_plain(q, k, v, lens).float().cpu().numpy(),
+        rtol=tol, atol=tol,
+    )
+
+
+# ---------------- SSD chunk ----------------
+def _ssd_case(rng, device, b, l, h, hd, ds, dtype, expand=False):
+    x = torch.as_tensor(rng.standard_normal((b, l, h, hd)), dtype=dtype, device=device)
+    gh = 1 if expand else h
+    bb = torch.as_tensor(rng.standard_normal((b, l, gh, ds)), dtype=dtype, device=device)
+    cc = torch.as_tensor(rng.standard_normal((b, l, gh, ds)), dtype=dtype, device=device)
+    if expand:
+        bb, cc = bb.expand(b, l, h, ds), cc.expand(b, l, h, ds)
+    dt = torch.nn.functional.softplus(torch.as_tensor(rng.standard_normal((b, l, h)), dtype=torch.float32, device=device))
+    a = -torch.exp(torch.as_tensor(rng.standard_normal(h), dtype=torch.float32, device=device))
+    return x, bb, cc, dt, a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ds", [16, 128])
+@pytest.mark.parametrize("l,hd", [(16, 64), (64, 64), (256, 64), (100, 16)])
+def test_ssd_chunk_matches_plain(cuda_device, l, hd, ds, dtype):
+    args = _ssd_case(np.random.default_rng(l * ds + hd), cuda_device, 2, l, 4, hd, ds, dtype)
+    outs = ss_ops.ssd_chunk(*args)
+    plain = ss_ops.ssd_chunk_plain(*args)
+    torch.cuda.synchronize()
+    for got, want, shape in zip(outs, plain, [(2, l, 4, hd), (2, 4, hd, ds), (2, 4)]):
+        assert got.dtype == torch.float32 and tuple(got.shape) == shape
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_chunk_reads_expanded_group_views(cuda_device):
+    """One group shared by every head, handed over as a head-stride-0
+    view, gives the materialised answer bitwise; x and dt sliced out of a
+    longer sequence are read in place."""
+    x, bb, cc, dt, a = _ssd_case(np.random.default_rng(3), cuda_device, 2, 300, 8, 64, 128, torch.bfloat16, expand=True)
+    assert bb.stride(2) == 0
+    xs, bs_, cs, dts = x[:, 22:278], bb[:, 22:278], cc[:, 22:278], dt[:, 22:278]
+    got = ss_ops.ssd_chunk(xs, bs_, cs, dts, a)
+    want = ss_ops.ssd_chunk(*(t.contiguous() for t in (xs, bs_, cs, dts)), a)
+    plain = ss_ops.ssd_chunk_plain(xs, bs_, cs, dts, a)
+    torch.cuda.synchronize()
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(g, w)
+        np.testing.assert_allclose(g.cpu().numpy(), p.cpu().numpy(), rtol=1e-4, atol=1e-4)

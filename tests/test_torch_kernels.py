@@ -3,8 +3,9 @@ the reference Pallas kernels in interpret mode and the reference oracles.
 
 Tolerances: top-k scores 1e-5 and ids exact (inputs are integer-valued,
 so every score is exact and the ties built in are true ties); attention
-2e-5 in f32 and 2e-2 in bf16, as tests/test_kernels.py holds the
-reference; dead lanes and poisoned trash blocks are held bitwise.
+2e-5 in f32 and 2e-2 in bf16, and the SSD chunk terms 1e-4, as
+tests/test_kernels.py holds the reference; dead lanes and poisoned trash
+blocks are held bitwise.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,16 +15,21 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels.chunked_prefill.kernel import mixed_prefill_attention_pallas  # noqa: E402
 from repro.kernels.chunked_prefill.ref import mixed_prefill_attention_ref  # noqa: E402
+from repro.kernels.decode_attention.kernel import combine_partials as r_combine_partials  # noqa: E402
+from repro.kernels.decode_attention.kernel import decode_attention_pallas  # noqa: E402
 from repro.kernels.decode_attention.kernel import paged_decode_attention_pallas  # noqa: E402
-from repro.kernels.decode_attention.ref import paged_decode_attention_ref  # noqa: E402
+from repro.kernels.decode_attention.ref import decode_attention_ref, paged_decode_attention_ref  # noqa: E402
 from repro.kernels.flash_attention.kernel import flash_attention_pallas  # noqa: E402
 from repro.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro.kernels.retrieval_topk.kernel import retrieval_topk_pallas  # noqa: E402
 from repro.kernels.retrieval_topk.ref import retrieval_topk_ref  # noqa: E402
+from repro.kernels.ssd_scan.kernel import ssd_chunk_pallas  # noqa: E402
+from repro.kernels.ssd_scan.ref import ssd_chunk_ref  # noqa: E402
 from repro_torch.kernels.chunked_prefill import ops as cp_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.retrieval_topk import ops as rt_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ss_ops  # noqa: E402
 
 T = torch.as_tensor
 
@@ -67,6 +73,10 @@ def test_ops_refuse_other_devices():
         da_ops.paged_decode_attention(torch.empty((1, 2, 16), device="meta"), None, None, None, None)
     with pytest.raises(ValueError):
         fa_ops.flash_attention(*(torch.empty((1, 4, 2, 16), device="meta"),) * 3)
+    with pytest.raises(ValueError):
+        da_ops.decode_attention(torch.empty((1, 2, 16), device="meta"), None, None, None)
+    with pytest.raises(ValueError):
+        ss_ops.ssd_chunk(torch.empty((1, 4, 2, 16), device="meta"), None, None, None, None)
 
 
 # ---------------- mixed prefill attention ----------------
@@ -216,3 +226,111 @@ def test_flash_attention_rejects_q_offset():
     with pytest.raises(ValueError, match="q_offset"):
         fa_ops.flash_attention(q, k, v, causal=True, q_offset=3)
     assert torch.equal(fa_ops.flash_attention(q, k, v, q_offset=0), fa_ops.flash_attention_plain(q, k, v, causal=True))
+
+
+# ---------------- contiguous flash-decode ----------------
+def _decode_args(seed, b, s, h, kv, dh, lens=None):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, dh)).astype(np.float32)
+    kc = rng.standard_normal((b, s, kv, dh)).astype(np.float32)
+    vc = rng.standard_normal((b, s, kv, dh)).astype(np.float32)
+    if lens is None:
+        lens = rng.integers(1, s + 1, size=b)
+    return q, kc, vc, np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,bs", [(2, 64, 8, 4, 32, 16), (4, 128, 4, 4, 16, 32), (1, 256, 16, 2, 64, 64)])
+def test_decode_attention_plain_matches_pallas_and_ref(b, s, h, kv, dh, bs):
+    """The reference sweep's shapes (tests/test_kernels.py): the
+    normalised output against the Pallas kernel (interpret mode) and the
+    oracle, and the (o, m, l) partials against the Pallas partials."""
+    args = _decode_args(b * s, b, s, h, kv, dh)
+    o = da_ops.decode_attention(*map(T, args))
+    assert o.shape == (b, h, dh) and o.dtype == torch.float32
+    ja = [jnp.asarray(a) for a in args]
+    for o_x in (decode_attention_pallas(*ja, bs=bs), decode_attention_ref(*ja)):
+        np.testing.assert_allclose(o.numpy(), np.asarray(o_x), rtol=2e-5, atol=2e-5)
+    parts = da_ops.decode_attention(*map(T, args), return_partials=True)
+    parts_p = decode_attention_pallas(*ja, bs=bs, return_partials=True)
+    for got, want in zip(parts, parts_p):
+        assert tuple(got.shape) == tuple(want.shape)
+    o_t, m_t, l_t = (t.numpy() for t in parts)
+    o_p, m_p, l_p = (np.asarray(t) for t in parts_p)
+    np.testing.assert_allclose(m_t, m_p, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(l_t, l_p, rtol=2e-5, atol=0)
+    np.testing.assert_allclose(o_t / l_t, o_p / l_p, rtol=2e-5, atol=2e-5)
+
+
+def test_decode_attention_empty_row_matches_pallas():
+    """A row with lengths 0: the TPU kernel masks all S logits to -1e30 and
+    weighs them equally (m = -1e30, l = S, o = sum V), so the answer is
+    mean(V), which the oracle's softmax also gives."""
+    b, s, h, kv, dh = 3, 64, 8, 4, 32
+    args = _decode_args(9, b, s, h, kv, dh, lens=[0, 17, 0])
+    ja = [jnp.asarray(a) for a in args]
+    o = da_ops.decode_attention(*map(T, args)).numpy()
+    o_t, m_t, l_t = (t.numpy() for t in da_ops.decode_attention(*map(T, args), return_partials=True))
+    o_p, m_p, l_p = (np.asarray(t) for t in decode_attention_pallas(*ja, bs=16, return_partials=True))
+    mean_v = np.repeat(args[2].mean(axis=1), h // kv, axis=1)  # (B, H, dh)
+    for r in (0, 2):
+        assert (m_t[r] == -1e30).all() and (m_p[r] == -1e30).all()
+        assert (l_t[r] == s).all() and (l_p[r] == s).all()
+        np.testing.assert_allclose(o_t[r], o_p[r], rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(o[r], mean_v[r], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(o, np.asarray(decode_attention_ref(*ja)), rtol=2e-5, atol=2e-5)
+
+
+def test_decode_partials_combine_equals_monolithic():
+    """4 sequence shards' partials, combined, equal attention over the
+    whole cache (tests/test_kernels.py); the port's combine equals the
+    reference's on the same partials."""
+    b, s, h, kv, dh, shards = 2, 128, 8, 4, 32, 4
+    q, kc, vc, _ = _decode_args(7, b, s, h, kv, dh)
+    lens = np.array([s, 77], np.int32)  # row 1 leaves its last shard empty
+    full = da_ops.decode_attention(*map(T, (q, kc, vc, lens)))
+    step = s // shards
+    parts = [
+        da_ops.decode_attention(T(q), T(kc[:, i * step : (i + 1) * step]), T(vc[:, i * step : (i + 1) * step]),
+                                T(np.clip(lens - i * step, 0, step)), return_partials=True)
+        for i in range(shards)
+    ]
+    combined = da_ops.combine_partials(*zip(*parts))
+    np.testing.assert_allclose(combined.reshape(b, h, dh).numpy(), full.numpy(), rtol=2e-5, atol=2e-5)
+    r_comb = r_combine_partials(*([jnp.asarray(t.numpy()) for t in xs] for xs in zip(*parts)))
+    np.testing.assert_allclose(combined.numpy(), np.asarray(r_comb), rtol=2e-5, atol=2e-5)
+
+
+# ---------------- SSD chunk ----------------
+def _ssd_args(seed, b, l, h, hd, ds):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, h, hd)).astype(np.float32)
+    bb = rng.standard_normal((b, l, h, ds)).astype(np.float32)
+    cc = rng.standard_normal((b, l, h, ds)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, l, h)))).astype(np.float32)  # softplus
+    a = (-np.exp(rng.standard_normal(h))).astype(np.float32)
+    return x, bb, cc, dt, a
+
+
+@pytest.mark.parametrize("b,l,h,hd,ds", [(1, 16, 2, 8, 8), (2, 32, 4, 16, 8), (2, 64, 2, 32, 16)])
+def test_ssd_chunk_plain_matches_pallas_and_ref(b, l, h, hd, ds):
+    """The reference sweep's shapes (tests/test_kernels.py), at its 1e-4."""
+    args = _ssd_args(l, b, l, h, hd, ds)
+    outs = ss_ops.ssd_chunk(*map(T, args))
+    shapes = [(b, l, h, hd), (b, h, hd, ds), (b, h)]
+    ja = [jnp.asarray(a) for a in args]
+    for ref_outs in (ssd_chunk_pallas(*ja), ssd_chunk_ref(*ja)):
+        for got, want, shape in zip(outs, ref_outs, shapes):
+            assert tuple(got.shape) == shape and got.dtype == torch.float32
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_chunk_expanded_group_view_equals_materialised():
+    """One group shared by all heads as a head-stride-0 view gives the
+    materialised rows' answer bitwise."""
+    x, bb, cc, dt, a = _ssd_args(4, 2, 24, 4, 16, 8)
+    b1, c1 = T(bb[:, :, :1]).expand(2, 24, 4, 8), T(cc[:, :, :1]).expand(2, 24, 4, 8)
+    assert b1.stride(2) == 0
+    view = ss_ops.ssd_chunk(T(x), b1, c1, T(dt), T(a))
+    mat = ss_ops.ssd_chunk(T(x), b1.contiguous(), c1.contiguous(), T(dt), T(a))
+    for got, want in zip(view, mat):
+        assert torch.equal(got, want)

@@ -8,7 +8,9 @@ truncation flags equal, and answer tokens equal; a token may differ only
 where the reference's top-2 logit margin at that step is under 1e-4
 (a near-tie that float reassociation may flip).  Within the port, the
 contiguous and paged engines give equal tokens for the same admission
-order.
+order.  Smoke-width mamba2-1.3b (the ``ssm`` family) serves on the
+contiguous engine and the lock-step baseline, held to the reference's the
+same way; both packages refuse it on the paged engine.
 """
 import jax
 import jax.numpy as jnp
@@ -20,7 +22,7 @@ torch = pytest.importorskip("torch")
 from repro.configs import get_config as r_get, smoke_config as r_smoke  # noqa: E402
 from repro.core.pipeline import CFedRAGConfig as RConfig, CFedRAGSystem as RSystem  # noqa: E402
 from repro.data.corpus import make_federated_corpus as r_corpus  # noqa: E402
-from repro.data.tokenizer import HashTokenizer as RTok  # noqa: E402
+from repro.data.tokenizer import PAD, HashTokenizer as RTok  # noqa: E402
 from repro.launch.serve import overlap_reranker as r_rerank  # noqa: E402
 from repro.models import lm as RLM  # noqa: E402
 from repro.models.params import init_params as r_init  # noqa: E402
@@ -57,13 +59,28 @@ def _margin(cfg, params, prompt, answer_prefix):
     return float(top2[1] - top2[0])
 
 
-def _assert_same_tokens(cfg, params, prompt, want, got):
-    """Equal, or first different where the reference's margin is a near-tie."""
+def _ssm_margin(cfg, params, prompt, answer_prefix, width):
+    """The reference's top-2 margin where the contiguous engine takes an
+    SSM model's answer token ``len(answer_prefix)``: the first from the
+    prompt's last position, the later ones after the PAD tail that the
+    packed prefill (``width`` positions) folds into the state."""
+    if len(answer_prefix):
+        prompt = np.concatenate([prompt, np.full(width - len(prompt), PAD, np.int32), answer_prefix])
+    return _margin(cfg, params, prompt, np.zeros(0, np.int32))
+
+
+def _assert_same_tokens(cfg, params, prompt, want, got, width=None):
+    """Equal, or first different where the reference's margin is a near-tie
+    (``width``: the packed prefill width of an SSM model)."""
     want, got = np.asarray(want), np.asarray(got)
     if not np.array_equal(want, got):
         j = next((i for i in range(min(len(want), len(got))) if want[i] != got[i]), None)
         assert j is not None, (want, got)
-        assert _margin(cfg, params, prompt, want[:j]) < 1e-4, (want, got)
+        if width is None:
+            margin = _margin(cfg, params, prompt, want[:j])
+        else:
+            margin = _ssm_margin(cfg, params, np.asarray(prompt), want[:j], width)
+        assert margin < 1e-4, (want, got)
 
 
 @pytest.mark.parametrize(
@@ -287,3 +304,70 @@ def test_cuda_default_without_card_raises(bridged):
         TSystem(corpus)  # CFedRAGConfig.device defaults to "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_launch.main(["--queries", "1", "--n-facts", "4"])
+
+
+# ---------------- the ssm family: smoke-width mamba2-1.3b ----------------
+@pytest.fixture(scope="module")
+def bridged_mamba2():
+    cfg = r_smoke(r_get("mamba2-1.3b")).with_overrides(dtype="float32", vocab_size=VOCAB)
+    tcfg = t_smoke(t_get("mamba2-1.3b")).with_overrides(dtype="float32", vocab_size=VOCAB)
+    params = r_init(RLM.param_specs(cfg), jax.random.PRNGKey(3))
+    tparams = from_reference(TLM.param_specs(tcfg), jax.tree.map(np.asarray, params), device="cpu")
+    return cfg, tcfg, params, tparams
+
+
+def test_mamba2_contiguous_and_lockstep_match_reference(bridged_mamba2):
+    """The contiguous engine (ragged prompts and budgets, bucketed admits
+    over a 48-wide packed prefill: 3 SSD chunks of 16) and the lock-step
+    baseline give the reference's tokens and dispatch counts."""
+    cfg, tcfg, params, tparams = bridged_mamba2
+    kw = dict(max_batch=2, max_prompt_len=48, max_new_tokens=5, sched_chunk=2)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(8, VOCAB, size=n).astype(np.int32) for n in (40, 17, 48, 5, 23)]
+    budgets = [5, 2, 4, 5, 1]
+    r_eng = REngine(cfg, POL, params, RServe(**kw))
+    t_eng = TE.ServeEngine(tcfg, tparams, TE.ServeConfig(**kw), device="cpu")
+    want = r_eng.serve_prompts(prompts, max_new_tokens=budgets)
+    got = t_eng.serve_prompts(prompts, max_new_tokens=budgets)
+    for p, w, g in zip(prompts, want, got):
+        _assert_same_tokens(cfg, params, p, w, g, width=kw["max_prompt_len"])
+    assert (r_eng.admit_dispatches, r_eng.decode_dispatches) == (t_eng.admit_dispatches, t_eng.decode_dispatches)
+    assert t_eng.admit_dispatches >= 2
+    r_lock, t_lock = r_gen(REngine(cfg, POL, params, RServe(**kw)), mode="lockstep"), TE.engine_generator(
+        TE.ServeEngine(tcfg, tparams, TE.ServeConfig(**kw), device="cpu"), mode="lockstep")
+    for p, w, g in zip(prompts, r_lock.generate_batch(prompts), t_lock.generate_batch(prompts)):
+        _assert_same_tokens(cfg, params, p, w, g, width=kw["max_prompt_len"])
+
+
+def test_mamba2_serve_matches_reference(bridged_mamba2):
+    """``CFedRAGSystem.serve`` with the mamba2 engine: the reference's
+    prompts, statuses, dispatch counts and answer tokens."""
+    cfg, tcfg, params, tparams = bridged_mamba2
+    scfg = dict(paged=False, max_batch=3, max_prompt_len=96, max_new_tokens=6)
+    kw = dict(n_facts=16, n_distractors=16, n_queries=5, seed=2)
+    sys_kw = dict(aggregation="rerank", m_local=4, n_global=4, chunk_max_len=16)
+    rtok, ttok = RTok(), TTok()
+    r_sys = RSystem(r_corpus(**kw), RConfig(**sys_kw), tokenizer=rtok, reranker=r_rerank(rtok),
+                    generator=r_gen(REngine(cfg, POL, params, RServe(**scfg))))
+    t_sys = TSystem(t_corpus(**kw), TConfig(device="cpu", **sys_kw), tokenizer=ttok,
+                    reranker=t_launch.overlap_reranker(ttok),
+                    generator=TE.engine_generator(TE.ServeEngine(tcfg, tparams, TE.ServeConfig(**scfg), device="cpu")))
+    texts = [q.text for q in r_sys.corpus.queries]
+    budgets = [6, 2, 6, 1, 4]
+    for a, b in zip(r_sys.serve(texts, max_new_tokens=budgets), t_sys.serve(texts, max_new_tokens=budgets)):
+        assert np.array_equal(a["prompt"], b["prompt"])
+        assert a["status"] == b["status"] == "done"
+        _assert_same_tokens(cfg, params, a["prompt"], a["answer_tokens"], b["answer_tokens"], width=96)
+    rs, ts = r_sys.last_serve_stats, t_sys.last_serve_stats
+    for key in ("admit_dispatches", "mixed_dispatches", "decode_dispatches", "engine_steps"):
+        assert rs[key] == ts[key], key
+
+
+def test_paged_ssm_raises_in_both_packages(bridged_mamba2):
+    cfg, tcfg, params, tparams = bridged_mamba2
+    with pytest.raises(ValueError, match="all-attention"):
+        REngine(cfg, POL, params, RServe(paged=True))
+    with pytest.raises(ValueError, match="all-attention"):
+        TE.ServeEngine(tcfg, tparams, TE.ServeConfig(paged=True), device="cpu")
+    with pytest.raises(ValueError, match="contiguous"):
+        t_launch.full_width_system(1, "cpu", paged=True, arch="mamba2-1.3b")
