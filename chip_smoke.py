@@ -3,12 +3,15 @@
 starts on the GPU.
 
     python3 chip_smoke.py        # from the repository root, on a machine with one CUDA card
+    python3 chip_smoke.py --parent-csrc DIR   # also time an earlier commit's two attention kernels
 
 Phases (any failure exits non-zero, and the final ok line is printed
 only when every phase passed):
 
 1. device     the card's name and power limit, as nvidia-smi reports them;
-2. build      the six CUDA kernels, one nvcc each, all started together;
+2. build      the six CUDA kernels, one nvcc each, all started together,
+              and ptxas's registers and spills of flash_attention and
+              paged_decode;
 3. kernels    each kernel against its plain PyTorch version on the card at
               the full-width path shapes, f32 and bf16 (tolerance 2e-5 f32:
               both sum in f32 but in another order; 2e-2 bf16), the ±1e4
@@ -22,7 +25,13 @@ only when every phase passed):
               phase-7 admit shape (its outputs reach the hundreds, so its
               error is taken relative to the largest output); times of
               kernel, plain version, one PyTorch library call (never called
-              by the port) where one computes the function, and the bound;
+              by the port) where one computes the function, and the bound:
+              the median of 20 calls taken in turns (a, b, b, a, ...), each
+              after an L2 flush and a 1 ms device spin, so that the host's
+              enqueue does not fall between the timing events.  With
+              ``--parent-csrc DIR`` (an earlier commit's flash_attention.cu
+              and paged_decode.cu with their headers) those two are built
+              too and timed in the same turns;
 4. paged      ``CFedRAGSystem.serve`` on 16 queries at the full width of
               qwen3-0.6b (28 layers, bf16, random weights from a seed) on
               the paged engine with the bag embedder; then retrieval
@@ -54,9 +63,12 @@ nvidia-smi line, then ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import math
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -85,27 +97,153 @@ def nvidia_smi() -> str:
 
 
 class Timer:
-    """Mean device time of one call, by CUDA events around each call, with
-    the 50 MB L2 flushed before every call (each serving step finds its
-    layer's pool cold in L2: 28 layers of K/V do not fit)."""
+    """Median device time of one call, by CUDA events around each call,
+    with the 50 MB L2 flushed before every call (each serving step finds
+    its layer's pool cold in L2: 28 layers of K/V do not fit).  After the
+    flush the device spins (``torch.cuda._sleep``, 1 ms) before the start
+    event, so the host has queued the whole call before the device reaches
+    it and the host's enqueue time does not fall between the events; the
+    calls whose enqueue took longer than the spin are counted per function.
+    A 0.1 ms spin was not enough: with the host loaded, short calls read
+    2-3x high in one run and not in the next.  ``turns`` times several
+    functions in turns (a, b, b, a, ...)."""
+
+    SPIN_MS = 1.0  # the spin before each call
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")  # 128 MiB
+        # _sleep counts the SM's clock64 cycles: size the spin on this card
+        self.cycles = 1_000_000
+        self.spin_ms()  # warm-up: the first launch of the spin kernel loads it
+        self.cycles = max(1, int(self.cycles * self.SPIN_MS / self.spin_ms()))
+        self.spin = self.spin_ms()
 
-    def ms(self, fn, iters: int = 20) -> float:
+    def spin_ms(self) -> float:
+        """What one spin takes on this card."""
         torch = self.torch
-        for _ in range(3):
-            fn()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        torch.cuda._sleep(self.cycles)
+        e.record()
         torch.cuda.synchronize()
-        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-        for s, e in ev:
-            self.flush.zero_()
-            s.record()
-            fn()
-            e.record()
+        return s.elapsed_time(e)
+
+    def turns(self, fns: dict, iters: int = 20) -> dict:
+        """{name: median ms} over ``iters`` calls of each of ``fns`` (name ->
+        callable or None), called in turns, the order reversed every round,
+        and under "late" {name: calls whose enqueue outlasted the spin}."""
+        torch = self.torch
+        live = [n for n, f in fns.items() if f is not None]
+        for n in live:
+            for _ in range(3):
+                fns[n]()
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in ev) / iters
+        times, late = {n: [] for n in live}, {}
+        for i in range(iters):
+            ev = []
+            for n in live if i % 2 == 0 else live[::-1]:
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                self.flush.zero_()
+                torch.cuda._sleep(self.cycles)
+                s.record()
+                t0 = time.perf_counter()
+                fns[n]()
+                if (time.perf_counter() - t0) * 1e3 >= self.spin:
+                    late[n] = late.get(n, 0) + 1
+                e.record()
+                ev.append((n, s, e))
+            torch.cuda.synchronize()
+            for n, s, e in ev:
+                times[n].append(s.elapsed_time(e))
+        return {**{n: (statistics.median(times[n]) if n in times else None) for n in fns}, "late": late}
+
+
+def demangle(name: str) -> str:
+    """``name`` through c++filt where there is one, without its namespace
+    and parameter list."""
+    try:
+        name = subprocess.run(["c++filt"], input=name, capture_output=True, text=True, timeout=30).stdout.strip() or name
+    except (OSError, subprocess.SubprocessError):
+        return name
+    return name.replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def ptxas_summary(log: str, keep: str) -> list[str]:
+    """One line per kernel whose (mangled) name contains ``keep``: its
+    registers and spills, from nvcc's ``-Xptxas=-v`` output."""
+    out, fn, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spill {m.group(1)} / {m.group(2)} bytes stored / loaded"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn and keep in fn:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{demangle(fn)}: {m.group(1)} registers, {smem.group(1) if smem else 0} bytes static smem, {spill}")
+    return out
+
+
+class Parent:
+    """``flash_attention.cu`` and ``paged_decode.cu`` of an earlier commit
+    (``--parent-csrc DIR``, a directory holding those two sources and the
+    headers they include), built with the same nvcc flags and timed in
+    turns with the current kernels on the same inputs."""
+
+    def __init__(self, torch, csrc: Path):
+        import ctypes
+
+        from repro_torch.kernels import _build
+
+        self.torch = torch
+        out = _build.BUILD_DIR / "parent"
+        out.mkdir(parents=True, exist_ok=True)
+        names = ("flash_attention", "paged_decode")
+        procs = {
+            n: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{n}.so"), str(csrc / f"{n}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for n in names
+        }
+        self.logs = {}
+        for n, proc in procs.items():
+            self.logs[n], _ = proc.communicate()
+            if proc.returncode != 0:
+                fail(f"the parent's {n}.cu does not build:\n{self.logs[n]}")
+        P, I = ctypes.c_void_p, ctypes.c_int
+        self.fa = ctypes.CDLL(str(out / "libflash_attention.so")).flash_attention_launch
+        self.fa.argtypes, self.fa.restype = _build.SIGNATURES["flash_attention"]["flash_attention_launch"], I
+        # the parent's entry point, before the split scratch: q, k_pool,
+        # v_pool, tables, lengths, out, b, h, kv, dh, bs, n_t, is_bf16, stream
+        self.pd = ctypes.CDLL(str(out / "libpaged_decode.so")).paged_decode_launch
+        self.pd.argtypes, self.pd.restype = [P] * 6 + [I] * 7 + [P], I
+
+    def _stream(self):
+        import ctypes
+
+        return ctypes.c_void_p(self.torch.cuda.current_stream().cuda_stream)
+
+    def flash_attention(self, q, k, v, causal: bool):
+        b, sq, h, dh = q.shape
+        out = self.torch.empty_like(q)
+        err = self.fa(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, k.shape[1], h, k.shape[2], dh,
+                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+                      int(q.dtype == self.torch.bfloat16), self._stream())
+        if err:
+            fail(f"the parent's flash_attention failed with cudaError_t {err}")
+        return out
+
+    def paged_decode(self, q, kp, vp, tables, lengths):
+        b, h, dh = q.shape
+        out = self.torch.empty_like(q)
+        err = self.pd(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                      b, h, kp.shape[2], dh, kp.shape[1], tables.shape[1], int(q.dtype == self.torch.bfloat16),
+                      self._stream())
+        if err:
+            fail(f"the parent's paged_decode failed with cudaError_t {err}")
+        return out
 
 
 def bound(nbytes: float, *ops: tuple[float, str]) -> tuple[float, str]:
@@ -155,7 +293,7 @@ def read_launches(what: str, need) -> dict:
     return got
 
 
-def kernel_phase(torch, timer) -> dict:
+def kernel_phase(torch, timer, parent: Parent | None) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.chunked_prefill import ops as cp
@@ -196,9 +334,11 @@ def kernel_phase(torch, timer) -> dict:
         es = qs.element_size()
         b_ms, b_by = bound(nq * d * es + n * d * es + nq * k * 8, (2 * nq * n * d, dtype))
         rows["retrieval_topk", dtype] = dict(
-            ms=timer.ms(lambda: rt.retrieval_topk(qs, cs, k)),
-            plain_ms=timer.ms(lambda: rt.retrieval_topk_plain(qs, cs, k), iters=5),
-            library_ms=timer.ms(lambda: torch.topk(qs @ cs.T, k, dim=1)),
+            **timer.turns(dict(
+                ms=lambda: rt.retrieval_topk(qs, cs, k),
+                plain_ms=lambda: rt.retrieval_topk_plain(qs, cs, k),
+                library_ms=lambda: torch.topk(qs @ cs.T, k, dim=1),
+            )),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
             shape=f"Q={nq} N={n} D={d} k={k} {dtype}",
         )
@@ -256,8 +396,12 @@ def kernel_phase(torch, timer) -> dict:
         print(f"  mixed_prefill {dtype}: dead lanes exactly 0; trash-poison diff 0", flush=True)
 
         od = da.paged_decode_attention(qd, kp, vp, tables, lens)
-        err_d = (od.float() - da.paged_decode_attention_plain(qd, kp, vp, tables, lens).float()).abs().max().item()
+        od_plain = da.paged_decode_attention_plain(qd, kp, vp, tables, lens).float()
+        err_d = (od.float() - od_plain).abs().max().item()
         check(f"paged_decode B={R} {dtype}", err_d, dtype)
+        if parent:
+            check(f"  the parent's paged_decode {dtype}",
+                  (parent.paged_decode(qd, kp, vp, tables, lens).float() - od_plain).abs().max().item(), dtype)
         kp3, vp3 = kp.clone(), vp.clone()
         for t in (kp3, vp3):
             t[n_pool - 1] = 1e4
@@ -273,10 +417,11 @@ def kernel_phase(torch, timer) -> dict:
                   + 2 * sum(n_kv) * KV * DH * es + desc.numel() * 4 + sum(-(-n // BS) for n in n_kv) * 4)
         b_ms, b_by = bound(nbytes, (flops_m, dtype))
         rows["mixed_prefill", dtype] = dict(
-            ms=timer.ms(lambda: cp.mixed_prefill_attention(q, kp, vp, tables, desc)),
-            plain_ms=timer.ms(lambda: cp.mixed_prefill_attention_plain(q, kp, vp, tables, desc)),
-            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-                qt, kv_k, kv_v, attn_mask=mask_m, enable_gqa=True)),
+            **timer.turns(dict(
+                ms=lambda: cp.mixed_prefill_attention(q, kp, vp, tables, desc),
+                plain_ms=lambda: cp.mixed_prefill_attention_plain(q, kp, vp, tables, desc),
+                library_ms=lambda: F.scaled_dot_product_attention(qt, kv_k, kv_v, attn_mask=mask_m, enable_gqa=True),
+            )),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
             shape=f"R={R} W={W} H={H} KV={KV} dh={DH} bs={BS} n_t={NT} {dtype}",
         )
@@ -284,10 +429,13 @@ def kernel_phase(torch, timer) -> dict:
                     + sum(-(-n // BS) for n in lens_h) * 4 + R * 4)  # table entries the lengths reach
         b_ms, b_by = bound(nbytes_d, (flops_d, dtype))
         rows["paged_decode", dtype] = dict(
-            ms=timer.ms(lambda: da.paged_decode_attention(qd, kp, vp, tables, lens)),
-            plain_ms=timer.ms(lambda: da.paged_decode_attention_plain(qd, kp, vp, tables, lens)),
-            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-                qd[:, :, None], kv_k, kv_v, attn_mask=mask_d, enable_gqa=True)),
+            **timer.turns(dict(
+                ms=lambda: da.paged_decode_attention(qd, kp, vp, tables, lens),
+                plain_ms=lambda: da.paged_decode_attention_plain(qd, kp, vp, tables, lens),
+                library_ms=lambda: F.scaled_dot_product_attention(
+                    qd[:, :, None], kv_k, kv_v, attn_mask=mask_d, enable_gqa=True),
+                parent_ms=parent and (lambda: parent.paged_decode(qd, kp, vp, tables, lens)),
+            )),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err_d,
             shape=f"B={R} H={H} KV={KV} dh={DH} bs={BS} n_t={NT} {dtype}",
         )
@@ -309,16 +457,22 @@ def kernel_phase(torch, timer) -> dict:
             k = torch.randn(b, sl, kv, dh, generator=gen, device=dev).to(tdt)
             v = torch.randn(b, sl, kv, dh, generator=gen, device=dev).to(tdt)
             o = fa.flash_attention(q, k, v, causal=causal)
-            err = (o.float() - fa.flash_attention_plain(q, k, v, causal=causal).float()).abs().max().item()
+            o_plain = fa.flash_attention_plain(q, k, v, causal=causal).float()
+            err = (o.float() - o_plain).abs().max().item()
             shape = f"B={b} S={sl} H={h} KV={kv} dh={dh} {'causal' if causal else 'non-causal'} {dtype}"
             check(f"flash_attention {label} {shape}", err, dtype)
+            if parent:
+                check(f"  the parent's flash_attention, {label} {dtype}",
+                      (parent.flash_attention(q, k, v, causal).float() - o_plain).abs().max().item(), dtype)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             b_ms, b_by = bound(es * (2 * b * sl * h * dh + 2 * b * sl * kv * dh), (4 * b * h * dh * pairs, dtype))
             rows["flash_attention", dtype, label] = dict(
-                ms=timer.ms(lambda: fa.flash_attention(q, k, v, causal=causal)),
-                plain_ms=timer.ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal)),
-                library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True)),
+                **timer.turns(dict(
+                    ms=lambda: fa.flash_attention(q, k, v, causal=causal),
+                    plain_ms=lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+                    library_ms=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True),
+                    parent_ms=parent and (lambda: parent.flash_attention(q, k, v, causal)),
+                )),
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err, shape=f"{label}: {shape}",
             )
             del q, k, v, qt, kt, vt
@@ -349,10 +503,12 @@ def kernel_phase(torch, timer) -> dict:
         check(f"flash_decode partials, {shards} shards combined vs monolithic, {dtype} cache", err_c, "float32")
         b_ms, b_by = bound(es * (2 * R * H * DH + 2 * sum(lens_c) * KV * DH) + 4 * R, (4 * sum(lens_c) * H * DH, dtype))
         rows["flash_decode", dtype] = dict(
-            ms=timer.ms(lambda: da.decode_attention(qd, kc, vc, lens_t)),
-            plain_ms=timer.ms(lambda: da.decode_attention_plain(qd, kc, vc, lens_t)),
-            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-                qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask_c, enable_gqa=True)),
+            **timer.turns(dict(
+                ms=lambda: da.decode_attention(qd, kc, vc, lens_t),
+                plain_ms=lambda: da.decode_attention_plain(qd, kc, vc, lens_t),
+                library_ms=lambda: F.scaled_dot_product_attention(
+                    qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask_c, enable_gqa=True),
+            )),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err, combine_err=err_c,
             shape=f"B={R} H={H} KV={KV} dh={DH} S={S} lengths {min(lens_c)}-{max(lens_c)} (sum {sum(lens_c)}) {dtype}",
         )
@@ -392,19 +548,24 @@ def kernel_phase(torch, timer) -> dict:
             (SB * SH * (tri * 2 * SHD + 2 * SL * SHD * SDS), "float32"),
         )
         rows["ssd_chunk", dtype] = dict(
-            ms=timer.ms(lambda: ss.ssd_chunk(x, bg, cg, dt, a)),
-            plain_ms=timer.ms(lambda: ss.ssd_chunk_plain(x, bg, cg, dt, a)),
-            library_ms=None,  # no single PyTorch call computes the chunk terms
+            **timer.turns(dict(
+                ms=lambda: ss.ssd_chunk(x, bg, cg, dt, a),
+                plain_ms=lambda: ss.ssd_chunk_plain(x, bg, cg, dt, a),
+                library_ms=None,  # no single PyTorch call computes the chunk terms
+            )),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err, max_rel_err=rel,
             shape=f"B={SB} L={SL} H={SH} hd={SHD} ds={SDS} G={SG} {dtype} x/B/C, f32 dt/a",
         )
         del x, bg, cg, dt, outs, plain
 
     for key, row in rows.items():
-        lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms (kernel / library {row['ms'] / row['library_ms']:.2f})"
+        par = "" if row.get("parent_ms") is None else f", parent {row['parent_ms']:.4f} ms (parent / kernel {row['parent_ms'] / row['ms']:.2f})"
+        late = "".join(f", {n} late {c}/20" for n, c in row["late"].items())
         print(
             f"  {key[0]} [{row['shape']}]: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"library {lib}, bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+            f"library {lib}, bound {row['bound_ms']:.6f} ms ({row['bound_by']}; kernel / bound "
+            f"{row['ms'] / row['bound_ms']:.1f}){par}{late}",
             flush=True,
         )
     return rows
@@ -644,6 +805,10 @@ def mamba2_phase(torch, smi: str) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-csrc", help="a directory holding an earlier commit's flash_attention.cu and "
+                    "paged_decode.cu (and their headers), timed beside the current kernels in phase 3")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -670,9 +835,24 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"  built {len(_build.SIGNATURES)} kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in ("flash_attention", "paged_decode"):
+        for line in ptxas_summary(_build.logs.get(name, ""), name):
+            print(f"  ptxas {line}", flush=True)
+    parent = None
+    if args.parent_csrc:
+        t0 = time.perf_counter()
+        parent = Parent(torch, Path(args.parent_csrc).resolve())
+        print(f"  built the parent's flash_attention and paged_decode from {args.parent_csrc} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for name, log in parent.logs.items():
+            for line in ptxas_summary(log, name):
+                print(f"  ptxas (parent) {line}", flush=True)
 
     print("[3] kernels against their plain versions", flush=True)
-    rows = kernel_phase(torch, Timer(torch))
+    timer = Timer(torch)
+    print(f"  timer: median of 20 calls in turns; the spin before each call: {timer.cycles} cycles, "
+          f"{timer.spin:.4f} ms; a row names the calls whose enqueue outlasted it (late)", flush=True)
+    rows = kernel_phase(torch, timer, parent)
 
     print("[4] end to end: paged engine, bag embedder", flush=True)
     runs = [paged_phase(torch, smi)]
@@ -708,7 +888,7 @@ def main() -> int:
             "launches": sum(r[name] for r in runs), "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
-            **{k: row[k] for k in ("combine_err", "max_rel_err") if k in row},
+            **{k: row[k] for k in ("combine_err", "max_rel_err", "parent_ms") if row.get(k) is not None},
         })
     if any(not math.isfinite(k["ms"]) for k in kernels):
         fail("a kernel time is not finite")

@@ -2,14 +2,16 @@
 
 Every ``csrc/<name>.cu`` is compiled on first use with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC -Xptxas=-v
 
 into ``kernels/.build/`` (listed in ``.gitignore``) and loaded with
-``ctypes``.  The sources have a plain C interface: pointers and the CUDA
-stream pass as ``c_void_p``, sizes as ``c_int``, and every entry point
+``ctypes``; no library beyond the CUDA runtime is linked.  The sources
+have a plain C interface: pointers and the CUDA stream pass as
+``c_void_p``, sizes as ``c_int`` or ``c_longlong``, and every entry point
 returns ``cudaGetLastError()`` after its launches, which ``check`` turns
-into an exception.  The library file name carries a hash of its source,
-so an edited kernel is rebuilt and a stale one is never loaded.
+into an exception.  The library file name carries a hash of its source
+and of every shared header (``csrc/*.cuh``), so an edited kernel or
+header is rebuilt and a stale library is never loaded.
 
 Nothing here runs at import time: the CPU tests import every module,
 and a machine without ``nvcc`` only fails when a kernel is asked for.
@@ -28,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
 # ctypes signatures of each library's C entry points
@@ -45,9 +47,9 @@ SIGNATURES = {
         "mixed_prefill_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     },
     "paged_decode": {
-        # q, k_pool, v_pool, tables, lengths, out, b, h, kv, dh, bs, n_t,
-        # is_bf16, stream
-        "paged_decode_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+        # q, k_pool, v_pool, tables, lengths, out, o_part, m_part, l_part,
+        # b, h, kv, dh, bs, n_t, n_split, is_bf16, stream
+        "paged_decode_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     },
     "flash_attention": {
         # q, k, v, out, b, sq, sk, h, kv, dh, q strides (batch, seq, head),
@@ -69,6 +71,9 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# nvcc's output of each library built by this process: ptxas's registers,
+# shared memory and spills per kernel (``-Xptxas=-v``)
+logs: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -82,7 +87,7 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes() + (CSRC / "common.cuh").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
@@ -106,6 +111,7 @@ def _finish(name: str, proc, tmp: Path, out: Path) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+    logs[name] = log
     os.replace(tmp, out)  # atomic: a reader never sees a half-written library
 
 

@@ -49,10 +49,16 @@ __device__ __forceinline__ float group_max(float x) {
   return x;
 }
 
-// set the dynamic shared memory a kernel may use above the 48 KB default
+// raise the dynamic shared memory a kernel may use above the 48 KB
+// default.  `allowed` is the caller's record (a static of the kernel's
+// launch function) of the size already set, so the attribute is set once
+// per kernel instantiation, not on every launch.
 template <typename K>
-inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+inline cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) allowed = bytes;
+  return e;
 }
 
 }  // namespace repro

@@ -176,7 +176,8 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, const int* len
                    float* o, float* m, float* l, int b, int h, int kv, int s, Strides ks,
                    Strides vs, cudaStream_t st) {
   const size_t smem = smem_bytes<DH>(h / kv);
-  cudaError_t e = repro::allow_smem(flash_decode<T, DH>, smem);
+  static size_t allowed = 0;
+  cudaError_t e = repro::allow_smem(flash_decode<T, DH>, smem, allowed);
   if (e != cudaSuccess) return e;
   flash_decode<T, DH><<<dim3(b, kv), kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), lengths,

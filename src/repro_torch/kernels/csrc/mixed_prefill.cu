@@ -167,7 +167,8 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tab
                    const int* desc, void* out, int r, int w, int h, int kv, int bs, int n_t,
                    cudaStream_t st) {
   const size_t smem = smem_bytes<DH>();
-  cudaError_t e = repro::allow_smem(mixed_prefill<T, DH>, smem);
+  static size_t allowed = 0;
+  cudaError_t e = repro::allow_smem(mixed_prefill<T, DH>, smem, allowed);
   if (e != cudaSuccess) return e;
   const int g = h / kv;
   dim3 grid(r, kv, (w * g + TQ - 1) / TQ);

@@ -216,7 +216,8 @@ template <typename T, int QB>
 cudaError_t launch_partial(const void* q, const void* c, float* ps, int* pi, int nq, int n, int d,
                            int k, int splits, int rows_per_split, cudaStream_t st) {
   const size_t smem = sizeof(float) * ((size_t)QB * d + QB * kThreads) + (size_t)QB * kMaxK * 8;
-  cudaError_t e = repro::allow_smem(topk_partial<T, QB>, smem);
+  static size_t allowed = 0;
+  cudaError_t e = repro::allow_smem(topk_partial<T, QB>, smem, allowed);
   if (e != cudaSuccess) return e;
   dim3 grid(splits, (nq + QB - 1) / QB);
   topk_partial<T, QB><<<grid, kThreads, smem, st>>>(static_cast<const T*>(q),

@@ -231,7 +231,8 @@ cudaError_t launch(const void* x, const void* bm, const void* cm, const float* d
                    float* y, float* st, float* dec, int b, int l, int h, Strides xs, Strides bs,
                    Strides cs, Strides dts, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD, DS>(l);
-  cudaError_t e = repro::allow_smem(ssd_chunk<T, HD, DS>, smem);
+  static size_t allowed = 0;
+  cudaError_t e = repro::allow_smem(ssd_chunk<T, HD, DS>, smem, allowed);
   if (e != cudaSuccess) return e;
   ssd_chunk<T, HD, DS><<<dim3(h, b), kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(bm), static_cast<const T*>(cm), dt, a, y, st,

@@ -24,6 +24,7 @@ flash_decode_launches = 0  # flash_decode kernel
 
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 16
+PAGED_SPLIT = 64  # positions per block of the paged kernel (PS in paged_decode.cu)
 
 
 def _check_decode(name, q, k, v, lengths) -> None:
@@ -123,7 +124,11 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths):
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
-    """Single-token attention through a block table over a shared KV pool."""
+    """Single-token attention through a block table over a shared KV pool.
+    The kernel splits each row's positions over blocks of
+    ``PAGED_SPLIT`` and merges the splits' f32 partials in a second
+    launch; a row with ``lengths[b] == 0`` gives 0 (the plain version
+    gives mean(V) over the table's span, as ``decode_attention_plain``)."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths)
     if q.device.type != "cuda":
@@ -138,17 +143,26 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     if block_tables.device != q.device:
         raise ValueError(f"paged_decode_attention: tensors on {q.device} and {block_tables.device}")
     q = q.contiguous()
-    k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
+    # the pools are read with 16-byte copies (a fresh copy if unaligned)
+    k_pool, v_pool = (
+        t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
+        for t in (k_pool, v_pool)
+    )
     tables = block_tables.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     if b == 0:
         return out
+    n_t = tables.shape[1]
+    n_split = -(-n_t * bs // PAGED_SPLIT)
+    g = h // kv
+    o_part = torch.empty((b, kv, n_split, g, dh), dtype=torch.float32, device=q.device)
+    m_part, l_part = (torch.empty((b, kv, n_split, g), dtype=torch.float32, device=q.device) for _ in range(2))
     lib = _build.load("paged_decode")
     err = lib.paged_decode_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, h, kv, dh, bs, tables.shape[1],
-        int(q.dtype == torch.bfloat16),
+        lengths.data_ptr(), out.data_ptr(), o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+        b, h, kv, dh, bs, n_t, n_split, int(q.dtype == torch.bfloat16),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     _build.check(err, "paged_decode_attention")

@@ -37,6 +37,17 @@ def flash_attention_plain(q, k, v, *, causal: bool):
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
+def _in_place(t) -> bool:
+    """Whether the kernel can read ``t`` through its strides: head_dim
+    contiguous and, in bf16, the pointer and every stride that is ever
+    stepped (of a dimension longer than 1) a multiple of 16 bytes."""
+    if t.stride(-1) != 1:
+        return False
+    if t.dtype != torch.bfloat16:
+        return True
+    return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """Full-sequence attention.  A non-zero ``q_offset`` raises: the
     kernel serves whole-sequence prefill and the encoders, and decode goes
@@ -61,8 +72,10 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     for t in (k, v):
         if t.device != q.device:
             raise ValueError(f"flash_attention: tensors on {q.device} and {t.device}")
-    # read in place through the strides; only head_dim must be contiguous
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    # read in place through the strides; only head_dim must be contiguous,
+    # and for bf16 (16-byte copies) every pointer and stride 16-byte aligned
+    # (a fresh copy: a contiguous view at an odd offset stays unaligned)
+    q, k, v = (t if _in_place(t) else t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0:
         return out

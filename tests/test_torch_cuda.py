@@ -197,6 +197,126 @@ def test_flash_attention_reads_strided_views(cuda_device):
         )
 
 
+@pytest.mark.parametrize(
+    "b,s,h,kv,dh,causal",
+    [(256, 64, 12, 12, 64, False), (147, 40, 12, 12, 64, False), (8, 256, 16, 8, 128, True)],
+    ids=["rerank", "chunk-index", "admit-prefill"],
+)
+def test_flash_attention_bf16_path_shapes(cuda_device, b, s, h, kv, dh, causal):
+    """The three shapes the path gives the tensor-core kernel."""
+    rng = np.random.default_rng(b + s + dh)
+    q, k, v = (
+        torch.as_tensor(rng.standard_normal((b, s, n, dh)), dtype=torch.bfloat16, device=cuda_device)
+        for n in (h, kv, kv)
+    )
+    o = fa_ops.flash_attention(q, k, v, causal=causal)
+    o_p = fa_ops.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(o.float().cpu().numpy(), o_p.float().cpu().numpy(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("s", [1, 40, 63, 64, 65, 100])
+def test_flash_attention_bf16_tile_edges(cuda_device, s, g, dh, causal):
+    """Sequence lengths around the 64-row and 64-key tiles, every head dim
+    and group size: ragged rows are not stored and ragged keys not scored."""
+    b, kv = 2, 2
+    rng = np.random.default_rng(s * 31 + g * 7 + dh)
+    q = torch.as_tensor(rng.standard_normal((b, s, kv * g, dh)), dtype=torch.bfloat16, device=cuda_device)
+    k = torch.as_tensor(rng.standard_normal((b, s, kv, dh)), dtype=torch.bfloat16, device=cuda_device)
+    v = torch.as_tensor(rng.standard_normal((b, s, kv, dh)), dtype=torch.bfloat16, device=cuda_device)
+    o = fa_ops.flash_attention(q, k, v, causal=causal)
+    o_p = fa_ops.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(o.float().cpu().numpy(), o_p.float().cpu().numpy(), rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_bf16_reads_strided_views(cuda_device):
+    """bf16 q, k, v sliced out of one fused (B, S, H + 2 KV, dh) projection
+    are read in place and give the contiguous call's answer bitwise; a view
+    whose strides are not 16-byte multiples is copied first, same answer."""
+    rng = np.random.default_rng(8)
+    b, s, h, kv, dh = 3, 70, 8, 2, 64
+    qkv = torch.as_tensor(rng.standard_normal((b, s, h + 2 * kv, dh)), dtype=torch.bfloat16, device=cuda_device)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h : h + kv], qkv[:, :, h + kv :]
+    assert not q.is_contiguous()
+    odd = torch.as_tensor(rng.standard_normal((b, s * 3 + 1, kv, dh)), dtype=torch.bfloat16, device=cuda_device)
+    k_odd = odd[:, 1 : 1 + 3 * s : 3]  # sequence stride 3 * kv * dh, offset of one position: still aligned
+    for causal in (True, False):
+        o = fa_ops.flash_attention(q, k, v, causal=causal)
+        o_c = fa_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+        o_odd = fa_ops.flash_attention(q, k_odd, v, causal=causal)
+        o_odd_c = fa_ops.flash_attention(q.contiguous(), k_odd.contiguous(), v.contiguous(), causal=causal)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o_c) and torch.equal(o_odd, o_odd_c)
+        np.testing.assert_allclose(
+            o.float().cpu().numpy(), fa_ops.flash_attention_plain(q, k, v, causal=causal).float().cpu().numpy(),
+            rtol=2e-2, atol=2e-2,
+        )
+    # a head_dim of 16 at an offset of 8 elements: 16 bytes is aligned, 8 is not
+    w = torch.as_tensor(rng.standard_normal((b, s, 2, 24)), dtype=torch.bfloat16, device=cuda_device)
+    q8 = w[:, :, :, 4:20]  # pointer 8 bytes past an aligned one
+    assert q8.data_ptr() % 16 == 8
+    k8, v8 = (torch.as_tensor(rng.standard_normal((b, s, 1, 16)), dtype=torch.bfloat16, device=cuda_device) for _ in range(2))
+    assert torch.equal(fa_ops.flash_attention(q8, k8, v8), fa_ops.flash_attention(q8.contiguous(), k8, v8))
+
+
+def _paged_case(rng, device, b, h, kv, dh, bs, n_t, lens, dtype):
+    n_pool = b * n_t + 1
+    q = torch.as_tensor(rng.standard_normal((b, h, dh)), dtype=dtype, device=device)
+    kp = torch.as_tensor(rng.standard_normal((n_pool, bs, kv, dh)), dtype=dtype, device=device)
+    vp = torch.as_tensor(rng.standard_normal((n_pool, bs, kv, dh)), dtype=dtype, device=device)
+    tables = rng.permutation(n_pool - 1)[: b * n_t].reshape(b, n_t)
+    for r, n in enumerate(lens):  # entries past the length point at the trash block, as in the engine
+        tables[r, -(-n // bs):] = n_pool - 1
+    return (q, kp, vp, torch.as_tensor(tables, dtype=torch.int32, device=device),
+            torch.as_tensor(lens, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "h,kv,dh,bs,n_t",
+    [(16, 8, 128, 32, 9), (8, 2, 64, 16, 20), (32, 2, 32, 8, 40), (4, 4, 16, 64, 5)],
+)
+def test_paged_decode_split_edges(cuda_device, h, kv, dh, bs, n_t, dtype):
+    """Lengths on either side of the 64-position splits (5 splits a row)
+    at group sizes 1 to 16."""
+    lens = [1, 63, 64, 65, 288]
+    args = _paged_case(np.random.default_rng(h * dh + bs), cuda_device, len(lens), h, kv, dh, bs, n_t, lens, dtype)
+    assert -(-n_t * bs // da_ops.PAGED_SPLIT) > 1
+    o = da_ops.paged_decode_attention(*args)
+    o_p = da_ops.paged_decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    tol = _tol(dtype)
+    np.testing.assert_allclose(o.float().cpu().numpy(), o_p.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_trash_poison_and_empty_row(cuda_device, dtype):
+    """Positions at or past a row's length and the trash block behind its
+    unused table entries never reach the output (bitwise), and a row of
+    length 0 gives an exact 0."""
+    lens = [288, 17, 0, 65, 1]
+    bs, n_t = 32, 9
+    q, kp, vp, tables, ln = _paged_case(np.random.default_rng(9), cuda_device, len(lens), 16, 8, 128, bs, n_t, lens, dtype)
+    base = da_ops.paged_decode_attention(q, kp, vp, tables, ln)
+    kp2, vp2 = kp.clone(), vp.clone()
+    for t in (kp2, vp2):
+        t[-1] = 1e4  # the trash block
+        t[tables[1, 0].long(), 17:] = -1e4  # past row 1's length 17
+        t[tables[3, 2].long(), 1:] = -1e4  # past row 3's length 65
+    poisoned = da_ops.paged_decode_attention(q, kp2, vp2, tables, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned, base)
+    assert bool((base[2] == 0).all())
+    live = [0, 1, 3, 4]
+    o_p = da_ops.paged_decode_attention_plain(q, kp, vp, tables, ln)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(base[live].float().cpu().numpy(), o_p[live].float().cpu().numpy(), rtol=tol, atol=tol)
+
+
 # ---------------- contiguous flash-decode ----------------
 def _decode_case(rng, device, b, s, h, kv, dh, dtype):
     q = torch.as_tensor(rng.standard_normal((b, h, dh)), dtype=dtype, device=device)

@@ -7,6 +7,9 @@ so every score is exact and the ties built in are true ties); attention
 tests/test_kernels.py holds the reference; dead lanes and poisoned trash
 blocks are held bitwise.
 """
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +28,7 @@ from repro.kernels.retrieval_topk.kernel import retrieval_topk_pallas  # noqa: E
 from repro.kernels.retrieval_topk.ref import retrieval_topk_ref  # noqa: E402
 from repro.kernels.ssd_scan.kernel import ssd_chunk_pallas  # noqa: E402
 from repro.kernels.ssd_scan.ref import ssd_chunk_ref  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.chunked_prefill import ops as cp_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -334,3 +338,35 @@ def test_ssd_chunk_expanded_group_view_equals_materialised():
     mat = ss_ops.ssd_chunk(T(x), b1.contiguous(), c1.contiguous(), T(dt), T(a))
     for got, want in zip(view, mat):
         assert torch.equal(got, want)
+
+
+# ---------------- the C entry points against their ctypes signatures ----------------
+_KIND = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_longlong: "long long"}
+
+
+def _c_kind(param: str) -> str:
+    """The ctypes kind a C parameter declaration needs."""
+    if "*" in param:
+        return "pointer"
+    words = param.replace("const", " ").split()[:-1]  # the type, without the name
+    if words == ["long", "long"]:
+        return "long long"
+    if words == ["int"]:
+        return "int"
+    raise AssertionError(f"unexpected C parameter type in {param!r}")
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_entry_points_match_their_ctypes_signatures(name):
+    """Every ``extern "C"`` entry point of ``csrc/<name>.cu`` has its
+    ``_build.SIGNATURES`` entry, parameter for parameter: a pointer passed
+    as ``c_int`` would be cut to 32 bits, an int passed as a pointer read
+    as garbage."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    found = {
+        fn: [_c_kind(p) for p in params.split(",")]
+        for fn, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)
+    }
+    assert found, f"no extern \"C\" entry point in {name}.cu"
+    want = {fn: [_KIND[t] for t in argtypes] for fn, argtypes in _build.SIGNATURES[name].items()}
+    assert found == want
