@@ -3,15 +3,15 @@
 starts on the GPU.
 
     python3 chip_smoke.py        # from the repository root, on a machine with one CUDA card
-    python3 chip_smoke.py --parent-csrc DIR   # also time an earlier commit's two attention kernels
+    python3 chip_smoke.py --parent-csrc DIR   # also time an earlier commit's four attention kernels
 
 Phases (any failure exits non-zero, and the final ok line is printed
 only when every phase passed):
 
 1. device     the card's name and power limit, as nvidia-smi reports them;
 2. build      the six CUDA kernels, one nvcc each, all started together,
-              and ptxas's registers and spills of flash_attention and
-              paged_decode;
+              and ptxas's registers and spills of the four attention
+              kernels;
 3. kernels    each kernel against its plain PyTorch version on the card at
               the full-width path shapes, f32 and bf16 (tolerance 2e-5 f32:
               both sum in f32 but in another order; 2e-2 bf16), the ±1e4
@@ -29,9 +29,13 @@ only when every phase passed):
               the median of 20 calls taken in turns (a, b, b, a, ...), each
               after an L2 flush and a 1 ms device spin, so that the host's
               enqueue does not fall between the timing events.  With
-              ``--parent-csrc DIR`` (an earlier commit's flash_attention.cu
-              and paged_decode.cu with their headers) those two are built
-              too and timed in the same turns;
+              ``--parent-csrc DIR`` (an earlier commit's flash_attention.cu,
+              paged_decode.cu, mixed_prefill.cu and flash_decode.cu, their
+              headers and its kernels/_build.py, whose nvcc flags and
+              ctypes signatures are used) those four are built too, checked
+              against the plain versions and timed in the same turns, and
+              paged_decode (f32 and bf16) and bf16 flash_attention must
+              give outputs bitwise equal to the parent's build;
 4. paged      ``CFedRAGSystem.serve`` on 16 queries at the full width of
               qwen3-0.6b (28 layers, bf16, random weights from a seed) on
               the paged engine with the bag embedder; then retrieval
@@ -169,80 +173,137 @@ def demangle(name: str) -> str:
     return name.replace("(anonymous namespace)::", "").split("(")[0]
 
 
-def ptxas_summary(log: str, keep: str) -> list[str]:
-    """One line per kernel whose (mangled) name contains ``keep``: its
-    registers and spills, from nvcc's ``-Xptxas=-v`` output."""
-    out, fn, spill = [], None, ""
+def ptxas_entries(log: str) -> list[tuple]:
+    """(kernel, registers, static smem bytes, spill stores, spill loads) of
+    every kernel in nvcc's ``-Xptxas=-v`` output."""
+    out, fn, spill = [], None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             fn = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            spill = f"spill {m.group(1)} / {m.group(2)} bytes stored / loaded"
+            spill = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
-        if m and fn and keep in fn:
+        if m and fn:
             smem = re.search(r"(\d+) bytes smem", line)
-            out.append(f"{demangle(fn)}: {m.group(1)} registers, {smem.group(1) if smem else 0} bytes static smem, {spill}")
+            out.append((demangle(fn), int(m.group(1)), int(smem.group(1)) if smem else 0, *spill))
     return out
 
 
+ATTENTION = ("flash_attention", "paged_decode", "mixed_prefill", "flash_decode")
+
+
+def print_ptxas(logs: dict, tag: str = "") -> None:
+    """Registers and spills of the attention kernels at head_dim 128 (the
+    path's), and whether any instantiation of each library spills."""
+    for name in ATTENTION:
+        entries = ptxas_entries(logs.get(name, ""))
+        for fn, regs, smem, st, ld in entries:
+            if "128" in fn:
+                print(f"  ptxas{tag} {fn}: {regs} registers, {smem} bytes static smem, "
+                      f"spill {st} / {ld} bytes stored / loaded", flush=True)
+        spilled = [e[0] for e in entries if e[3] or e[4]]
+        print(f"  ptxas{tag} {name}: {len(entries)} kernels, "
+              f"{'spills in ' + ', '.join(spilled) if spilled else 'no spill'}", flush=True)
+
+
 class Parent:
-    """``flash_attention.cu`` and ``paged_decode.cu`` of an earlier commit
-    (``--parent-csrc DIR``, a directory holding those two sources and the
-    headers they include), built with the same nvcc flags and timed in
-    turns with the current kernels on the same inputs."""
+    """The four attention kernels of an earlier commit (``--parent-csrc
+    DIR``: a directory holding that commit's ``flash_attention.cu``,
+    ``paged_decode.cu``, ``mixed_prefill.cu`` and ``flash_decode.cu``, the
+    headers they include and its ``kernels/_build.py``), built with that
+    ``_build.py``'s nvcc flags, bound with its ctypes signatures, called
+    with its own argument conventions and timed in turns with the current
+    kernels on the same inputs."""
+
+    NAMES = ATTENTION
 
     def __init__(self, torch, csrc: Path):
         import ctypes
+        import importlib.util
 
         from repro_torch.kernels import _build
 
         self.torch = torch
+        spec = importlib.util.spec_from_file_location("parent_build", csrc / "_build.py")
+        pb = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(pb)  # the standard library only: nothing is built or loaded here
         out = _build.BUILD_DIR / "parent"
         out.mkdir(parents=True, exist_ok=True)
-        names = ("flash_attention", "paged_decode")
         procs = {
-            n: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{n}.so"), str(csrc / f"{n}.cu")],
+            n: subprocess.Popen([_build._nvcc(), *pb.NVCC_FLAGS, "-o", str(out / f"lib{n}.so"), str(csrc / f"{n}.cu")],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for n in names
+            for n in self.NAMES
         }
-        self.logs = {}
+        self.logs, self.fns = {}, {}
         for n, proc in procs.items():
             self.logs[n], _ = proc.communicate()
             if proc.returncode != 0:
                 fail(f"the parent's {n}.cu does not build:\n{self.logs[n]}")
-        P, I = ctypes.c_void_p, ctypes.c_int
-        self.fa = ctypes.CDLL(str(out / "libflash_attention.so")).flash_attention_launch
-        self.fa.argtypes, self.fa.restype = _build.SIGNATURES["flash_attention"]["flash_attention_launch"], I
-        # the parent's entry point, before the split scratch: q, k_pool,
-        # v_pool, tables, lengths, out, b, h, kv, dh, bs, n_t, is_bf16, stream
-        self.pd = ctypes.CDLL(str(out / "libpaged_decode.so")).paged_decode_launch
-        self.pd.argtypes, self.pd.restype = [P] * 6 + [I] * 7 + [P], I
+            fn = getattr(ctypes.CDLL(str(out / f"lib{n}.so")), f"{n}_launch")
+            fn.argtypes, fn.restype = pb.SIGNATURES[n][f"{n}_launch"], ctypes.c_int
+            self.fns[n] = fn
 
-    def _stream(self):
+    def _call(self, name: str, *args) -> None:
         import ctypes
 
-        return ctypes.c_void_p(self.torch.cuda.current_stream().cuda_stream)
+        fn = self.fns[name]
+        if len(args) + 1 != len(fn.argtypes):
+            fail(f"the parent's {name}_launch takes {len(fn.argtypes)} arguments, a convention this script "
+                 f"does not know")
+        err = fn(*args, ctypes.c_void_p(self.torch.cuda.current_stream().cuda_stream))
+        if err:
+            fail(f"the parent's {name} failed with cudaError_t {err}")
+
+    def _split_scratch(self, b, kv, g, dh, cap) -> list:
+        """The o, m, l f32 partials of ceil(cap / 64) position splits."""
+        n_split = -(-cap // 64)
+        return [self.torch.empty(sh, dtype=self.torch.float32, device="cuda")
+                for sh in ((b, kv, n_split, g, dh), (b, kv, n_split, g), (b, kv, n_split, g))]
 
     def flash_attention(self, q, k, v, causal: bool):
         b, sq, h, dh = q.shape
         out = self.torch.empty_like(q)
-        err = self.fa(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, k.shape[1], h, k.shape[2], dh,
-                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
-                      int(q.dtype == self.torch.bfloat16), self._stream())
-        if err:
-            fail(f"the parent's flash_attention failed with cudaError_t {err}")
+        self._call("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, k.shape[1], h,
+                   k.shape[2], dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+                   int(q.dtype == self.torch.bfloat16))
+        return out
+
+    def mixed_prefill(self, q, kp, vp, tables, desc):
+        r, w, h, dh = q.shape
+        out = self.torch.empty_like(q)
+        self._call("mixed_prefill", q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(), desc.data_ptr(),
+                   out.data_ptr(), r, w, h, kp.shape[2], dh, kp.shape[1], tables.shape[1],
+                   int(q.dtype == self.torch.bfloat16))
         return out
 
     def paged_decode(self, q, kp, vp, tables, lengths):
+        """The split kernel's entry point, with its o / m / l scratch."""
         b, h, dh = q.shape
+        bs, kv, n_t = kp.shape[1], kp.shape[2], tables.shape[1]
         out = self.torch.empty_like(q)
-        err = self.pd(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                      b, h, kp.shape[2], dh, kp.shape[1], tables.shape[1], int(q.dtype == self.torch.bfloat16),
-                      self._stream())
-        if err:
-            fail(f"the parent's paged_decode failed with cudaError_t {err}")
+        scratch = self._split_scratch(b, kv, h // kv, dh, n_t * bs)
+        self._call("paged_decode", q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
+                   out.data_ptr(), *(t.data_ptr() for t in scratch), b, h, kv, dh, bs, n_t, scratch[1].shape[2],
+                   int(q.dtype == self.torch.bfloat16))
+        return out
+
+    def flash_decode(self, q, kc, vc, lengths):
+        """The normalised output, through the entry point of the kernel with
+        one block per (row, KV head) (22 arguments) or of the split kernel
+        (its o / m / l scratch besides)."""
+        b, h, dh = q.shape
+        s, kv = kc.shape[1], kc.shape[2]
+        out = self.torch.empty_like(q)
+        head = (q.data_ptr(), kc.data_ptr(), vc.data_ptr(), lengths.data_ptr(), out.data_ptr(), 0, 0, 0)
+        tail = (*kc.stride()[:3], *vc.stride()[:3], 0, int(q.dtype == self.torch.bfloat16))
+        if len(self.fns["flash_decode"].argtypes) == 22:
+            self._call("flash_decode", *head, b, h, kv, dh, s, *tail)
+        else:
+            scratch = self._split_scratch(b, kv, h // kv, dh, s)
+            self._call("flash_decode", *head, *(t.data_ptr() for t in scratch), b, h, kv, dh, s, scratch[1].shape[2],
+                       *tail)
         return out
 
 
@@ -382,8 +443,12 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         vp = torch.randn(n_pool, BS, KV, DH, generator=gen, device=dev).to(tdt)
 
         o = cp.mixed_prefill_attention(q, kp, vp, tables, desc)
-        err = (o.float() - cp.mixed_prefill_attention_plain(q, kp, vp, tables, desc).float()).abs().max().item()
+        om_plain = cp.mixed_prefill_attention_plain(q, kp, vp, tables, desc).float()
+        err = (o.float() - om_plain).abs().max().item()
         check(f"mixed_prefill W*G={W * G} {dtype}", err, dtype)
+        if parent:
+            check(f"  the parent's mixed_prefill {dtype}",
+                  (parent.mixed_prefill(q, kp, vp, tables, desc).float() - om_plain).abs().max().item(), dtype)
         dead = lane[None, :] >= desc[:, 2:3]
         if not bool((o[dead] == 0).all()):
             fail("mixed_prefill: dead lanes are not exactly 0")
@@ -394,14 +459,38 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         if not torch.equal(cp.mixed_prefill_attention(q, kp2, vp2, tables, desc), o):
             fail("mixed_prefill: the poisoned trash block changed the output")
         print(f"  mixed_prefill {dtype}: dead lanes exactly 0; trash-poison diff 0", flush=True)
+        if dtype == "bfloat16":
+            # which rows set the pace: each live block's walk (key tiles of
+            # 64, one block per KV head), and the kernel on the decode rows
+            # alone and on the prefill rows alone (the others' lanes dead)
+            walks = {}
+            for r, (_, q0, ql, kl) in enumerate(desc_h):
+                for i0 in range(0, W * G, 64):
+                    if i0 // G < ql:
+                        last = min((min(W * G, i0 + 64) - 1) // G, ql - 1)
+                        walks.setdefault(r, []).append(-(-min(kl, s_pad, q0 + last + 1) // 64))
+            print(f"  mixed_prefill walks, key tiles per live lane tile, by row: {walks}", flush=True)
+            desc_dec, desc_pre = desc.clone(), desc.clone()
+            desc_dec[:2, 2] = 0
+            desc_pre[2:, 2] = 0
+            split = timer.turns(dict(
+                all=lambda: cp.mixed_prefill_attention(q, kp, vp, tables, desc),
+                decode_rows=lambda: cp.mixed_prefill_attention(q, kp, vp, tables, desc_dec),
+                prefill_rows=lambda: cp.mixed_prefill_attention(q, kp, vp, tables, desc_pre),
+            ))
+            print(f"  mixed_prefill {dtype}: all rows {split['all']:.4f} ms, the five decode rows alone "
+                  f"{split['decode_rows']:.4f} ms, the two prefill rows alone {split['prefill_rows']:.4f} ms", flush=True)
 
         od = da.paged_decode_attention(qd, kp, vp, tables, lens)
         od_plain = da.paged_decode_attention_plain(qd, kp, vp, tables, lens).float()
         err_d = (od.float() - od_plain).abs().max().item()
         check(f"paged_decode B={R} {dtype}", err_d, dtype)
         if parent:
-            check(f"  the parent's paged_decode {dtype}",
-                  (parent.paged_decode(qd, kp, vp, tables, lens).float() - od_plain).abs().max().item(), dtype)
+            od_parent = parent.paged_decode(qd, kp, vp, tables, lens)
+            check(f"  the parent's paged_decode {dtype}", (od_parent.float() - od_plain).abs().max().item(), dtype)
+            if not torch.equal(od_parent, od):
+                fail(f"paged_decode {dtype}: the output differs from the parent's build")
+            print(f"  paged_decode {dtype}: bitwise equal to the parent's build", flush=True)
         kp3, vp3 = kp.clone(), vp.clone()
         for t in (kp3, vp3):
             t[n_pool - 1] = 1e4
@@ -421,6 +510,7 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
                 ms=lambda: cp.mixed_prefill_attention(q, kp, vp, tables, desc),
                 plain_ms=lambda: cp.mixed_prefill_attention_plain(q, kp, vp, tables, desc),
                 library_ms=lambda: F.scaled_dot_product_attention(qt, kv_k, kv_v, attn_mask=mask_m, enable_gqa=True),
+                parent_ms=parent and (lambda: parent.mixed_prefill(q, kp, vp, tables, desc)),
             )),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
             shape=f"R={R} W={W} H={H} KV={KV} dh={DH} bs={BS} n_t={NT} {dtype}",
@@ -462,8 +552,13 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
             shape = f"B={b} S={sl} H={h} KV={kv} dh={dh} {'causal' if causal else 'non-causal'} {dtype}"
             check(f"flash_attention {label} {shape}", err, dtype)
             if parent:
+                o_parent = parent.flash_attention(q, k, v, causal)
                 check(f"  the parent's flash_attention, {label} {dtype}",
-                      (parent.flash_attention(q, k, v, causal).float() - o_plain).abs().max().item(), dtype)
+                      (o_parent.float() - o_plain).abs().max().item(), dtype)
+                if dtype == "bfloat16":
+                    if not torch.equal(o_parent, o):
+                        fail(f"flash_attention {label} {dtype}: the output differs from the parent's build")
+                    print(f"  flash_attention {label} {dtype}: bitwise equal to the parent's build", flush=True)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             b_ms, b_by = bound(es * (2 * b * sl * h * dh + 2 * b * sl * kv * dh), (4 * b * h * dh * pairs, dtype))
             rows["flash_attention", dtype, label] = dict(
@@ -490,8 +585,12 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         kc = torch.randn(R, S, KV, DH, generator=gen, device=dev).to(tdt)
         vc = torch.randn(R, S, KV, DH, generator=gen, device=dev).to(tdt)
         o = da.decode_attention(qd, kc, vc, lens_t)
-        err = (o.float() - da.decode_attention_plain(qd, kc, vc, lens_t).float()).abs().max().item()
+        oc_plain = da.decode_attention_plain(qd, kc, vc, lens_t).float()
+        err = (o.float() - oc_plain).abs().max().item()
         check(f"flash_decode B={R} S={S} {dtype}", err, dtype)
+        if parent:
+            check(f"  the parent's flash_decode {dtype}",
+                  (parent.flash_decode(qd, kc, vc, lens_t).float() - oc_plain).abs().max().item(), dtype)
         # partials of 4 sequence shards, combined, against the monolithic partials
         o_m, _, l_m = da.decode_attention(qd, kc, vc, lens_t, return_partials=True)
         parts = [
@@ -508,6 +607,7 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
                 plain_ms=lambda: da.decode_attention_plain(qd, kc, vc, lens_t),
                 library_ms=lambda: F.scaled_dot_product_attention(
                     qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask_c, enable_gqa=True),
+                parent_ms=parent and (lambda: parent.flash_decode(qd, kc, vc, lens_t)),
             )),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err, combine_err=err_c,
             shape=f"B={R} H={H} KV={KV} dh={DH} S={S} lengths {min(lens_c)}-{max(lens_c)} (sum {sum(lens_c)}) {dtype}",
@@ -806,8 +906,9 @@ def mamba2_phase(torch, smi: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent-csrc", help="a directory holding an earlier commit's flash_attention.cu and "
-                    "paged_decode.cu (and their headers), timed beside the current kernels in phase 3")
+    ap.add_argument("--parent-csrc", help="a directory holding an earlier commit's flash_attention.cu, "
+                    "paged_decode.cu, mixed_prefill.cu, flash_decode.cu, their headers and its kernels/_build.py, "
+                    "timed beside the current kernels in phase 3")
     args = ap.parse_args()
     try:
         import torch
@@ -835,18 +936,14 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"  built {len(_build.SIGNATURES)} kernels in {time.perf_counter() - t0:.1f} s", flush=True)
-    for name in ("flash_attention", "paged_decode"):
-        for line in ptxas_summary(_build.logs.get(name, ""), name):
-            print(f"  ptxas {line}", flush=True)
+    print_ptxas(_build.logs)
     parent = None
     if args.parent_csrc:
         t0 = time.perf_counter()
         parent = Parent(torch, Path(args.parent_csrc).resolve())
-        print(f"  built the parent's flash_attention and paged_decode from {args.parent_csrc} in "
+        print(f"  built the parent's {', '.join(Parent.NAMES)} from {args.parent_csrc} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        for name, log in parent.logs.items():
-            for line in ptxas_summary(log, name):
-                print(f"  ptxas (parent) {line}", flush=True)
+        print_ptxas(parent.logs, " (parent)")
 
     print("[3] kernels against their plain versions", flush=True)
     timer = Timer(torch)

@@ -4,7 +4,8 @@ Every ``csrc/<name>.cu`` is compiled on first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC -Xptxas=-v
 
-into ``kernels/.build/`` (listed in ``.gitignore``) and loaded with
+into ``kernels/.build/`` (listed in ``.gitignore``), its nvcc output
+beside it (``.log``), and loaded with
 ``ctypes``; no library beyond the CUDA runtime is linked.  The sources
 have a plain C interface: pointers and the CUDA stream pass as
 ``c_void_p``, sizes as ``c_int`` or ``c_longlong``, and every entry point
@@ -57,9 +58,10 @@ SIGNATURES = {
         "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, L, L, L, I, I, P],
     },
     "flash_decode": {
-        # q, k_cache, v_cache, lengths, out, o, m, l, b, h, kv, dh, s,
-        # k strides (batch, seq, head), v strides, partials, is_bf16, stream
-        "flash_decode_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, I, I, P],
+        # q, k_cache, v_cache, lengths, out, o, m, l, o_part, m_part,
+        # l_part, b, h, kv, dh, s, n_split, k strides (batch, seq, head),
+        # v strides, partials, is_bf16, stream
+        "flash_decode_launch": [P] * 11 + [I] * 6 + [L] * 6 + [I, I, P],
     },
     "ssd_chunk": {
         # x, b, c, dt, a, y, state, decay, b, l, h, hd, ds, x strides
@@ -71,8 +73,8 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# nvcc's output of each library built by this process: ptxas's registers,
-# shared memory and spills per kernel (``-Xptxas=-v``)
+# nvcc's output of each library built or found by this process: ptxas's
+# registers, shared memory and spills per kernel (``-Xptxas=-v``)
 logs: dict[str, str] = {}
 
 
@@ -97,6 +99,9 @@ def _start(name: str):
     ``(process or None, tmp path, final path)``."""
     out = _lib_path(name)
     if out.exists():
+        log = out.with_suffix(".log")
+        if log.exists():
+            logs[name] = log.read_text()
         return None, None, out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -112,6 +117,7 @@ def _finish(name: str, proc, tmp: Path, out: Path) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
     logs[name] = log
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a reader never sees a half-written library
 
 

@@ -1,9 +1,10 @@
 """Unified chunked-prefill attention over the paged KV pool.
 
 ``mixed_prefill_attention`` launches the hand-written kernel
-(``kernels/csrc/mixed_prefill.cu``) for CUDA tensors and runs
-``mixed_prefill_attention_plain`` for CPU tensors; anything else raises.
-``launches`` counts kernel launches.
+(``kernels/csrc/mixed_prefill.cu``: bf16 on the tensor cores, f32 on the
+CUDA cores) for CUDA tensors and runs ``mixed_prefill_attention_plain``
+for CPU tensors; anything else raises.  ``launches`` counts kernel
+launches.
 
 Descriptor contract (one row per ``desc[r] = (slot, q_start, q_len,
 kv_len)``): lane ``j`` of row ``r`` attends pool position ``kpos`` of
@@ -77,8 +78,12 @@ def mixed_prefill_attention(q, k_pool, v_pool, block_tables, desc):
     for t in (k_pool, v_pool, block_tables, desc):
         if t.device != q.device:
             raise ValueError(f"mixed_prefill_attention: tensors on {q.device} and {t.device}")
-    q = q.contiguous()
-    k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
+    # bf16 is read with 16-byte copies: a fresh copy of a tensor at an
+    # unaligned pointer (a contiguous view at an odd offset stays unaligned)
+    q, k_pool, v_pool = (
+        t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
+        for t in (q, k_pool, v_pool)
+    )
     tables = block_tables.to(torch.int32).contiguous()
     desc = desc.to(torch.int32).contiguous()
     out = torch.empty_like(q)

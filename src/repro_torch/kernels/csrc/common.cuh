@@ -6,12 +6,18 @@
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
 namespace repro {
 
 // finite "minus infinity" of the online softmax, as in the reference
 // kernels: exp(NEG_INF - m) underflows to +0.0 and NEG_INF - NEG_INF is 0
 constexpr float NEG_INF = -1e30f;
+
+// element strides of a (B, S, heads, head_dim) tensor; head_dim's is 1
+struct Strides {
+  long long b, s, h;
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -59,6 +65,19 @@ inline cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
   const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e == cudaSuccess) allowed = bytes;
   return e;
+}
+
+// f(std::integral_constant<int, DH>{}) at the head dims the kernels are
+// built for, 16 to 128; any other is refused
+template <class F>
+inline cudaError_t with_head_dim(int dh, F&& f) {
+  switch (dh) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace repro

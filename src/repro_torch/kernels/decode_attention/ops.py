@@ -9,6 +9,10 @@ anything else raises.  ``flash_decode_launches`` and ``launches`` count
 the launches of the two kernels.  Row ``b`` attends its first
 ``lengths[b]`` positions.  ``combine_partials`` merges the ``(o, m, l)``
 partials of disjoint cache shards.
+
+Both kernels split each row's positions over blocks of ``SPLIT`` (one
+body, ``kernels/csrc/decode_split.cuh``) and merge the splits' f32
+partials in a second launch, into scratch the wrappers allocate.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ flash_decode_launches = 0  # flash_decode kernel
 
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 16
-PAGED_SPLIT = 64  # positions per block of the paged kernel (PS in paged_decode.cu)
+SPLIT = 64  # positions per block of both kernels (PS in decode_split.cuh)
 
 
 def _check_decode(name, q, k, v, lengths) -> None:
@@ -42,6 +46,24 @@ def _check_decode(name, q, k, v, lengths) -> None:
     for t in (k, v, lengths):
         if t.device != q.device:
             raise ValueError(f"{name}: tensors on {q.device} and {t.device}")
+
+
+def _aligned16(t) -> bool:
+    """Whether the kernels' 16-byte copies can read ``t`` in place: head_dim
+    contiguous, and the pointer and every stride that is ever stepped (of
+    a dimension longer than 1) a multiple of 16 bytes."""
+    es = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * es % 16 == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
+
+
+def _split_scratch(b, kv, g, dh, cap, device):
+    """The splits' f32 partials: o (B, KV, n_split, G, dh), m and l
+    (B, KV, n_split, G), n_split = ceil(cap / SPLIT)."""
+    n_split = -(-cap // SPLIT)
+    o = torch.empty((b, kv, n_split, g, dh), dtype=torch.float32, device=device)
+    m, l = (torch.empty((b, kv, n_split, g), dtype=torch.float32, device=device) for _ in range(2))
+    return n_split, o, m, l
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, return_partials: bool = False):
@@ -77,19 +99,21 @@ def combine_partials(o, m, l):
 
 def decode_attention(q, k_cache, v_cache, lengths, return_partials: bool = False):
     """Single-token attention over a contiguous cache.  The caches are
-    read in place through their batch / sequence / head strides (head_dim
-    must be contiguous)."""
+    read in place through their batch / sequence / head strides when
+    head_dim is contiguous and the pointer and strides are 16-byte
+    multiples, else from a contiguous copy."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths, return_partials)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: tensor on {q.device}")
-    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape[0] != q.shape[0]:
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape[0] != q.shape[0] or k_cache.shape[1] == 0:
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, k {tuple(k_cache.shape)}")
     _check_decode("decode_attention", q, k_cache, v_cache, lengths)
     b, h, dh = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
     q = q.contiguous()
-    k_cache, v_cache = (t if t.stride(-1) == 1 else t.contiguous() for t in (k_cache, v_cache))
+    k_cache, v_cache = (t if _aligned16(t) else t.clone(memory_format=torch.contiguous_format)
+                        for t in (k_cache, v_cache))
     lengths = lengths.to(torch.int32).contiguous()
     if return_partials:  # (o, m, l), f32
         shapes = ((b, kv, h // kv, dh), (b, kv, h // kv, 1), (b, kv, h // kv, 1))
@@ -99,10 +123,12 @@ def decode_attention(q, k_cache, v_cache, lengths, return_partials: bool = False
         result = torch.empty_like(q)
         ptrs = (result.data_ptr(), 0, 0, 0)
     if b:
+        n_split, *scratch = _split_scratch(b, kv, h // kv, dh, s, q.device)
         lib = _build.load("flash_decode")
         err = lib.flash_decode_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), *ptrs,
-            b, h, kv, dh, s, *k_cache.stride()[:3], *v_cache.stride()[:3], int(return_partials),
+            *(t.data_ptr() for t in scratch), b, h, kv, dh, s, n_split,
+            *k_cache.stride()[:3], *v_cache.stride()[:3], int(return_partials),
             int(q.dtype == torch.bfloat16), ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
         )
         _build.check(err, "decode_attention")
@@ -125,10 +151,8 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths):
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     """Single-token attention through a block table over a shared KV pool.
-    The kernel splits each row's positions over blocks of
-    ``PAGED_SPLIT`` and merges the splits' f32 partials in a second
-    launch; a row with ``lengths[b] == 0`` gives 0 (the plain version
-    gives mean(V) over the table's span, as ``decode_attention_plain``)."""
+    A row with ``lengths[b] == 0`` gives 0 (the plain version gives mean(V)
+    over the table's span, as ``decode_attention_plain``)."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths)
     if q.device.type != "cuda":
@@ -154,10 +178,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     if b == 0:
         return out
     n_t = tables.shape[1]
-    n_split = -(-n_t * bs // PAGED_SPLIT)
-    g = h // kv
-    o_part = torch.empty((b, kv, n_split, g, dh), dtype=torch.float32, device=q.device)
-    m_part, l_part = (torch.empty((b, kv, n_split, g), dtype=torch.float32, device=q.device) for _ in range(2))
+    n_split, o_part, m_part, l_part = _split_scratch(b, kv, h // kv, dh, n_t * bs, q.device)
     lib = _build.load("paged_decode")
     err = lib.paged_decode_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),

@@ -26,9 +26,9 @@ def _kind(name: str) -> str:
         return "flash_attention kernel"
     if "mixed_prefill" in n:
         return "mixed_prefill kernel"
-    if "paged_decode" in n:
+    if "pagedkv" in n:  # decode_split / decode_combine through a block table
         return "paged_decode kernel"
-    if "flash_decode" in n:
+    if "stridedkv" in n:  # the same over a contiguous cache
         return "flash_decode kernel"
     if "ssd_chunk" in n:
         return "ssd_chunk kernel"

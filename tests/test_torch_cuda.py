@@ -285,7 +285,7 @@ def test_paged_decode_split_edges(cuda_device, h, kv, dh, bs, n_t, dtype):
     at group sizes 1 to 16."""
     lens = [1, 63, 64, 65, 288]
     args = _paged_case(np.random.default_rng(h * dh + bs), cuda_device, len(lens), h, kv, dh, bs, n_t, lens, dtype)
-    assert -(-n_t * bs // da_ops.PAGED_SPLIT) > 1
+    assert -(-n_t * bs // da_ops.SPLIT) > 1
     o = da_ops.paged_decode_attention(*args)
     o_p = da_ops.paged_decode_attention_plain(*args)
     torch.cuda.synchronize()
@@ -395,6 +395,142 @@ def test_flash_decode_empty_row_is_mean_of_v(cuda_device, dtype):
     np.testing.assert_allclose(
         o.float().cpu().numpy(), da_ops.decode_attention_plain(q, k, v, lens).float().cpu().numpy(),
         rtol=tol, atol=tol,
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("g", [1, 2, 16])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 272])
+def test_flash_decode_split_edges(cuda_device, s, g, dh, dtype):
+    """Cache lengths and row lengths on either side of the 64-position
+    splits, the empty row (mean V) and a length past S (clamped), in the
+    normalised and the partials form."""
+    kv = 2
+    lens = [0, 1, 63, 64, 65, s, s + 7]
+    rng = np.random.default_rng(s * 131 + g * 7 + dh)
+    q, k, v, _ = _decode_case(rng, cuda_device, len(lens), s, kv * g, kv, dh, dtype)
+    ln = torch.as_tensor(lens, dtype=torch.int32, device=cuda_device)
+    o = da_ops.decode_attention(q, k, v, ln)
+    o_k, m_k, l_k = da_ops.decode_attention(q, k, v, ln, return_partials=True)
+    o_p = da_ops.decode_attention_plain(q, k, v, ln)
+    o_q, m_q, l_q = da_ops.decode_attention_plain(q, k, v, ln, return_partials=True)
+    torch.cuda.synchronize()
+    tol = _tol(dtype)
+    np.testing.assert_allclose(o.float().cpu().numpy(), o_p.float().cpu().numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(m_k.cpu().numpy(), m_q.cpu().numpy(), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(l_k.cpu().numpy(), l_q.cpu().numpy(), rtol=2e-5, atol=0)
+    np.testing.assert_allclose((o_k / l_k).cpu().numpy(), (o_q / l_q).cpu().numpy(), rtol=2e-5, atol=2e-5)
+    assert bool((m_k[0] == -1e30).all()) and bool((l_k[0] == s).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_shard_partials_and_unaligned_view(cuda_device, dtype):
+    """Partials of 4 sequence shards (views into the cache, read in place),
+    combined, equal the monolithic partials, with an empty row (mean V)
+    and a shard with no live position; a cache view at an unaligned
+    pointer is copied first and gives the contiguous answer bitwise."""
+    b, s, h, kv, dh, shards = 8, 272, 16, 8, 128, 4
+    rng = np.random.default_rng(12)
+    q, k, v, _ = _decode_case(rng, cuda_device, b, s, h, kv, dh, dtype)
+    lens = torch.as_tensor([272, 17, 0, 64, 250, 131, 99, 1], dtype=torch.int32, device=cuda_device)
+    step = s // shards
+    parts = [
+        da_ops.decode_attention(q, k[:, i * step : (i + 1) * step], v[:, i * step : (i + 1) * step],
+                                torch.clamp(lens - i * step, 0, step), return_partials=True)
+        for i in range(shards)
+    ]
+    o_m, m_m, l_m = da_ops.decode_attention(q, k, v, lens, return_partials=True)
+    combined = da_ops.combine_partials(*zip(*parts))
+    full = da_ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(combined.cpu().numpy(), (o_m / l_m).cpu().numpy(), rtol=2e-5, atol=2e-5)
+    mean_v = v[2].float().mean(dim=0).repeat_interleave(h // kv, dim=0)  # (H, dh)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(full[2].float().cpu().numpy(), mean_v.cpu().numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(combined.reshape(b, h, dh)[2].cpu().numpy(), mean_v.cpu().numpy(), rtol=2e-5, atol=2e-5)
+    # two elements past an aligned pointer: 4 bytes in bf16, 8 in f32
+    wide = torch.as_tensor(rng.standard_normal((b, s, kv, dh + 8)), dtype=dtype, device=cuda_device)
+    k_odd = wide[..., 2 : 2 + dh]
+    assert not da_ops._aligned16(k_odd)
+    for form in (False, True):
+        got = da_ops.decode_attention(q, k_odd, v, lens, return_partials=form)
+        want = da_ops.decode_attention(q, k_odd.contiguous(), v, lens, return_partials=form)
+        torch.cuda.synchronize()
+        for x, y in zip(*((got, want) if form else ((got,), (want,)))):
+            assert torch.equal(x, y)
+
+
+def _mixed_edges_case(rng, device, g, dh, bs, w=70, kv=2):
+    """Rows around the 64-row and 64-key tiles of the bf16 kernel, tables
+    whose entries past each row's keys point at the trash block."""
+    desc = np.array([
+        (0, 0, 64 // g, 64 // g),          # a cold prefill filling one 64-row tile
+        (1, 0, 64 // g + 1, 64 // g + 1),  # one lane more: a second tile with G live rows
+        (2, 63, 1, 64),                    # decode at the last key of the first key tile
+        (3, 64, 1, 65),                    # decode at the first key of the second
+        (4, 100, 29, 129),                 # a continuation over key tiles 1-2, one key past 128
+        (5, 0, 0, 0),                      # an empty row
+        (6, 10, 0, 50),                    # no live lane, a cache behind it
+        (7, 30, w, 30 + w),                # every lane live
+    ], np.int32)
+    r, n_t = len(desc), -(-160 // bs)
+    n_pool = r * n_t + 1
+    tables = rng.permutation(n_pool - 1)[: r * n_t].reshape(r, n_t)
+    for i, (_, _, _, kl) in enumerate(desc):
+        tables[i, -(-kl // bs):] = n_pool - 1
+    q, kp, vp = (torch.as_tensor(rng.standard_normal(sh), dtype=torch.bfloat16, device=device)
+                 for sh in ((r, w, kv * g, dh), (n_pool, bs, kv, dh), (n_pool, bs, kv, dh)))
+    return (q, kp, vp, torch.as_tensor(tables, dtype=torch.int32, device=device),
+            torch.as_tensor(desc, device=device))
+
+
+@pytest.mark.parametrize("bs", [4, 16, 32])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("g", [1, 2])
+def test_mixed_prefill_bf16_tile_edges(cuda_device, g, dh, bs):
+    """The tensor-core kernel at lane and key counts on either side of its
+    64-row and 64-key tiles, an all-dead tile and an empty row, 64 / bs
+    pool blocks a key tile: against the plain version, dead lanes exactly 0."""
+    args = _mixed_edges_case(np.random.default_rng(g * 100 + dh + bs), cuda_device, g, dh, bs)
+    o = cp_ops.mixed_prefill_attention(*args)
+    o_p = cp_ops.mixed_prefill_attention_plain(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(o.float().cpu().numpy(), o_p.float().cpu().numpy(), rtol=2e-2, atol=2e-2)
+    dead = torch.arange(o.shape[1], device=cuda_device)[None, :] >= args[4][:, 2:3]
+    assert bool((o[dead] == 0).all())
+
+
+def test_mixed_prefill_bf16_nan_never_reaches_the_output(cuda_device):
+    """NaN in the trash block, in the unwritten tail of a row's last block
+    and in dead lanes' q changes no bit of the output at the path shape,
+    and dead lanes stay exactly 0."""
+    r, w, h, kv, dh, bs, n_t = 8, 256, 16, 8, 128, 32, 9
+    rng = np.random.default_rng(21)
+    desc_h = [(0, 0, 180, 180), (1, 100, 76, 176)] + [(i, 120 + 25 * i, 1, 121 + 25 * i) for i in range(2, 7)] + [(7, 0, 0, 0)]
+    n_pool = r * n_t + 1
+    tables = rng.permutation(n_pool - 1)[: r * n_t].reshape(r, n_t)
+    for i, (_, _, _, kl) in enumerate(desc_h):
+        tables[i, -(-kl // bs):] = n_pool - 1
+    q, kp, vp = (torch.as_tensor(rng.standard_normal(sh), dtype=torch.bfloat16, device=cuda_device)
+                 for sh in ((r, w, h, dh), (n_pool, bs, kv, dh), (n_pool, bs, kv, dh)))
+    tables = torch.as_tensor(tables, dtype=torch.int32, device=cuda_device)
+    desc = torch.as_tensor(desc_h, dtype=torch.int32, device=cuda_device)
+    base = cp_ops.mixed_prefill_attention(q, kp, vp, tables, desc)
+    dead = torch.arange(w, device=cuda_device)[None, :] >= desc[:, 2:3]
+    q2, kp2, vp2 = q.clone(), kp.clone(), vp.clone()
+    q2[dead] = float("nan")
+    for t in (kp2, vp2):
+        t[n_pool - 1] = float("nan")  # the trash block
+        t[tables[0, 5].long(), 180 - 5 * bs:] = float("nan")  # past row 0's kv_len 180
+        t[tables[1, 5].long(), 176 - 5 * bs:] = float("nan")  # past row 1's kv_len 176
+    poisoned = cp_ops.mixed_prefill_attention(q2, kp2, vp2, tables, desc)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned, base)
+    assert bool((base[dead] == 0).all())
+    np.testing.assert_allclose(
+        base.float().cpu().numpy(), cp_ops.mixed_prefill_attention_plain(q, kp, vp, tables, desc).float().cpu().numpy(),
+        rtol=2e-2, atol=2e-2,
     )
 
 

@@ -284,24 +284,66 @@ def test_decode_attention_empty_row_matches_pallas():
     np.testing.assert_allclose(o, np.asarray(decode_attention_ref(*ja)), rtol=2e-5, atol=2e-5)
 
 
-def test_decode_partials_combine_equals_monolithic():
-    """4 sequence shards' partials, combined, equal attention over the
-    whole cache (tests/test_kernels.py); the port's combine equals the
-    reference's on the same partials."""
-    b, s, h, kv, dh, shards = 2, 128, 8, 4, 32, 4
-    q, kc, vc, _ = _decode_args(7, b, s, h, kv, dh)
-    lens = np.array([s, 77], np.int32)  # row 1 leaves its last shard empty
+def _kernel_split_partials(q, kc, vc, lens, ps):
+    """The partials of the split kernels (``csrc/decode_split.cuh``, the
+    TPU's empty-row rule): one per ``ps`` positions of the cache, the last
+    split ragged; a split wholly past a non-empty row's length is
+    ``(o 0, m -1e30, l 0)``, every other one (each split of an empty row
+    too) the partials of its positions."""
+    parts = []
+    for s0 in range(0, kc.shape[1], ps):
+        o, m, l = da_ops.decode_attention(T(q), T(kc[:, s0 : s0 + ps]), T(vc[:, s0 : s0 + ps]),
+                                          T(np.clip(lens - s0, 0, ps)), return_partials=True)
+        past = T((lens > 0) & (lens <= s0))[:, None, None, None]
+        parts.append((torch.where(past, 0.0, o), torch.where(past, -1e30, m), torch.where(past, 0.0, l)))
+    return parts
+
+
+@pytest.mark.parametrize("form", ["shards", "kernel_splits"])
+def test_decode_partials_combine_equals_monolithic(form):
+    """Partials of disjoint pieces of the cache, combined, equal attention
+    over the whole cache (tests/test_kernels.py); the port's combine
+    equals the reference's on the same partials.  ``shards``: 4 sequence
+    shards, a row leaving its last shard empty.  ``kernel_splits``: the
+    split kernels' form, 64-position splits of S = 272 (the last of 16)
+    over rows of length 0, 64, 65 and 272, merged as the combine launch
+    merges them (M = max m_s, l = sum l_s e^(m_s - M), o likewise), also
+    against the monolithic partials and the Pallas kernel."""
+    if form == "shards":
+        b, s, h, kv, dh, shards = 2, 128, 8, 4, 32, 4
+        q, kc, vc, _ = _decode_args(7, b, s, h, kv, dh)
+        lens = np.array([s, 77], np.int32)  # row 1 leaves its last shard empty
+        step = s // shards
+        parts = [
+            da_ops.decode_attention(T(q), T(kc[:, i * step : (i + 1) * step]), T(vc[:, i * step : (i + 1) * step]),
+                                    T(np.clip(lens - i * step, 0, step)), return_partials=True)
+            for i in range(shards)
+        ]
+    else:
+        b, s, h, kv, dh = 4, 272, 8, 4, 32
+        q, kc, vc, lens = _decode_args(8, b, s, h, kv, dh, lens=[0, 64, 65, 272])
+        parts = _kernel_split_partials(q, kc, vc, lens, da_ops.SPLIT)
+        assert len(parts) == 5 and parts[-1][0].shape == (b, kv, h // kv, dh)
     full = da_ops.decode_attention(*map(T, (q, kc, vc, lens)))
-    step = s // shards
-    parts = [
-        da_ops.decode_attention(T(q), T(kc[:, i * step : (i + 1) * step]), T(vc[:, i * step : (i + 1) * step]),
-                                T(np.clip(lens - i * step, 0, step)), return_partials=True)
-        for i in range(shards)
-    ]
     combined = da_ops.combine_partials(*zip(*parts))
     np.testing.assert_allclose(combined.reshape(b, h, dh).numpy(), full.numpy(), rtol=2e-5, atol=2e-5)
     r_comb = r_combine_partials(*([jnp.asarray(t.numpy()) for t in xs] for xs in zip(*parts)))
     np.testing.assert_allclose(combined.numpy(), np.asarray(r_comb), rtol=2e-5, atol=2e-5)
+    if form == "kernel_splits":
+        o_s, m_s, l_s = (torch.stack(xs) for xs in zip(*parts))
+        m_g = m_s.amax(dim=0)
+        w = torch.exp(m_s - m_g)
+        merged = ((o_s * w).sum(dim=0), m_g, (l_s * w).sum(dim=0))
+        ja = [jnp.asarray(a) for a in (q, kc, vc, lens)]
+        np.testing.assert_allclose(combined.reshape(b, h, dh).numpy(), np.asarray(decode_attention_pallas(*ja)),
+                                   rtol=2e-5, atol=2e-5)
+        mono = da_ops.decode_attention(*map(T, (q, kc, vc, lens)), return_partials=True)
+        pallas = [np.asarray(t) for t in decode_attention_pallas(*ja, return_partials=True)]
+        for o_x, m_x, l_x in ((t.numpy() for t in mono), pallas):
+            np.testing.assert_allclose(merged[1].numpy(), m_x, rtol=2e-5, atol=2e-5)
+            np.testing.assert_allclose(merged[2].numpy(), l_x, rtol=2e-5, atol=0)
+            np.testing.assert_allclose((merged[0] / merged[2]).numpy(), o_x / l_x, rtol=2e-5, atol=2e-5)
+        assert (merged[1][0] == -1e30).all() and (merged[2][0] == s).all()  # the empty row: mean V
 
 
 # ---------------- SSD chunk ----------------
