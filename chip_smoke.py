@@ -3,21 +3,22 @@
 starts on the GPU.
 
     python3 chip_smoke.py        # from the repository root, on a machine with one CUDA card
-    python3 chip_smoke.py --parent-csrc DIR   # also time an earlier commit's four attention kernels
+    python3 chip_smoke.py --parent-csrc DIR   # also time an earlier commit's six kernels
 
 Phases (any failure exits non-zero, and the final ok line is printed
 only when every phase passed):
 
 1. device     the card's name and power limit, as nvidia-smi reports them;
 2. build      the six CUDA kernels, one nvcc each, all started together,
-              and ptxas's registers and spills of the four attention
-              kernels;
+              and ptxas's registers and spills of each;
 3. kernels    each kernel against its plain PyTorch version on the card at
               the full-width path shapes, f32 and bf16 (tolerance 2e-5 f32:
               both sum in f32 but in another order; 2e-2 bf16), the ±1e4
               trash-poison checks, retrieval at provider scale (N =
               1,048,576 x D = 256 f32, Q = 32, k = 8) with bitwise
-              batch-of-1 == batch-of-32 scores, flash attention at the
+              batch-of-1 == batch-of-32 scores, retrieval at the served
+              shape (Q = 16, N = 147, D = 256 and 768, timed) and past the
+              old caps (k = 100 at D = 770, k = 8 at D = 1100), flash attention at the
               rerank, chunk-index and admit-prefill shapes and a ragged
               causal one, contiguous flash-decode at the phase-6 decode
               shape with its partials combined over 4 sequence shards
@@ -29,13 +30,14 @@ only when every phase passed):
               the median of 20 calls taken in turns (a, b, b, a, ...), each
               after an L2 flush and a 1 ms device spin, so that the host's
               enqueue does not fall between the timing events.  With
-              ``--parent-csrc DIR`` (an earlier commit's flash_attention.cu,
-              paged_decode.cu, mixed_prefill.cu and flash_decode.cu, their
-              headers and its kernels/_build.py, whose nvcc flags and
-              ctypes signatures are used) those four are built too, checked
+              ``--parent-csrc DIR`` (an earlier commit's six kernel sources,
+              their headers and its kernels/_build.py, whose nvcc flags and
+              ctypes signatures are used) those six are built too, checked
               against the plain versions and timed in the same turns, and
-              paged_decode (f32 and bf16) and bf16 flash_attention must
-              give outputs bitwise equal to the parent's build;
+              paged_decode (f32 and bf16), bf16 flash_attention,
+              retrieval_topk (scores and ids, f32 and bf16) and ssd_chunk
+              (f32 and bf16) must give outputs bitwise equal to the
+              parent's build;
 4. paged      ``CFedRAGSystem.serve`` on 16 queries at the full width of
               qwen3-0.6b (28 layers, bf16, random weights from a seed) on
               the paged engine with the bag embedder; then retrieval
@@ -192,15 +194,26 @@ def ptxas_entries(log: str) -> list[tuple]:
 
 
 ATTENTION = ("flash_attention", "paged_decode", "mixed_prefill", "flash_decode")
+KERNELS = (*ATTENTION, "retrieval_topk", "ssd_chunk")
+
+
+def on_path(name: str, fn: str) -> bool:
+    """Whether a kernel instantiation is one the path runs: head_dim 128
+    for attention, hd 64 / ds 128 for the SSD chunk, every top-k one."""
+    if name == "ssd_chunk":
+        return ("ssd_scores" in fn and fn.endswith(", 128>")) or re.search(r"ssd_chunk<\w+, 64, 128\b", fn) is not None
+    return name == "retrieval_topk" or "128" in fn
 
 
 def print_ptxas(logs: dict, tag: str = "") -> None:
-    """Registers and spills of the attention kernels at head_dim 128 (the
-    path's), and whether any instantiation of each library spills."""
-    for name in ATTENTION:
-        entries = ptxas_entries(logs.get(name, ""))
+    """Registers and spills of the kernels at the path's shapes, and
+    whether any instantiation of each library spills."""
+    for name in KERNELS:
+        if name not in logs:
+            continue
+        entries = ptxas_entries(logs[name])
         for fn, regs, smem, st, ld in entries:
-            if "128" in fn:
+            if on_path(name, fn):
                 print(f"  ptxas{tag} {fn}: {regs} registers, {smem} bytes static smem, "
                       f"spill {st} / {ld} bytes stored / loaded", flush=True)
         spilled = [e[0] for e in entries if e[3] or e[4]]
@@ -209,15 +222,14 @@ def print_ptxas(logs: dict, tag: str = "") -> None:
 
 
 class Parent:
-    """The four attention kernels of an earlier commit (``--parent-csrc
-    DIR``: a directory holding that commit's ``flash_attention.cu``,
-    ``paged_decode.cu``, ``mixed_prefill.cu`` and ``flash_decode.cu``, the
-    headers they include and its ``kernels/_build.py``), built with that
-    ``_build.py``'s nvcc flags, bound with its ctypes signatures, called
-    with its own argument conventions and timed in turns with the current
-    kernels on the same inputs."""
+    """The six kernels of an earlier commit (``--parent-csrc DIR``: a
+    directory holding that commit's ``csrc/*.cu``, the headers they include
+    and its ``kernels/_build.py``), built with that ``_build.py``'s nvcc
+    flags, bound with its ctypes signatures, called with its own argument
+    conventions and timed in turns with the current kernels on the same
+    inputs."""
 
-    NAMES = ATTENTION
+    NAMES = KERNELS
 
     def __init__(self, torch, csrc: Path):
         import ctypes
@@ -232,7 +244,12 @@ class Parent:
         out = _build.BUILD_DIR / "parent"
         out.mkdir(parents=True, exist_ok=True)
         procs = {
-            n: subprocess.Popen([_build._nvcc(), *pb.NVCC_FLAGS, "-o", str(out / f"lib{n}.so"), str(csrc / f"{n}.cu")],
+            # -fno-gnu-unique: a function-local static of a header template
+            # (the shared-memory size a kernel was allowed) would otherwise be
+            # one object for both builds, and the parent's launch would skip
+            # raising its own kernel's limit
+            n: subprocess.Popen([_build._nvcc(), *pb.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-o",
+                                 str(out / f"lib{n}.so"), str(csrc / f"{n}.cu")],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for n in self.NAMES
         }
@@ -288,6 +305,44 @@ class Parent:
                    out.data_ptr(), *(t.data_ptr() for t in scratch), b, h, kv, dh, bs, n_t, scratch[1].shape[2],
                    int(q.dtype == self.torch.bfloat16))
         return out
+
+    def retrieval_topk(self, q, c, k):
+        """The wrapper's splits (multiples of 256 rows, which every earlier
+        build of the kernel takes) and scratch."""
+        from repro_torch.kernels.retrieval_topk import ops as rt
+
+        torch = self.torch
+        nq, d = q.shape
+        n = c.shape[0]
+        splits, rows = rt._plan(nq, n, q.device)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        i32 = dict(dtype=torch.int32, device=q.device)
+        ps, pi = torch.empty((nq, splits, k), **f32), torch.empty((nq, splits, k), **i32)
+        out_s, out_i = torch.empty((nq, k), **f32), torch.empty((nq, k), **i32)
+        self._call("retrieval_topk", q.data_ptr(), c.data_ptr(), ps.data_ptr(), pi.data_ptr(), out_s.data_ptr(),
+                   out_i.data_ptr(), nq, n, d, k, splits, rows, int(q.dtype == torch.bfloat16))
+        return out_s, out_i
+
+    def ssd_chunk(self, x, b, c, dt, a):
+        """The entry point of the kernel that computed C.B^T in every head's
+        block (27 arguments), or the one with the wrapper's C.B^T scratch and
+        group count (29)."""
+        from repro_torch.kernels.ssd_scan import ops as ss
+
+        torch = self.torch
+        bsz, l, h, hd = x.shape
+        ds = b.shape[3]
+        f32 = dict(dtype=torch.float32, device=x.device)
+        y, st, dec = torch.empty((bsz, l, h, hd), **f32), torch.empty((bsz, h, hd, ds), **f32), torch.empty((bsz, h), **f32)
+        strides = (*x.stride()[:3], *b.stride()[:3], *c.stride()[:3], *dt.stride(), int(x.dtype == torch.bfloat16))
+        ins = (x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(), a.data_ptr())
+        outs = (y.data_ptr(), st.data_ptr(), dec.data_ptr())
+        if len(self.fns["ssd_chunk"].argtypes) == 27:
+            self._call("ssd_chunk", *ins, *outs, bsz, l, h, hd, ds, *strides)
+        else:
+            groups, cbt = ss._scores_scratch(b, c, bsz, l, h)
+            self._call("ssd_chunk", *ins, cbt.data_ptr(), *outs, bsz, l, h, hd, ds, groups, *strides)
+        return y, st, dec
 
     def flash_decode(self, q, kc, vc, lengths):
         """The normalised output, through the entry point of the kernel with
@@ -380,7 +435,25 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         if not torch.equal(i, i_p):  # random unit vectors: no ties, so the ids must agree
             fail(f"retrieval_topk {label} {dtype}: ids differ from the plain version's")
         print("    ids equal to plain", flush=True)
+        if parent and k <= 32 and d % 4 == 0 and d <= 1024:  # what the parent takes
+            s_par, i_par = parent.retrieval_topk(qs, cs, k)
+            if not (torch.equal(s_par, s) and torch.equal(i_par, i)):
+                fail(f"retrieval_topk {label} {dtype}: scores or ids differ from the parent's build")
+            print("    scores and ids bitwise equal to the parent's build", flush=True)
         return qs, cs, err
+
+    def topk_row(qs, cs, k, dtype, err):
+        (nq, d), n, es = qs.shape, cs.shape[0], qs.element_size()
+        b_ms, b_by = bound(nq * d * es + n * d * es + nq * k * 8, (2 * nq * n * d, dtype))
+        return dict(
+            **timer.turns(dict(
+                ms=lambda: rt.retrieval_topk(qs, cs, k),
+                plain_ms=lambda: rt.retrieval_topk_plain(qs, cs, k),
+                library_ms=lambda: torch.topk(qs @ cs.T, k, dim=1),
+                parent_ms=parent and (lambda: parent.retrieval_topk(qs, cs, k)),
+            )),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err, shape=f"Q={nq} N={n} D={d} k={k} {dtype}",
+        )
 
     nq, n, d, k = 32, 1 << 20, 256, 8  # provider scale
     for dtype in ("float32", "bfloat16"):
@@ -392,18 +465,17 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
             if not (torch.equal(s1[0], s32[r]) and torch.equal(i1[0], i32[r])):
                 fail(f"retrieval_topk {dtype}: batch-of-1 scores of query {r} differ from batch-of-32")
         print(f"  retrieval_topk {dtype}: batch-of-1 == batch-of-32 bitwise (queries 0, 13, 31)", flush=True)
-        es = qs.element_size()
-        b_ms, b_by = bound(nq * d * es + n * d * es + nq * k * 8, (2 * nq * n * d, dtype))
-        rows["retrieval_topk", dtype] = dict(
-            **timer.turns(dict(
-                ms=lambda: rt.retrieval_topk(qs, cs, k),
-                plain_ms=lambda: rt.retrieval_topk_plain(qs, cs, k),
-                library_ms=lambda: torch.topk(qs @ cs.T, k, dim=1),
-            )),
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            shape=f"Q={nq} N={n} D={d} k={k} {dtype}",
-        )
+        rows["retrieval_topk", dtype] = topk_row(qs, cs, k, dtype, err)
         del qs, cs
+        # past the caps of the kernel before the shared-memory tiles: k > 32
+        # with D not a multiple of 4, and D > 1024
+        topk_case(8, 20000, 770, 100, dtype, "long lists")
+        topk_case(32, 50000, 1100, 8, dtype, "wide rows")
+    # the served shape: 16 queries against a provider's 147 chunks, with the
+    # bag embedder's D and contriever's
+    for d_s in (256, 768):
+        qs, cs, err = topk_case(16, 147, d_s, k, "float32", "served")
+        rows["retrieval_topk", "float32", f"served D={d_s}"] = topk_row(qs, cs, k, "float32", err)
 
     # ---- attention at the serving shapes ----
     R, W, H, KV, DH, BS, NT = 8, 256, 16, 8, 128, 32, 9  # max_batch, token_budget, qwen3-0.6b
@@ -634,6 +706,10 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         # bf16 inputs are upcast exactly and every product is f32, so both
         # rows are held to the f32 tolerance
         check(f"ssd_chunk B={SB} L={SL} H={SH} hd={SHD} ds={SDS} {dtype}, error / max |output|", rel, "float32")
+        if parent:
+            if not all(torch.equal(o, p) for o, p in zip(outs, parent.ssd_chunk(x, bg, cg, dt, a))):
+                fail(f"ssd_chunk {dtype}: the outputs differ from the parent's build")
+            print(f"  ssd_chunk {dtype}: bitwise equal to the parent's build", flush=True)
         # bytes: x in, one group of B and C, dt, a; y, state, decay out.
         # FLOPs over the causal half (j <= i) that the function needs: C.B^T
         # once per (batch, group), on the inputs' own type (bf16 x bf16 is
@@ -652,6 +728,7 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
                 ms=lambda: ss.ssd_chunk(x, bg, cg, dt, a),
                 plain_ms=lambda: ss.ssd_chunk_plain(x, bg, cg, dt, a),
                 library_ms=None,  # no single PyTorch call computes the chunk terms
+                parent_ms=parent and (lambda: parent.ssd_chunk(x, bg, cg, dt, a)),
             )),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err, max_rel_err=rel,
             shape=f"B={SB} L={SL} H={SH} hd={SHD} ds={SDS} G={SG} {dtype} x/B/C, f32 dt/a",
@@ -906,9 +983,8 @@ def mamba2_phase(torch, smi: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent-csrc", help="a directory holding an earlier commit's flash_attention.cu, "
-                    "paged_decode.cu, mixed_prefill.cu, flash_decode.cu, their headers and its kernels/_build.py, "
-                    "timed beside the current kernels in phase 3")
+    ap.add_argument("--parent-csrc", help="a directory holding an earlier commit's six kernel sources (csrc/*.cu), "
+                    "their headers and its kernels/_build.py, timed beside the current kernels in phase 3")
     args = ap.parse_args()
     try:
         import torch

@@ -64,10 +64,10 @@ SIGNATURES = {
         "flash_decode_launch": [P] * 11 + [I] * 6 + [L] * 6 + [I, I, P],
     },
     "ssd_chunk": {
-        # x, b, c, dt, a, y, state, decay, b, l, h, hd, ds, x strides
-        # (batch, seq, head), b strides, c strides, dt strides, is_bf16,
-        # stream
-        "ssd_chunk_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, L, L, L, L, L, L, I, P],
+        # x, b, c, dt, a, scores scratch, y, state, decay, b, l, h, hd,
+        # ds, groups, x strides (batch, seq, head), b strides, c strides,
+        # dt strides, is_bf16, stream
+        "ssd_chunk_launch": [P] * 9 + [I] * 6 + [L] * 12 + [I, P],
     },
 }
 
@@ -151,3 +151,12 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what}: launch failed with cudaError_t {err}")
+
+
+def aligned16(t) -> bool:
+    """Whether the kernels' 16-byte copies can read tensor ``t`` in place:
+    its last axis contiguous, and the pointer and every stride that is
+    ever stepped (of a dimension longer than 1) a multiple of 16 bytes."""
+    es = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * es % 16 == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))

@@ -48,15 +48,6 @@ def _check_decode(name, q, k, v, lengths) -> None:
             raise ValueError(f"{name}: tensors on {q.device} and {t.device}")
 
 
-def _aligned16(t) -> bool:
-    """Whether the kernels' 16-byte copies can read ``t`` in place: head_dim
-    contiguous, and the pointer and every stride that is ever stepped (of
-    a dimension longer than 1) a multiple of 16 bytes."""
-    es = t.element_size()
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(st * es % 16 == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
-
-
 def _split_scratch(b, kv, g, dh, cap, device):
     """The splits' f32 partials: o (B, KV, n_split, G, dh), m and l
     (B, KV, n_split, G), n_split = ceil(cap / SPLIT)."""
@@ -112,7 +103,7 @@ def decode_attention(q, k_cache, v_cache, lengths, return_partials: bool = False
     b, h, dh = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
     q = q.contiguous()
-    k_cache, v_cache = (t if _aligned16(t) else t.clone(memory_format=torch.contiguous_format)
+    k_cache, v_cache = (t if _build.aligned16(t) else t.clone(memory_format=torch.contiguous_format)
                         for t in (k_cache, v_cache))
     lengths = lengths.to(torch.int32).contiguous()
     if return_partials:  # (o, m, l), f32

@@ -3,7 +3,8 @@
 ``retrieval_topk`` launches the hand-written kernel
 (``kernels/csrc/retrieval_topk.cu``) for CUDA tensors and runs
 ``retrieval_topk_plain`` for CPU tensors; anything else raises.
-``launches`` counts kernel launches (one per call that reaches the card).
+``launches`` counts the calls that reach the card, one each (two kernel
+launches: the partial lists over splits of the corpus, then their merge).
 """
 from __future__ import annotations
 
@@ -15,8 +16,7 @@ from repro_torch.kernels import _build
 
 launches = 0
 
-_SPLIT_ROWS = 256  # corpus rows per chunk of the partial kernel
-_MAX_K = 32
+_SPLIT_ROWS = 256  # corpus rows a split is a multiple of (a multiple of every tile)
 
 
 def retrieval_topk_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int):
@@ -29,11 +29,30 @@ def retrieval_topk_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int):
 
 def _split_plan(n: int, q_blocks: int, n_sm: int) -> tuple[int, int]:
     """(splits, rows_per_split): about four blocks per SM in all, each
-    split a multiple of the 256-row chunk."""
+    split a multiple of 256 rows (of every tile); the splits cover rows 0 .. n-1
+    once, and only the last may be short."""
     target = max(1, (4 * n_sm) // q_blocks)
     rows = -(-n // target)
     rows = -(-rows // _SPLIT_ROWS) * _SPLIT_ROWS
     return -(-n // rows), rows
+
+
+def _plan(nq: int, n: int, device) -> tuple[int, int]:
+    """(splits, rows_per_split) of the partial kernel for ``nq`` queries
+    (blocks of 8 queries for a few, else 32) over ``n`` rows on ``device``."""
+    q_blocks = -(-nq // (8 if nq <= 8 else 32))
+    return _split_plan(n, q_blocks, torch.cuda.get_device_properties(device).multi_processor_count)
+
+
+def _rows16(t: torch.Tensor, d_pad: int) -> torch.Tensor:
+    """``t`` (rows, D) with its rows 16-byte aligned, as the kernel's
+    16-byte copies read them: in place where they are, else a copy padded
+    with zero columns to ``d_pad``."""
+    if t.shape[1] == d_pad and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((t.shape[0], d_pad))
+    out[:, : t.shape[1]] = t
+    return out
 
 
 def retrieval_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int):
@@ -49,24 +68,24 @@ def retrieval_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int):
         raise ValueError(f"retrieval_topk: dtypes {queries.dtype} / {corpus.dtype}")
     nq, d = queries.shape
     n = corpus.shape[0]
-    if d % 4 or d > 1024:
-        raise ValueError(f"retrieval_topk: D={d} must be a multiple of 4 and at most 1024")
-    if not 1 <= k <= min(_MAX_K, n):
-        raise ValueError(f"retrieval_topk: k={k} must lie in [1, min({_MAX_K}, N={n})]")
-    queries, corpus = queries.contiguous(), corpus.contiguous()
+    if not 1 <= k <= n:
+        raise ValueError(f"retrieval_topk: k={k} must lie in [1, N={n}]")
+    # D padded to a multiple of 16 bytes: each zero column adds fmaf(0, 0, s) = s
+    # to a score's chain, as the kernel's zero-filled slice tail already does
+    vec = 16 // queries.element_size()
+    d_pad = -(-d // vec) * vec
+    queries, corpus = (_rows16(t.contiguous(), d_pad) for t in (queries, corpus))
     out_s = torch.empty((nq, k), dtype=torch.float32, device=queries.device)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=queries.device)
     if nq == 0:
         return out_s, out_i
-    q_blocks = -(-nq // (8 if nq <= 8 else 32))
-    n_sm = torch.cuda.get_device_properties(queries.device).multi_processor_count
-    splits, rows = _split_plan(n, q_blocks, n_sm)
+    splits, rows = _plan(nq, n, queries.device)
     part_s = torch.empty((nq, splits, k), dtype=torch.float32, device=queries.device)
     part_i = torch.empty((nq, splits, k), dtype=torch.int32, device=queries.device)
     lib = _build.load("retrieval_topk")
     err = lib.retrieval_topk_launch(
         queries.data_ptr(), corpus.data_ptr(), part_s.data_ptr(), part_i.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), nq, n, d, k, splits, rows,
+        out_s.data_ptr(), out_i.data_ptr(), nq, n, d_pad, k, splits, rows,
         int(queries.dtype == torch.bfloat16),
         ctypes.c_void_p(torch.cuda.current_stream(queries.device).cuda_stream),
     )

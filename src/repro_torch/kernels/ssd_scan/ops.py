@@ -4,7 +4,8 @@ Mamba2 mixer).
 ``ssd_chunk`` launches the hand-written kernel
 (``kernels/csrc/ssd_chunk.cu``) for CUDA tensors and runs
 ``ssd_chunk_plain`` for CPU tensors; anything else raises.  ``launches``
-counts kernel launches.  For one chunk of ``L`` positions per (batch,
+counts the calls that reach the card, one each (two kernel launches: the
+``C . B^T`` tiles, then the chunk terms).  For one chunk of ``L`` positions per (batch,
 head), with ``cum`` the inclusive prefix sum of ``dt * a`` over the chunk:
 
     y_intra[i] = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
@@ -13,7 +14,7 @@ head), with ``cum`` the inclusive prefix sum of ``dt * a`` over the chunk:
 
 ``b`` and ``c`` carry one row per head; a single group shared by every
 head may come as an ``expand``ed view (head stride 0), which the kernel
-reads in place.
+reads in place, computing ``C . B^T`` once for all the heads.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro_torch.kernels import _build
 launches = 0
 
 _DIMS = (16, 32, 64, 128)
+_TILE = 64  # positions per i / j tile of the kernel
 
 
 def ssd_chunk_plain(x, b, c, dt, a):
@@ -44,6 +46,28 @@ def ssd_chunk_plain(x, b, c, dt, a):
     wgt = torch.exp(cum[:, -1:, :] - cum) * dt  # (B, L, H)
     st = torch.einsum("bjh,bjhs,bjhp->bhps", wgt, bf, xf)
     return y, st, torch.exp(cum[:, -1, :])
+
+
+def _scores_scratch(b, c, bsz, l, h):
+    """(groups, f32 scratch for the kernel's ``C . B^T`` tiles): one group
+    when every head reads the same B and C rows (head stride 0), else one
+    per head; per (batch, group) the n (n + 1) / 2 causal 64 x 64 tiles of
+    n = ceil(l / 64)."""
+    groups = 1 if b.stride(2) == 0 and c.stride(2) == 0 else h
+    n_t = -(-l // _TILE)
+    return groups, torch.empty((bsz, groups, n_t * (n_t + 1) // 2, _TILE, _TILE), dtype=torch.float32,
+                               device=b.device)
+
+
+def _rows16(t):
+    """``t`` read in place where its rows are 16-byte aligned (the kernel's
+    16-byte copies), else a contiguous copy; an expanded head axis (stride
+    0) stays expanded."""
+    if _build.aligned16(t):
+        return t
+    if t.stride(2) == 0:
+        return t[:, :, :1].clone(memory_format=torch.contiguous_format).expand(t.shape)
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def ssd_chunk(x, b, c, dt, a):
@@ -71,8 +95,9 @@ def ssd_chunk(x, b, c, dt, a):
     for t in (b, c, dt, a):
         if t.device != x.device:
             raise ValueError(f"ssd_chunk: tensors on {x.device} and {t.device}")
-    # read in place through the strides; only the last axis must be contiguous
-    x, b, c, dt = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, b, c, dt))
+    # read in place through the strides where the kernel can
+    c, dt = (t if t.stride(-1) == 1 else t.contiguous() for t in (c, dt))
+    x, b = _rows16(x), _rows16(b)  # staged by 16-byte copies
     a = a.contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((bsz, l, h, hd), **f32)
@@ -80,10 +105,11 @@ def ssd_chunk(x, b, c, dt, a):
     dec = torch.empty((bsz, h), **f32)
     if bsz == 0 or h == 0:
         return y, st, dec
+    groups, cbt = _scores_scratch(b, c, bsz, l, h)
     lib = _build.load("ssd_chunk")
     err = lib.ssd_chunk_launch(
-        x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(), a.data_ptr(), y.data_ptr(),
-        st.data_ptr(), dec.data_ptr(), bsz, l, h, hd, ds, *x.stride()[:3], *b.stride()[:3],
+        x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(), a.data_ptr(), cbt.data_ptr(), y.data_ptr(),
+        st.data_ptr(), dec.data_ptr(), bsz, l, h, hd, ds, groups, *x.stride()[:3], *b.stride()[:3],
         *c.stride()[:3], *dt.stride(), int(x.dtype == torch.bfloat16),
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )

@@ -30,7 +30,7 @@ def _kind(name: str) -> str:
         return "paged_decode kernel"
     if "stridedkv" in n:  # the same over a contiguous cache
         return "flash_decode kernel"
-    if "ssd_chunk" in n:
+    if "ssd_chunk" in n or "ssd_scores" in n:
         return "ssd_chunk kernel"
     if "topk_partial" in n or "topk_merge" in n:
         return "retrieval_topk kernel"

@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.chunked_prefill import ops as cp_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -67,6 +68,65 @@ def test_retrieval_topk_ties_and_batch_independence(cuda_device):
     for r in (0, 7, 19):
         s1, i1 = rt_ops.retrieval_topk(qt[r : r + 1], ct, 8)
         assert torch.equal(s1[0], s[r]) and torch.equal(i1[0], i[r])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q", [5, 33])
+@pytest.mark.parametrize("d", [3, 770, 1100])
+@pytest.mark.parametrize("k", [33, 100, "N"])
+def test_retrieval_topk_any_k_and_d(cuda_device, k, d, q, dtype):
+    """Lists longer than 32 (kept in the partial output), D not a multiple
+    of 4 (the wrapper pads the rows with zero columns to 16 bytes) and D
+    past 1024."""
+    n = 700
+    k = n if k == "N" else k
+    g = torch.Generator(device="cpu").manual_seed(d * q + k)
+    # unit-norm rows, as the embedders hand them over: scores in [-1, 1]
+    qs = torch.nn.functional.normalize(torch.randn(q, d, generator=g), dim=1).to(dtype).to(cuda_device)
+    cs = torch.nn.functional.normalize(torch.randn(n, d, generator=g), dim=1).to(dtype).to(cuda_device)
+    s, i = rt_ops.retrieval_topk(qs, cs, k)
+    s_p, _ = rt_ops.retrieval_topk_plain(qs, cs, k)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(s.cpu().numpy(), s_p.cpu().numpy(), rtol=2e-5, atol=2e-5)
+    got = torch.gather(qs.float() @ cs.float().T, 1, i.long())
+    np.testing.assert_allclose(got.cpu().numpy(), s_p.cpu().numpy(), rtol=2e-5, atol=2e-5)
+    assert all(len(set(row)) == k for row in i.cpu().tolist())  # every id once
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_retrieval_topk_batch_independence_unaligned_d(cuda_device, dtype):
+    """D = 770: every score is still one in-order chain, whatever the batch."""
+    g = torch.Generator(device="cpu").manual_seed(770)
+    qs = torch.randn(20, 770, generator=g).to(dtype).to(cuda_device)
+    cs = torch.randn(3000, 770, generator=g).to(dtype).to(cuda_device)
+    s, i = rt_ops.retrieval_topk(qs, cs, 8)
+    for r in (0, 7, 19):
+        s1, i1 = rt_ops.retrieval_topk(qs[r : r + 1], cs, 8)
+        assert torch.equal(s1[0], s[r]) and torch.equal(i1[0], i[r])
+
+
+def _shifted(t):
+    """``t``'s values in a view whose data pointer is one element past a
+    16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = flat[1:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_retrieval_topk_unaligned_rows_equal_aligned(cuda_device, dtype):
+    """A corpus whose rows are not 16-byte aligned (copied by the wrapper
+    before the kernel's 16-byte copies read it) scores bitwise as its
+    aligned copy."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    qs = torch.randn(20, 256, generator=g).to(dtype).to(cuda_device)
+    cs = torch.randn(3000, 256, generator=g).to(dtype).to(cuda_device)
+    cs_u = _shifted(cs)
+    assert cs_u.data_ptr() % 16
+    s, i = rt_ops.retrieval_topk(qs, cs, 8)
+    s_u, i_u = rt_ops.retrieval_topk(qs, cs_u, 8)
+    assert torch.equal(s, s_u) and torch.equal(i, i_u)
 
 
 def _mixed_case(rng, b, w, h, kv, dh, bs, n_t, dtype, device):
@@ -452,7 +512,7 @@ def test_flash_decode_shard_partials_and_unaligned_view(cuda_device, dtype):
     # two elements past an aligned pointer: 4 bytes in bf16, 8 in f32
     wide = torch.as_tensor(rng.standard_normal((b, s, kv, dh + 8)), dtype=dtype, device=cuda_device)
     k_odd = wide[..., 2 : 2 + dh]
-    assert not da_ops._aligned16(k_odd)
+    assert not _build.aligned16(k_odd)
     for form in (False, True):
         got = da_ops.decode_attention(q, k_odd, v, lens, return_partials=form)
         want = da_ops.decode_attention(q, k_odd.contiguous(), v, lens, return_partials=form)
@@ -574,3 +634,42 @@ def test_ssd_chunk_reads_expanded_group_views(cuda_device):
     for g, w, p in zip(got, want, plain):
         assert torch.equal(g, w)
         np.testing.assert_allclose(g.cpu().numpy(), p.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [1, 100, 300])
+def test_ssd_chunk_one_group_over_heads_equals_materialised(cuda_device, l, dtype):
+    """One group expanded over 8 heads (C.B^T computed once for all of
+    them) against its materialised copy (once per head): the same bits."""
+    x, bb, cc, dt, a = _ssd_case(np.random.default_rng(l), cuda_device, 2, l, 8, 64, 128, dtype, expand=True)
+    got = ss_ops.ssd_chunk(x, bb, cc, dt, a)
+    want = ss_ops.ssd_chunk(x, bb.contiguous(), cc.contiguous(), dt, a)
+    plain = ss_ops.ssd_chunk_plain(x, bb, cc, dt, a)
+    torch.cuda.synchronize()
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(g, w)
+        np.testing.assert_allclose(g.cpu().numpy(), p.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_unaligned_rows_equal_aligned(cuda_device, dtype):
+    """x and B whose rows are not 16-byte aligned (copied by the wrapper
+    before the kernel's 16-byte copies read them), B also as one group
+    expanded over the heads, give bitwise the outputs of their aligned
+    copies."""
+    x, bb, cc, dt, a = _ssd_case(np.random.default_rng(5), cuda_device, 2, 100, 4, 64, 128, dtype)
+    xu, bu = _shifted(x), _shifted(bb)
+    assert xu.data_ptr() % 16 and bu.data_ptr() % 16
+    got = ss_ops.ssd_chunk(xu, bu, cc, dt, a)
+    want = ss_ops.ssd_chunk(x, bb, cc, dt, a)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    x, bb, cc, dt, a = _ssd_case(np.random.default_rng(6), cuda_device, 2, 100, 4, 64, 128, dtype, expand=True)
+    bu = _shifted(bb[:, :, :1]).expand(bb.shape)
+    assert bu.data_ptr() % 16 and bu.stride(2) == 0
+    got = ss_ops.ssd_chunk(x, bu, cc, dt, a)
+    want = ss_ops.ssd_chunk(x, bb, cc, dt, a)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -39,7 +39,14 @@ T = torch.as_tensor
 
 
 # ---------------- retrieval top-k ----------------
-@pytest.mark.parametrize("q,n,d,k", [(5, 100, 16, 4), (9, 257, 32, 8), (1, 50, 8, 8), (12, 300, 16, 1)])
+@pytest.mark.parametrize(
+    "q,n,d,k",
+    [
+        (5, 100, 16, 4), (9, 257, 32, 8), (1, 50, 8, 8), (12, 300, 16, 1),
+        # lists longer than 32, odd D, k = N: what the card's kernel now takes too
+        (3, 130, 7, 40), (2, 70, 13, 70), (5, 200, 33, 33),
+    ],
+)
 def test_retrieval_topk_plain_matches_pallas_and_ref(q, n, d, k):
     rng = np.random.default_rng(q * n)
     base = rng.integers(-3, 4, size=(n // 2 + 1, d)).astype(np.float32)
@@ -54,6 +61,20 @@ def test_retrieval_topk_plain_matches_pallas_and_ref(q, n, d, k):
     assert s.dtype == torch.float32 and i.dtype == torch.int32
 
 
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 147, 5000, 1 << 20])
+@pytest.mark.parametrize("q_blocks,n_sm", [(1, 132), (4, 132), (1, 8)])
+def test_retrieval_topk_split_plan_covers_every_row_once(n, q_blocks, n_sm):
+    """The partial kernel's splits: each a multiple of 256 rows (of every
+    tile the kernel walks), together covering rows 0 .. n-1 once, none
+    empty."""
+    splits, rows = rt_ops._split_plan(n, q_blocks, n_sm)
+    assert rows % rt_ops._SPLIT_ROWS == 0 and rt_ops._SPLIT_ROWS == 256
+    bounds = [(s * rows, min(n, (s + 1) * rows)) for s in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == n
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+
+
 def test_retrieval_topk_batch_rows_independent():
     rng = np.random.default_rng(1)
     cs = T(rng.standard_normal((200, 32)).astype(np.float32))
@@ -63,6 +84,58 @@ def test_retrieval_topk_batch_rows_independent():
         s1, i1 = rt_ops.retrieval_topk(qs[r : r + 1], cs, 8)
         np.testing.assert_allclose(s1[0].numpy(), s[r].numpy(), rtol=0, atol=1e-5)
         assert torch.equal(i1[0], i[r])
+
+
+def _shifted(t):
+    """``t``'s values in a view whose data pointer is one element past an
+    aligned one."""
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype)
+    v = flat[1:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 3), (torch.float32, 8), (torch.bfloat16, 770), (torch.bfloat16, 16)])
+def test_retrieval_topk_rows16_pads_d_with_zero_columns(dtype, d):
+    """The rows the card's kernel reads: 16-byte aligned, D padded to a
+    multiple of 16 bytes with zero columns (each adds fmaf(0, 0, s) = s to
+    a score), the values unchanged; aligned rows are read in place."""
+    rng = np.random.default_rng(d)
+    t = T(rng.standard_normal((5, d))).to(dtype)
+    vec = 16 // t.element_size()
+    d_pad = -(-d // vec) * vec
+    if d_pad == d:
+        assert rt_ops._rows16(t, d_pad) is t
+    for src in (t, _shifted(t)):
+        out = rt_ops._rows16(src, d_pad)
+        assert out.shape == (5, d_pad) and out.dtype == dtype and out.data_ptr() % 16 == 0
+        assert torch.equal(out[:, :d], t) and not out[:, d:].any()
+
+
+@pytest.mark.parametrize("expand", [False, True])
+def test_ssd_chunk_rows16_copies_unaligned_rows(expand):
+    """x and B as the card's kernel reads them: in place where every row is
+    16-byte aligned, else a copy, an expanded group staying expanded."""
+    _, bb, _, _, _ = _ssd_args(7, 2, 24, 4, 16, 8)
+    t = T(bb[:, :, :1]).expand(2, 24, 4, 8) if expand else T(bb)
+    assert ss_ops._rows16(t) is t
+    u = _shifted(t[:, :, :1]).expand(t.shape) if expand else _shifted(t)
+    assert not _build.aligned16(u)
+    out = ss_ops._rows16(u)
+    assert _build.aligned16(out) and torch.equal(out, t) and (out.stride(2) == 0) == expand
+
+
+@pytest.mark.parametrize("l", [1, 64, 65, 300])
+@pytest.mark.parametrize("expand", [False, True])
+def test_ssd_chunk_scores_scratch_per_group(l, expand):
+    """One group of C . B^T tiles when B and C are both expanded over the
+    heads, else one per head; n (n + 1) / 2 causal 64 x 64 tiles each."""
+    b = torch.zeros((2, l, 1 if expand else 4, 8))
+    b = b.expand(2, l, 4, 8) if expand else b
+    groups, cbt = ss_ops._scores_scratch(b, b, 2, l, 4)
+    n_t = -(-l // 64)
+    assert groups == (1 if expand else 4)
+    assert cbt.shape == (2, groups, n_t * (n_t + 1) // 2, 64, 64) and cbt.dtype == torch.float32
 
 
 def test_ops_refuse_other_devices():
