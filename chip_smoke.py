@@ -18,7 +18,10 @@ only when every phase passed):
               1,048,576 x D = 256 f32, Q = 32, k = 8) with bitwise
               batch-of-1 == batch-of-32 scores, retrieval at the served
               shape (Q = 16, N = 147, D = 256 and 768, timed) and past the
-              old caps (k = 100 at D = 770, k = 8 at D = 1100), flash attention at the
+              old caps (k = 100 at D = 770, k = 8 at D = 1100), mixed prefill at
+              the prefix cache's warm-admission shape (suffixes of 1-31 lanes
+              from q_start = 32 * (L // 32), table entries aliased across
+              rows, kv_len to 288), flash attention at the
               rerank, chunk-index and admit-prefill shapes and a ragged
               causal one, contiguous flash-decode at the phase-6 decode
               shape with its partials combined over 4 sequence shards
@@ -58,11 +61,32 @@ only when every phase passed):
               full-width logits of one prompt finite; then, at smoke width
               (chunk 16, so the prefill carries state over many chunks) and
               f32 on the card, contiguous == lock-step tokens, and the
-              card's tokens == the CPU run's.
+              card's tokens == the CPU run's;
+8. prefix     the phase-4 configuration with the prefix cache, served twice
+              on one resident engine: repeat 1's tokens == phase 4's (cache
+              on == cache off), repeat 2's == repeat 1's with >= 15/16 prompts
+              hitting; then with a pool of max_batch rows' blocks plus 8 and a
+              512 MiB host spill tier, where repeat 1's parked chains are
+              demoted and repeat 2 readmits them by upload: demotions and
+              readmits > 0 and repeat 2's tokens == phase 4's; prefill tokens,
+              tokens saved, dispatches, mixed_prefill launches, p50,
+              cache_nbytes, spill bytes and peak memory printed;
+9. stream     the phase-4 system through ``serve``, then through the
+              pipelined ``serve_stream`` (micro-batches of 4, tenants
+              interactive=4:1 and batch=1): every query yields once, its
+              context and tokens == phase 4's; both p50/p95 and the
+              per-tenant gauges printed;
+10. table1    ``launch/table1.run()`` on the card: every row's recall@8 and
+              MRR == the CPU run's, and the two claim checks hold; the
+              paper's models (contriever-110m, bge-reranker-base) federated
+              and centralized, recall printed, f32 contexts on the card ==
+              the CPU run's near-ties aside; one ``answer_batch`` routed by
+              ``ProviderSelector(top_p=1)``: the picks and contexts == the
+              CPU run's, every context from its selected provider alone.
 
 Every kernel's launch counter is set to 0 just before each main-path run
-(the serves, and phase 5's index build) and read just after; a kernel of
-that path left at 0 fails the run.
+(the serves, phase 5's index build, phase 10's retrievals) and read just
+after; a kernel of that path left at 0 fails the run.
 
 The line before the last lines is ``{"kernels": [...]}``, then the card's
 nvidia-smi line, then ``{"ok": true, "device": {...}}``.
@@ -602,6 +626,87 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
             shape=f"B={R} H={H} KV={KV} dh={DH} bs={BS} n_t={NT} {dtype}",
         )
 
+    # ---- mixed_prefill at the warm-admission shape (the prefix cache) ----
+    # each row's prompt of L tokens finds its first L // 32 blocks cached:
+    # rows 0-3 share chain A, rows 4-7 chain B, so their table entries alias;
+    # the row prefills only its suffix, q_start = 32 * (L // 32), q_len 1-31.
+    # A prompt ending on a block boundary (rows 4 and 7) recomputes its last
+    # token from q_start = L - 1 in a private copy of the boundary block
+    warm_len = [200, 231, 257, 287, 192, 150, 95, 288]
+    chain = {0: list(range(0, NT)), 1: list(range(NT, 2 * NT))}
+    nxt_block = 2 * NT
+    tables_w = torch.full((R, NT), n_pool - 1, dtype=torch.int32)
+    desc_w_h = []
+    for r, ln in enumerate(warm_len):
+        n_sh = ln // BS
+        cow = ln % BS == 0
+        own = chain[r // 4][: n_sh - cow]
+        if cow:
+            q0 = ln - 1
+        else:
+            q0 = n_sh * BS
+        for c in range(-(-ln // BS)):
+            if c < len(own):
+                tables_w[r, c] = own[c]
+            else:
+                tables_w[r, c] = nxt_block
+                nxt_block += 1
+        desc_w_h.append((r, q0, ln - q0, ln))
+    tables_w = tables_w.to(dev)
+    desc_w = torch.tensor(desc_w_h, dtype=torch.int32, device=dev)
+    n_q_w = sum(ql for _, _, ql, _ in desc_w_h)
+    # K/V the rows need, each pool position read once however many rows alias it
+    kv_pos = {(int(tables_w[r, p // BS]), p % BS) for r, _, _, kl in desc_w_h for p in range(kl)}
+    flops_w = sum(4 * H * DH * (q0 + j + 1) for _, q0, ql, _ in desc_w_h for j in range(ql))
+    qpos_w = desc_w[:, 1:2] + lane[None, :]
+    mask_w = (kpos[None, None, :] <= qpos_w[:, :, None]) & (kpos[None, None, :] < desc_w[:, 3, None, None])
+    mask_w = (mask_w | (kpos[None, None, :] == 0))[:, None]
+    print(f"  mixed_prefill warm admission: (q_start, q_len, kv_len) by row "
+          f"{[d[1:] for d in desc_w_h]}, {len(kv_pos)} distinct K/V positions for "
+          f"{sum(d[3] for d in desc_w_h)} read", flush=True)
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        es = torch.empty((), dtype=tdt).element_size()
+        q = torch.randn(R, W, H, DH, generator=gen, device=dev).to(tdt)
+        kp = torch.randn(n_pool, BS, KV, DH, generator=gen, device=dev).to(tdt)
+        vp = torch.randn(n_pool, BS, KV, DH, generator=gen, device=dev).to(tdt)
+        o = cp.mixed_prefill_attention(q, kp, vp, tables_w, desc_w)
+        err = (o.float() - cp.mixed_prefill_attention_plain(q, kp, vp, tables_w, desc_w).float()).abs().max().item()
+        check(f"mixed_prefill warm admission {dtype}", err, dtype)
+        if not bool((o[lane[None, :] >= desc_w[:, 2:3]] == 0).all()):
+            fail("mixed_prefill warm admission: dead lanes are not exactly 0")
+        # the same positions prefilled cold, each row from 0 in lanes 0..L-1
+        # over the same pool: a lane's output must not depend on its lane
+        qc = torch.zeros((R, 320, H, DH), dtype=tdt, device=dev)
+        desc_c = desc_w.clone()
+        for r, (_, q0, ql, ln) in enumerate(desc_w_h):
+            qc[r, q0 : q0 + ql] = q[r, :ql]
+            desc_c[r, 1], desc_c[r, 2] = 0, ln
+        oc = cp.mixed_prefill_attention(qc, kp, vp, tables_w, desc_c)
+        if not all(torch.equal(o[r, :ql], oc[r, q0 : q0 + ql]) for r, (_, q0, ql, _) in enumerate(desc_w_h)):
+            fail(f"mixed_prefill {dtype}: warm-admission lanes differ from the same positions prefilled cold")
+        print(f"  mixed_prefill warm admission {dtype}: dead lanes exactly 0; every suffix lane bitwise equal to "
+              f"its position prefilled cold from 0", flush=True)
+        del qc, oc
+        kv_k = kp[tables_w.long()].reshape(R, s_pad, KV, DH).permute(0, 2, 1, 3)
+        kv_v = vp[tables_w.long()].reshape(R, s_pad, KV, DH).permute(0, 2, 1, 3)
+        qt = q.permute(0, 2, 1, 3)
+        nbytes = (n_q_w * H * DH * es + R * W * H * DH * es + 2 * len(kv_pos) * KV * DH * es
+                  + desc_w.numel() * 4 + sum(-(-d[3] // BS) for d in desc_w_h) * 4)
+        b_ms, b_by = bound(nbytes, (flops_w, dtype))
+        rows["mixed_prefill", dtype, "warm"] = dict(
+            **timer.turns(dict(
+                ms=lambda: cp.mixed_prefill_attention(q, kp, vp, tables_w, desc_w),
+                plain_ms=lambda: cp.mixed_prefill_attention_plain(q, kp, vp, tables_w, desc_w),
+                library_ms=lambda: F.scaled_dot_product_attention(qt, kv_k, kv_v, attn_mask=mask_w, enable_gqa=True),
+                parent_ms=parent and (lambda: parent.mixed_prefill(q, kp, vp, tables_w, desc_w)),
+            )),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            shape=f"warm admission: R={R} W={W} H={H} KV={KV} dh={DH} bs={BS}, q_len 1-31, kv_len to 288, "
+                  f"aliased table entries {dtype}",
+        )
+        del q, kp, vp, kv_k, kv_v, qt
+
     # ---- dense flash attention at the path shapes ----
     flash_cases = [
         # (label, B, Sq = Sk, H, KV, dh, causal)
@@ -753,18 +858,21 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
 # --------------------------------------------------------------------- #
 
 
-def serve_phase(torch, smi: str, sys_, engine, texts, label: str, need) -> tuple[list, dict]:
-    """Warm up, then one ``CFedRAGSystem.serve`` of ``texts`` with every
-    launch counter at 0 just before and read just after; every status
-    must be ``done`` and every answer token in the vocabulary."""
-    sys_.serve(texts[:2], max_new_tokens=2)  # warm-up: allocator, first launches
+def serve_phase(torch, smi: str, sys_, engine, texts, label: str, need, warm_up: bool = True,
+                serve=None) -> tuple[list, dict]:
+    """Warm up (unless ``warm_up`` is false), then one ``CFedRAGSystem.serve``
+    of ``texts`` (or ``serve(texts)``, which returns the results in query
+    order) with every launch counter at 0 just before and read just after;
+    every status must be ``done`` and every answer token in the vocabulary."""
+    if warm_up:
+        sys_.serve(texts[:2], max_new_tokens=2)  # warm-up: allocator, first launches
     gc.collect()  # earlier phases' systems, held only by reference cycles
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     reset_launches()
     t0 = time.perf_counter()
-    results = sys_.serve(texts)
+    results = (serve or sys_.serve)(texts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches(f"the {label} serve", need)
@@ -801,7 +909,7 @@ def small_model(torch, vocab: int, arch: str = "qwen3-0.6b"):
     return small, p_cpu, map_tree(lambda t: t.to("cuda"), p_cpu)
 
 
-def paged_phase(torch, smi: str) -> dict:
+def paged_phase(torch, smi: str) -> tuple[dict, list]:
     import numpy as np
 
     from repro_torch.launch.serve import full_width_system
@@ -850,7 +958,7 @@ def paged_phase(torch, smi: str) -> dict:
     print(f"  smoke-width answers on the card equal the CPU run: {same}", flush=True)
     if not same:
         fail("smoke-width answers differ between the card and the CPU")
-    return launches
+    return launches, results
 
 
 CTX_TOL = 1e-3  # rerank scores, card f32 vs CPU f32 through 12 layers
@@ -880,8 +988,18 @@ def paper_phase(torch, smi: str) -> list[dict]:
     for device in ("cuda", "cpu"):
         orch = paper_models_system(16, device, SEED, generate=False, encoder_dtype="float32")[0].orchestrator
         ctx[device] = orch.aggregate_batch(texts, orch.collect_contexts_batch(texts))
+    worst, skipped = match_contexts(ctx["cuda"], ctx["cpu"], "paper-models")
+    print(f"  16 f32 contexts equal to the CPU run (rerank scores within {worst:.3e}, "
+          f"{skipped} near-tie places set aside)", flush=True)
+    return [built, served]
+
+
+def match_contexts(card: list, cpu: list, what: str) -> tuple[float, int]:
+    """Contexts of a card run against the CPU run's: chunk ids equal, except
+    where the CPU's rerank scores are a near-tie; scores within CTX_TOL.
+    Returns (the largest score difference, the near-tie places)."""
     worst, skipped = 0.0, 0
-    for g, c in zip(ctx["cuda"], ctx["cpu"]):
+    for g, c in zip(card, cpu, strict=True):
         g_sc, c_sc = [float(x) for x in g["scores"]], [float(x) for x in c["scores"]]
         worst = max([worst] + [abs(a - b) for a, b in zip(g_sc, c_sc)])
         for j, (gi, ci) in enumerate(zip(g["chunk_ids"], c["chunk_ids"])):
@@ -894,14 +1012,12 @@ def paper_phase(torch, smi: str) -> list[dict]:
                 0 <= i < len(c_sc) and abs(c_sc[i] - c_sc[j]) <= 2 * CTX_TOL for i in (j - 1, j + 1)
             )
             if not near:
-                fail(f"paper-models context differs from the CPU run at place {j}: {list(g['chunk_ids'])} vs "
+                fail(f"{what} context differs from the CPU run at place {j}: {list(g['chunk_ids'])} vs "
                      f"{list(c['chunk_ids'])}, CPU scores {c_sc}")
             skipped += 1
     if worst > CTX_TOL:
-        fail(f"paper-models rerank scores differ from the CPU run by {worst:.3e} (tol {CTX_TOL:g})")
-    print(f"  16 f32 contexts equal to the CPU run (rerank scores within {worst:.3e}, "
-          f"{skipped} near-tie places set aside)", flush=True)
-    return [built, served]
+        fail(f"{what} rerank scores differ from the CPU run by {worst:.3e} (tol {CTX_TOL:g})")
+    return worst, skipped
 
 
 def contiguous_phase(torch, smi: str) -> dict:
@@ -981,6 +1097,288 @@ def mamba2_phase(torch, smi: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------- #
+# phases 8-10: the prefix cache, the pipelined front door, Table 1
+# --------------------------------------------------------------------- #
+
+
+def rounding_tie(torch, engine, prompt, prefix) -> tuple[bool, float, float]:
+    """Whether the token after ``prompt + prefix`` is decided by rounding on
+    the card: its logits, computed the two ways the engine computes a decode
+    token (a lane of one mixed step over the whole sequence; a decode step
+    after a mixed step over the rest), differ by at least half their top-2
+    gap.  Returns (tie, gap, largest difference)."""
+    import numpy as np
+
+    from repro_torch.models import lm as LM
+
+    cfg, bs, params = engine.cfg, engine.scfg.block_size, engine.params
+    seq = torch.as_tensor(np.concatenate([prompt, prefix]).astype(np.int32)[None], device="cuda")
+    n = seq.shape[1]
+    nb = -(-(n + 1) // bs)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    tables = torch.arange(nb, **i32)[None, :]
+    zero = torch.zeros((1,), **i32)
+    with torch.no_grad():
+        cache = LM.init_paged_cache(cfg, nb + 1, bs, dtype=torch.bfloat16, device="cuda")
+        a = LM.mixed_step(cfg, params, seq, cache, tables, zero, torch.tensor([n], **i32), bs)[0, n - 1].float()
+        cache = LM.init_paged_cache(cfg, nb + 1, bs, dtype=torch.bfloat16, device="cuda")
+        LM.mixed_step(cfg, params, seq[:, : n - 1], cache, tables, zero, torch.tensor([n - 1], **i32), bs)
+        b = LM.decode_step(cfg, params, cache, seq[:, n - 1 :], torch.tensor([n - 1], **i32),
+                           block_tables=tables, block_size=bs)[0, -1].float()
+    top = torch.topk(a, 2).values
+    gap, diff = (top[0] - top[1]).item(), (a - b).abs().max().item()
+    return gap <= 2 * diff, gap, diff
+
+
+def same_answers(want: list, got: list, what: str, engine=None) -> None:
+    """Every query's answer tokens equal; prints, then fails on, the queries
+    that differ, each with its first differing place.  With ``engine`` (runs
+    whose engine steps were composed differently, so that a row's decode
+    token may come from a mixed step in one run and a decode step in the
+    other) a query may differ from a later place than its first token,
+    where ``rounding_tie`` finds the token decided by rounding."""
+    import numpy as np
+    import torch
+
+    diff = {}
+    for i, (a, b) in enumerate(zip(want, got, strict=True)):
+        a, b = list(a["answer_tokens"]), list(b["answer_tokens"])
+        if a != b:
+            diff[i] = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]), min(len(a), len(b)))
+    print(f"  {what}: {len(want) - len(diff)}/{len(want)} queries' tokens equal"
+          + (f"; first differing place by query {diff}" if diff else ""), flush=True)
+    for i, j in diff.items():
+        if engine is None or j == 0:
+            fail(f"{what}: answer tokens differ")
+        prompt = np.asarray(want[i]["prompt"]).reshape(-1)
+        tie, gap, d = rounding_tie(torch, engine, prompt, np.asarray(want[i]["answer_tokens"][:j]))
+        print(f"    query {i}, place {j}: top-2 gap {gap:.4e}, the two step kinds' logits differ by up to "
+              f"{d:.4e}: {'decided by rounding' if tie else 'NOT a rounding tie'}", flush=True)
+        if not tie:
+            fail(f"{what}: query {i} differs at place {j} where its top-2 gap ({gap:.4e}) exceeds rounding ({d:.4e})")
+
+
+def prefix_phase(torch, smi: str, cold: list) -> list[dict]:
+    """[8] the phase-4 configuration with the prefix cache, served twice on
+    one resident engine; then with a small pool and the host spill tier."""
+    from repro_torch.launch.serve import full_width_system
+    from repro_torch.serving.kv_cache import blocks_for
+
+    need = ("retrieval_topk", "mixed_prefill", "paged_decode")
+    runs = []
+
+    def repeats(sys_, engine, texts, tag):
+        sys_.serve(texts[:2], max_new_tokens=2)  # warm-up
+        engine.reset_cache()  # start cold: the warm-up's prompts seed nothing
+        out = []
+        for rep in (1, 2):
+            res, launches = serve_phase(torch, smi, sys_, engine, texts, f"{tag}, repeat {rep}", need, warm_up=False)
+            st = sys_.last_serve_stats
+            lats = sorted(r["latency_s"] for r in res)
+            print(f"  {tag} repeat {rep}: prefix hits {st['prefix_hits']}/{st['prefix_lookups']}, prefill tokens "
+                  f"{st['prefill_tokens'] - st['prefill_tokens_saved']} of {st['prefill_tokens']} "
+                  f"({st['prefill_tokens_saved']} saved), {st['mixed_dispatches']} mixed + "
+                  f"{st['decode_dispatches']} decode dispatches, mixed_prefill launches {launches['mixed_prefill']}, "
+                  f"p50 {lats[len(lats) // 2] * 1e3:.1f} ms", flush=True)
+            runs.append(launches)
+            out.append((res, st))
+        return out
+
+    # a pool of two waves of max_batch rows' blocks, so that every prompt's
+    # chain stays cached (the default pool, one wave, holds only the second
+    # wave's chains, which the first wave's admissions evict in repeat 2)
+    per_row = blocks_for(256 + 16, 32)
+    sys_, engine, texts = full_width_system(16, "cuda", SEED, prefix_cache=True, n_pool_blocks=2 * 8 * per_row)
+    (r1, st1), (r2, st2) = repeats(sys_, engine, texts, "prefix cache")
+    # the same engine steps as phase 4 (repeat 1 finds nothing cached): the
+    # same bits; repeat 2's steps differ (short tails), so a decode token may
+    # come from another step kind
+    same_answers(cold, r1, "prefix cache repeat 1 against phase 4 (cache off)")
+    same_answers(r1, r2, "prefix cache repeat 2 (warm) against repeat 1", engine)
+    if st2["prefix_hits"] * 16 < 15 * st2["prefix_lookups"]:
+        fail(f"prefix cache repeat 2 hit {st2['prefix_hits']}/{st2['prefix_lookups']} prompts, want >= 15/16")
+    if st2["mixed_dispatches"] >= st1["mixed_dispatches"]:
+        fail("prefix cache repeat 2 took no fewer mixed dispatches than repeat 1")
+    del sys_, engine, r1, r2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a pool of max_batch rows' blocks plus 8: repeat 1's parked chains are
+    # demoted to the host tier as later prompts need their blocks
+    n_pool = 8 * per_row + 8
+    sys_, engine, texts = full_width_system(16, "cuda", SEED, prefix_cache=True, spill_bytes=512 << 20,
+                                            n_pool_blocks=n_pool)
+    (_, _), (s2, st) = repeats(sys_, engine, texts, "spill tier")
+    index, store = engine._index, engine._spill_store
+    print(f"  spill tier: pool {n_pool} blocks, cache_nbytes {engine.cache_nbytes() / 2**20:.1f} MiB, "
+          f"{index.n_demotions} demotions and {index.n_readmits} readmits over both repeats, "
+          f"{store.used_bytes / 2**20:.1f} MiB of 512 on the host now, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]", flush=True)
+    if not (index.n_demotions > 0 and index.n_readmits > 0 and st["spill_readmits"] > 0):
+        fail(f"spill tier: {index.n_demotions} demotions, {index.n_readmits} readmits")
+    same_answers(cold, s2, "spill tier repeat 2 (readmitted chains) against phase 4", engine)
+    vocab = sys_.tok.vocab_size
+    del sys_, engine, s2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # smoke width, f32, on the card: the phase-4 prompts, cache off, warm
+    # and through the spill tier, all the same tokens
+    import numpy as np
+
+    from repro_torch.serving.engine import ServeConfig, ServeEngine
+
+    small, _, p_gpu = small_model(torch, vocab)
+    prompts = [np.asarray(r["prompt"]).reshape(-1) for r in cold]
+    kw = dict(paged=True, max_batch=4, max_prompt_len=256, max_new_tokens=8, block_size=16)
+    per_row = blocks_for(256 + 8, 16)
+    off = ServeEngine(small, p_gpu, ServeConfig(**kw), device="cuda").serve_prompts(prompts)
+    checks = {}
+    for name, extra in (("warm", dict(n_pool_blocks=16 * per_row)),
+                        ("spill", dict(n_pool_blocks=4 * per_row + 8, spill_bytes=64 << 20))):
+        eng = ServeEngine(small, p_gpu, ServeConfig(prefix_cache=True, **kw, **extra), device="cuda")
+        outs = [eng.serve_prompts(prompts) for _ in range(2)]
+        checks[name] = all(np.array_equal(a, b) for o in outs for a, b in zip(off, o))
+        tier = f", {eng._index.n_demotions} demotions, {eng._index.n_readmits} readmits" if name == "spill" else ""
+        print(f"  smoke width f32 on the card, {name}: {eng.prefix_hits}/{eng.prefix_lookups} hits{tier}; "
+              f"both repeats' tokens equal the cache-off engine's: {checks[name]}", flush=True)
+        if name == "spill" and not (eng._index.n_demotions and eng._index.n_readmits):
+            fail("smoke-width spill run: nothing demoted or readmitted")
+    if not all(checks.values()):
+        fail(f"smoke-width prefix-cache tokens differ from the cache-off engine's: {checks}")
+    return runs
+
+
+def stream_phase(torch, smi: str, cold: list) -> list[dict]:
+    """[9] the phase-4 system through ``serve`` and then the pipelined
+    ``serve_stream`` (micro-batches of 4, two tenants)."""
+    from repro_torch.launch.serve import full_width_system, parse_tenant_spec
+
+    need = ("retrieval_topk", "mixed_prefill", "paged_decode")
+    sys_, engine, texts = full_width_system(16, "cuda", SEED)
+    _, served = serve_phase(torch, smi, sys_, engine, texts, "serve, for the stream's comparison", need)
+    weights, prios = parse_tenant_spec("interactive=4:1,batch=1")
+    names = list(weights)
+    tenants = [names[i % len(names)] for i in range(len(texts))]
+
+    def stream(texts):
+        out = [None] * len(texts)
+        for qidx, r in sys_.serve_stream(texts, collect_batch=4, tenants=tenants,
+                                         priorities=[prios[t] for t in tenants], tenant_weights=weights):
+            if out[qidx] is not None:
+                fail(f"serve_stream yielded query {qidx} twice")
+            out[qidx] = r
+        if any(r is None for r in out):
+            fail("serve_stream did not yield every query")
+        return out
+
+    res, streamed = serve_phase(torch, smi, sys_, engine, texts, "serve_stream, collect_batch 4, two tenants",
+                                need, warm_up=False, serve=stream)
+    print("  serve_stream yielded every query exactly once", flush=True)
+    for r, c in zip(res, cold):
+        if list(r["context"]["chunk_ids"]) != list(c["context"]["chunk_ids"]):
+            fail("serve_stream contexts differ from phase 4's serve")
+    print("  serve_stream contexts equal to phase 4's", flush=True)
+    # micro-batches and tenants admit in another order than phase 4's serve,
+    # so a row's decode token may come from another step kind
+    same_answers(cold, res, "serve_stream against phase 4's serve", engine)
+    for name, ts in sorted(sys_.last_serve_stats["tenants"].items()):
+        print(f"  tenant {name}: {ts['n_done']} done, {ts['n_expired']} expired, {ts.get('n_admitted', 0)} "
+              f"admitted, p50 {ts['p50_s'] * 1e3:.1f} ms, p95 {ts['p95_s'] * 1e3:.1f} ms", flush=True)
+
+    # smoke width, f32, on the card: serve_stream == serve, token for token
+    import numpy as np
+
+    from repro_torch.serving.engine import ServeConfig, ServeEngine, engine_generator
+
+    small, _, p_gpu = small_model(torch, sys_.tok.vocab_size)
+    sys_.orchestrator.generator = engine_generator(ServeEngine(
+        small, p_gpu, ServeConfig(paged=True, max_batch=4, max_prompt_len=256, max_new_tokens=8, block_size=16),
+        device="cuda"))
+    del engine
+    gc.collect()
+    want = sys_.serve(texts)
+    got = stream(texts)
+    same = all(np.array_equal(a["answer_tokens"], b["answer_tokens"]) for a, b in zip(want, got))
+    print(f"  smoke width f32 on the card: serve_stream tokens equal serve's: {same}", flush=True)
+    if not same:
+        fail("smoke-width serve_stream tokens differ from serve's")
+    return [served, streamed]
+
+
+def table1_phase(torch, smi: str) -> list[dict]:
+    """[10] Table 1 on the card against the CPU run; the paper's models,
+    federated against centralized; a selector-routed ``answer_batch``."""
+    from repro_torch.core.advanced import ProviderSelector
+    from repro_torch.core.pipeline import CFedRAGConfig, centralized_system
+    from repro_torch.launch import table1
+    from repro_torch.launch.serve import full_width_system, paper_models_system
+
+    reset_launches()
+    card = table1.run(device="cuda")
+    runs = [read_launches("the Table-1 run", ("retrieval_topk",))]
+    cpu = table1.run(device="cpu")
+    for a, b in zip(card, cpu, strict=True):
+        print(f"  {a['method']:30s} recall@8 {a['recall_at_8']:.4f} MRR {a['mrr']:.4f} "
+              f"({a['us_per_query']:.1f} us/query; CPU {b['recall_at_8']:.4f} / {b['mrr']:.4f})", flush=True)
+        if (a["method"], a["recall_at_8"], a["mrr"]) != (b["method"], b["recall_at_8"], b["mrr"]):
+            fail(f"Table 1 row {a['method']} differs from the CPU run")
+    for name, (ok, lhs, rhs) in table1.claim_checks(card).items():
+        print(f"  claim {name}: {ok} ({lhs:.3f} vs {rhs:.3f})", flush=True)
+        if not ok:
+            fail(f"Table-1 claim fails on the card: {name}")
+
+    # the paper's models, federated and centralized: bf16 on the card (the
+    # served dtype), then f32 on the card against f32 on the CPU
+    recall, ctx = {}, {}
+    for device, dt in (("cuda", "bfloat16"), ("cuda", "float32"), ("cpu", "float32")):
+        if device == "cuda" and dt == "bfloat16":
+            reset_launches()
+        fed, _, texts = paper_models_system(16, device, SEED, generate=False, encoder_dtype=dt)
+        cent = centralized_system(fed.corpus, CFedRAGConfig(device=device), tokenizer=fed.tok,
+                                  embed_fn=fed.embed_fn, reranker=fed.orchestrator.reranker)
+        for name, s in (("federated", fed), ("centralized", cent)):
+            orch = s.orchestrator
+            ctx[device, dt, name] = orch.aggregate_batch(texts, orch.collect_contexts_batch(texts))
+            r = s.eval_retrieval(16)
+            recall[device, dt, name] = (r["recall_at_n"], r["mrr"])
+        if device == "cuda" and dt == "bfloat16":
+            runs.append(read_launches("the paper models' federated and centralized runs",
+                                      ("retrieval_topk", "flash_attention")))
+        del fed, cent
+    for (device, dt, name), (rc, mrr) in recall.items():
+        print(f"  paper models {name} on {device} {dt}: recall@8 {rc:.4f}, MRR {mrr:.4f}", flush=True)
+    for name in ("federated", "centralized"):
+        worst, skipped = match_contexts(ctx["cuda", "float32", name], ctx["cpu", "float32", name],
+                                        f"paper models {name}")
+        print(f"  paper models {name}: 16 f32 contexts equal to the CPU run (rerank scores within {worst:.3e}, "
+              f"{skipped} near-tie places set aside)", flush=True)
+
+    # one answer_batch routed by the provider selector to one provider
+    picks = {}
+    for device in ("cuda", "cpu"):
+        s, _, texts = full_width_system(16, device, SEED, generate=False)
+        sel = ProviderSelector(s.providers, s.embed_fn)
+        s.orchestrator.selector, s.orchestrator.selector_top_p = sel, 1
+        if device == "cuda":
+            reset_launches()
+        res = s.answer_batch(texts)
+        if device == "cuda":
+            runs.append(read_launches("the selector-routed answer_batch", ("retrieval_topk",)))
+        chosen = [sel.select(s.tok.encode(t, max_len=24), s.providers, 1)[0].provider_id for t in texts]
+        for r, c in zip(res, chosen):
+            if set(int(x) for x in r["context"]["providers"]) != {c}:
+                fail(f"selector-routed context on {device} holds chunks of providers "
+                     f"{sorted(set(int(x) for x in r['context']['providers']))}, selected {c}")
+        picks[device] = (chosen, [list(r["context"]["chunk_ids"]) for r in res])
+    print(f"  selector (top_p 1) picks on the card {picks['cuda'][0]}, equal to the CPU run's: "
+          f"{picks['cuda'] == picks['cpu']}; every context from its provider alone", flush=True)
+    if picks["cuda"] != picks["cpu"]:
+        fail("the selector's picks or contexts on the card differ from the CPU run")
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", help="a directory holding an earlier commit's six kernel sources (csrc/*.cu), "
@@ -1028,13 +1426,20 @@ def main() -> int:
     rows = kernel_phase(torch, timer, parent)
 
     print("[4] end to end: paged engine, bag embedder", flush=True)
-    runs = [paged_phase(torch, smi)]
+    launches, cold = paged_phase(torch, smi)
+    runs = [launches]
     print("[5] end to end: the paper's models", flush=True)
     runs += paper_phase(torch, smi)
     print("[6] end to end: contiguous engine", flush=True)
     runs.append(contiguous_phase(torch, smi))
     print("[7] end to end: mamba2-1.3b, contiguous engine", flush=True)
     runs.append(mamba2_phase(torch, smi))
+    print("[8] end to end: the prefix cache and its host spill tier", flush=True)
+    runs += prefix_phase(torch, smi, cold)
+    print("[9] end to end: the pipelined serve_stream", flush=True)
+    runs += stream_phase(torch, smi, cold)
+    print("[10] Table 1, the paper's models federated and centralized, the provider selector", flush=True)
+    runs += table1_phase(torch, smi)
 
     meta = {
         "retrieval_topk": ("src/repro_torch/kernels/csrc/retrieval_topk.cu", "src/repro/kernels/retrieval_topk/kernel.py:105"),
@@ -1047,7 +1452,7 @@ def main() -> int:
     # one row per kernel at the dtype the path gives it (f32 provider
     # embeddings; bf16 activations, KV pool and encoders) and, for
     # flash_attention, its largest path shape (the rerank); launches are
-    # summed over the main-path runs of phases 4-7
+    # summed over the main-path runs of phases 4-10
     path_row = {
         "retrieval_topk": ("retrieval_topk", "float32"), "mixed_prefill": ("mixed_prefill", "bfloat16"),
         "paged_decode": ("paged_decode", "bfloat16"), "flash_attention": ("flash_attention", "bfloat16", "rerank"),
@@ -1063,6 +1468,10 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
             **{k: row[k] for k in ("combine_err", "max_rel_err", "parent_ms") if row.get(k) is not None},
         })
+        if name == "mixed_prefill":  # the prefix cache's warm-admission shape, beside the path row
+            warm = rows["mixed_prefill", "bfloat16", "warm"]
+            kernels[-1]["warm_admission"] = {k: warm[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
     if any(not math.isfinite(k["ms"]) for k in kernels):
         fail("a kernel time is not finite")
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)

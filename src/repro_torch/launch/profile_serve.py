@@ -1,6 +1,7 @@
 """Where the time of one full-width serve goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--system paged] [--queries 16] [--trace out.json]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --system paged --prefix-cache --repeat 2
 
 Builds one of the configurations ``chip_smoke.py`` serves, random
 weights from ``--seed``: ``--system paged`` (default) or ``contiguous``
@@ -11,7 +12,13 @@ then runs ``CFedRAGSystem.serve`` on ``--queries`` queries under
 ``torch.profiler`` and prints the wall time, the device's busy share
 (summed kernel time over wall time; one stream, so kernels never
 overlap), the number of kernel launches, and the kernels that take the
-most device time, grouped by kind.  Needs a CUDA device.
+most device time, grouped by kind.  ``--prefix-cache`` (paged only)
+builds the engine with its prefix cache and serves the queries
+``--repeat`` times on the one resident engine, the last repeat under the
+profiler: with ``--repeat 2`` that is the warm repeat, whose prompts
+find their prefixes cached.  Its pool then holds two waves of
+``max_batch`` rows' blocks (144), so that every prompt's chain stays
+cached.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -52,12 +59,17 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
+    ap.add_argument("--prefix-cache", action="store_true", help="the paged engine with its prefix cache")
+    ap.add_argument("--repeat", type=int, default=1, help="serves on the resident engine; the last is profiled")
     args = ap.parse_args(argv)
+    if args.prefix_cache and args.system != "paged":
+        ap.error("--prefix-cache needs --system paged")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serve import full_width_system, paper_models_system
+    from repro_torch.serving.kv_cache import blocks_for
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
@@ -70,8 +82,18 @@ def main(argv=None) -> int:
     elif args.system == "mamba2":
         sys_, _, texts = full_width_system(args.queries, "cuda", args.seed, paged=False, arch="mamba2-1.3b")
     else:
-        sys_, _, texts = full_width_system(args.queries, "cuda", args.seed, paged=args.system == "paged")
+        pool = 2 * 8 * blocks_for(256 + 16, 32) if args.prefix_cache else None
+        sys_, _, texts = full_width_system(args.queries, "cuda", args.seed, paged=args.system == "paged",
+                                           prefix_cache=args.prefix_cache, n_pool_blocks=pool)
     sys_.serve(texts[:2], max_new_tokens=2)  # warm-up
+    if args.prefix_cache:  # the warm-up's prompts must not seed the cache
+        sys_.orchestrator.generator.engine.reset_cache()
+    for rep in range(1, args.repeat):
+        sys_.serve(texts)
+        st = sys_.last_serve_stats
+        print(f"repeat {rep} (not profiled): {st.get('prefix_hits', 0)}/{st.get('prefix_lookups', 0)} prefix hits, "
+              f"{st.get('prefill_tokens_saved', 0)}/{st.get('prefill_tokens', 0)} prefill tokens saved, "
+              f"{st['mixed_dispatches']} mixed + {st['decode_dispatches']} decode dispatches")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -82,7 +104,11 @@ def main(argv=None) -> int:
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
-    print(f"[{smi}] torch {torch.__version__}, system {args.system}")
+    print(f"[{smi}] torch {torch.__version__}, system {args.system}"
+          + (f", prefix cache, repeat {args.repeat} of {args.repeat}" if args.prefix_cache else ""))
+    if args.prefix_cache:
+        print(f"profiled repeat: {st['prefix_hits']}/{st['prefix_lookups']} prefix hits, "
+              f"{st['prefill_tokens_saved']}/{st['prefill_tokens']} prefill tokens saved")
     print(
         f"serve of {len(texts)} queries: wall {wall * 1e3:.1f} ms (profiled), device busy "
         f"{busy_ms:.1f} ms = {100 * busy_ms / (wall * 1e3):.1f}% of wall, {launches} kernel launches, "

@@ -8,7 +8,8 @@ stripes (the contiguous engine and the lock-step baseline).
 ``mixed_step`` is the paged unified engine step (any mix of prompt
 chunks and decode rows, one pass over the layer stack), and
 ``decode_step`` with block tables decodes one token per row through the
-pool that ``init_paged_cache`` builds.  Whole-sequence attention runs
+pool that ``init_paged_cache`` builds; ``paged_copy_block`` copies one
+pool block, the copy-on-write half of the engine's prefix cache.  Whole-sequence attention runs
 through ``kernels/flash_attention``, contiguous decode attention through
 ``kernels/decode_attention``, and the Mamba2 mixer (``models/mamba2``)
 through ``kernels/ssd_scan``.
@@ -140,6 +141,22 @@ def init_paged_cache(cfg: ModelConfig, n_pool_blocks: int, block_size: int,
         }
         for j in range(cfg.scan_period)
     }
+
+
+def paged_copy_block(cfg: ModelConfig, cache, src: int, dst: int):
+    """Copy pool block ``src``'s K/V into block ``dst`` across every
+    attention layer, in place: the copy-on-write half of prefix sharing.
+    ``src`` holds a cached chunk that a new request's last prompt token
+    would overwrite (a full-prefix hit ending on a block boundary); the
+    engine copies it into the request's private ``dst`` before the row's
+    first mixed-step write.  Leaves without a block axis (none in this
+    port's paged cache, which takes attention models only) pass through
+    untouched.  Returns ``cache``."""
+    for sub in cache.values():
+        if "k" in sub:
+            for leaf in (sub["k"], sub["v"]):
+                leaf[:, dst].copy_(leaf[:, src])
+    return cache
 
 
 def _layer_params(params, i: int, j: int):

@@ -39,13 +39,24 @@ The pool, tables and device cache are resident: created on first use and
 kept across ``serve`` calls until ``reset_cache``.  The contiguous cache
 is made anew by each serve call.
 
+Prefix cache (``prefix_cache=True``, paged only): a ``PrefixIndex`` over
+``block_size``-token prompt chunks lets a request adopt the pool blocks
+of a cached prefix by reference and prefill only its suffix.  A full hit
+ending on a block boundary copies the boundary block first (copy on
+write, ``LM.paged_copy_block``) so the last prompt token's K/V write
+never mutates a shared block.  Chunks another in-flight fill has
+registered but not yet written sit in ``pending_blocks``; a request that
+shares them waits until the owner's dispatch has written them.  Retired
+chains stay parked in the pool for the next serve.  With ``spill_bytes``
+the parked chains that pool pressure evicts are demoted to a host tier
+(``HostBlockStore``) and re-admitted by upload instead of re-prefill.
+
 Both layouts give the same tokens for the same admission order.  An
 all-Mamba2 model (``ssm`` family) serves on the contiguous path and the
 lock-step baseline, whose admit prefills carry its conv and SSM state into
 the slot; the paged path refuses it, as the reference's does.  Options
 of the JAX package's engine that this port does not run yet raise
-``NotImplementedError``: the prefix cache and its host spill tier,
-speculative decoding and the sharded pool.
+``NotImplementedError``: speculative decoding and the sharded pool.
 """
 from __future__ import annotations
 
@@ -59,7 +70,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import EOS, PAD
 from repro_torch.models import lm as LM
 from repro_torch.models.layers import torch_dtype
-from repro_torch.serving.kv_cache import BlockPool, BlockTable, blocks_for
+from repro_torch.serving.kv_cache import BlockPool, BlockTable, HostBlockStore, PrefixIndex, blocks_for
 from repro_torch.serving.scheduler import Request, Scheduler
 
 
@@ -99,11 +110,12 @@ class ServeConfig:
     block_size: int = 32  # tokens per KV block (paged mode)
     # pool size in blocks; None -> max_batch full-length requests
     n_pool_blocks: int | None = None
-    prefix_cache: bool = False  # not ported yet
+    prefix_cache: bool = False  # refcounted prefix cache (paged only)
     # query lanes per mixed step (paged only); None -> max_prompt_len (a
     # whole prompt may prefill in one step)
     token_budget: int | None = None
-    spill_bytes: int | None = None  # not ported yet
+    # host spill tier for the prefix cache, in bytes (None -> no tier)
+    spill_bytes: int | None = None
     draft_k: int = 0  # speculative decoding: not ported yet
     shards: int | None = None  # sharded pool: not ported yet
 
@@ -120,10 +132,19 @@ class ServeEngine:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServeEngine: device='cuda' asked for but no CUDA device is present")
-        if scfg.prefix_cache:
-            raise _not_ported("the prefix cache (prefix_cache=True)", "prefix-cache")
+        if scfg.prefix_cache and not scfg.paged:
+            raise ValueError(
+                "prefix_cache=True requires paged=True: block tables are "
+                "what make prompt prefixes shareable"
+            )
         if scfg.spill_bytes is not None:
-            raise _not_ported("the host spill tier (spill_bytes)", "prefix-cache")
+            if not scfg.prefix_cache:
+                raise ValueError(
+                    "spill_bytes (host spill tier) requires prefix_cache=True: "
+                    "only cached prefix chains are demotable"
+                )
+            if scfg.spill_bytes < 1:
+                raise ValueError(f"spill_bytes={scfg.spill_bytes} must be >= 1")
         if scfg.draft_k < 0:
             raise ValueError(f"draft_k={scfg.draft_k} must be >= 0")
         if scfg.draft_k > 0:
@@ -172,11 +193,20 @@ class ServeEngine:
         self.admit_rows_total = 0
         self.decode_dispatches = 0
         self.mixed_dispatches = 0
+        # prefix-cache gauges (engine lifetime; each serve reports its
+        # window's deltas and these totals to the scheduler)
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefill_tokens_total = 0
+        self.prefill_tokens_saved = 0
+        self.prefix_shared_total = 0  # blocks adopted by reference
         self.queue: list[np.ndarray] = []  # lock-step requests (submit / step_batch)
         self._pool: BlockPool | None = None
         self._row_tables: list[BlockTable] | None = None
         self._tables_h: np.ndarray | None = None
         self._cache = None
+        self._index: PrefixIndex | None = None
+        self._spill_store: HostBlockStore | None = None
         self._serving = False
 
     # ------------------------------------------------------------------ #
@@ -327,7 +357,60 @@ class ServeEngine:
     # ------------------------------------------------------------------ #
     # resident paged state
     # ------------------------------------------------------------------ #
+    def _init_serve_cache(self, device):
+        """The continuous path's device cache in the configured layout."""
+        dtype = torch_dtype(self.cfg.dtype)
+        if self.scfg.paged:
+            return LM.init_paged_cache(
+                self.cfg, self._n_pool_blocks + 1, self.scfg.block_size, dtype=dtype, device=device
+            )
+        return LM.init_cache(self.cfg, self.scfg.max_batch, self._cache_len, dtype=dtype, device=device)
+
+    def cache_nbytes(self) -> int:
+        """Device bytes of the continuous path's cache (either layout),
+        from its shapes alone (built on the meta device)."""
+        leaves, todo = [], [self._init_serve_cache("meta")]
+        while todo:
+            x = todo.pop()
+            if isinstance(x, dict):
+                todo.extend(x.values())
+            elif isinstance(x, tuple):
+                todo.extend(x)
+            else:
+                leaves.append(x)
+        return sum(t.numel() * t.element_size() for t in leaves)
+
+    def _pool_leaves(self) -> list[torch.Tensor]:
+        """The pool's K/V tensors, ``(n_blocks, n_pool + 1, bs, kv, hd)``
+        each, in the cache's key order."""
+        return [leaf for sub in self._cache.values() for leaf in (sub["k"], sub["v"])]
+
+    def _fetch_block(self, b: int):
+        """Demotion callback of the spill tier: pool block ``b``'s K/V as
+        host tensors (one per pool leaf, the pool's own dtype, so a bf16
+        pool stays bf16) and their byte count.  The copy is always made (a
+        CPU pool's block would otherwise be aliased, not copied); from the
+        card it blocks until done and is ordered after every kernel already
+        queued on the stream, so the payload holds what the last step wrote
+        and the block may be overwritten once this returns."""
+        payload = [leaf[:, b].to("cpu", copy=True) for leaf in self._pool_leaves()]
+        return payload, int(sum(p.numel() * p.element_size() for p in payload))
+
+    def _upload_block(self, payload, b: int) -> None:
+        """Re-admission: a host payload from ``_fetch_block`` lands in pool
+        block ``b``, bit for bit.  A ``copy_`` from host memory without
+        ``non_blocking`` synchronizes its stream, so the block is written
+        before any later dispatch reads it and the payload may be dropped
+        on return."""
+        for leaf, p in zip(self._pool_leaves(), payload, strict=True):
+            if p.dtype != leaf.dtype:
+                raise ValueError(f"spill payload of {p.dtype} for a {leaf.dtype} pool")
+            leaf[:, b].copy_(p)
+
     def _ensure_paged_state(self):
+        """Create the resident pool, tables, device cache and (with
+        ``prefix_cache``) prefix index on first paged use; later serve
+        calls reuse them (a warm prefix cache)."""
         if self._pool is not None:
             return
         scfg = self.scfg
@@ -338,16 +421,19 @@ class ServeEngine:
         self._tables_h = np.full(
             (scfg.max_batch, self._blocks_per_slot), self._trash_block, np.int32
         )
-        self._cache = LM.init_paged_cache(
-            self.cfg, self._n_pool_blocks + 1, scfg.block_size,
-            dtype=torch_dtype(self.cfg.dtype), device=self.device,
-        )
+        self._cache = self._init_serve_cache(self.device)
+        if scfg.prefix_cache:
+            store = HostBlockStore(scfg.spill_bytes) if scfg.spill_bytes is not None else None
+            self._spill_store = store
+            self._index = PrefixIndex(self._pool, spill_store=store, fetch_block=self._fetch_block)
 
     def reset_cache(self):
-        """Drop the resident pool, tables and device cache."""
+        """Drop all resident paged state: device cache, block pool, prefix
+        index and host spill tier.  The next serve starts cold."""
         if self._serving:
             raise RuntimeError("reset_cache() during an active serve loop")
         self._pool = self._row_tables = self._tables_h = self._cache = None
+        self._index = self._spill_store = None
 
     # ------------------------------------------------------------------ #
     # serving
@@ -497,6 +583,12 @@ class ServeEngine:
         scheduler.begin_window()
         self._ensure_paged_state()
         pool, row_tables, tables_h = self._pool, self._row_tables, self._tables_h
+        index, store = self._index, self._spill_store
+        if index is not None:
+            lk0, ht0 = self.prefix_lookups, self.prefix_hits
+            pt0, ps0 = self.prefill_tokens_total, self.prefill_tokens_saved
+            sh0 = self.prefix_shared_total
+            dm0, rm0 = index.n_demotions, index.n_readmits
         dev = self.device
         i32 = dict(dtype=torch.int32, device=dev)
         st = (
@@ -516,14 +608,49 @@ class ServeEngine:
         empty = np.zeros((0,), np.int32)
         steps = 0
         d0, m0 = self.decode_dispatches, self.mixed_dispatches
-        # fills[slot]: in-flight prompt stream (p/length/b_new/pos/deps); None
-        # once the prompt has fully dispatched
+        # fills[slot]: in-flight prompt stream (p/length/b_new/pos/cow/deps);
+        # None once the prompt has fully dispatched.  pending_blocks maps a
+        # cached-chunk block an in-flight fill will write -> (owner slot,
+        # token position at which its content exists on the device)
         fills: list[dict | None] = [None] * B
         pending_blocks: dict[int, tuple[int, int]] = {}
+        planned: dict[int, object] = {}
         self._serving = True
 
         def admit_gate(req: Request) -> bool:
+            if index is not None:
+                plan = index.plan(req.tokens[-width:])
+                if plan is not None:
+                    planned[req.rid] = plan
+                return plan is not None
             return pool.can_alloc(blocks_for(min(len(req.tokens), width) + 1, bs))
+
+        def report_prefix():
+            if index is None:
+                return
+            window = {
+                "prefix_lookups": self.prefix_lookups - lk0,
+                "prefix_hits": self.prefix_hits - ht0,
+                "prefill_tokens": self.prefill_tokens_total - pt0,
+                "prefill_tokens_saved": self.prefill_tokens_saved - ps0,
+                "prefix_shared_blocks": self.prefix_shared_total - sh0,
+                "prefix_cached_blocks": index.n_cached_blocks,
+            }
+            lifetime = {
+                "prefix_lookups": self.prefix_lookups,
+                "prefix_hits": self.prefix_hits,
+                "prefill_tokens": self.prefill_tokens_total,
+                "prefill_tokens_saved": self.prefill_tokens_saved,
+                "prefix_shared_blocks": self.prefix_shared_total,
+                "prefix_cached_blocks": index.n_cached_blocks,
+            }
+            if store is not None:
+                tier = dict(spilled_blocks=index.n_spilled, spill_bytes_used=store.used_bytes)
+                window.update(spill_demotions=index.n_demotions - dm0,
+                              spill_readmits=index.n_readmits - rm0, **tier)
+                lifetime.update(spill_demotions=index.n_demotions,
+                                spill_readmits=index.n_readmits, **tier)
+            scheduler.record_prefix_stats(window, lifetime)
 
         def mark_oom(st, oom):
             if not oom.any():
@@ -533,7 +660,11 @@ class ServeEngine:
 
         try:
             while True:
-                # ---- admit queued requests into free slots (host only) ----
+                # ---- admit queued requests into free slots ----
+                # host bookkeeping only: prompt tokens reach the device
+                # through the mixed step below.  The one exception is a
+                # re-admitted (spilled) chunk, whose payload uploads here,
+                # synchronously, so it is never pending
                 for slot in range(B):
                     if slots[slot] is not None:
                         continue
@@ -544,22 +675,59 @@ class ServeEngine:
                     length = len(p)
                     b_new = t_cap if req.max_new_tokens is None else req.max_new_tokens
                     b_new = max(1, min(int(b_new), t_cap))
-                    tb = row_tables[slot]
-                    if not tb.extend_to(length + 1):
-                        raise RuntimeError("paged admit raced the block pool")
-                    tables_h[slot, :] = self._trash_block
-                    tables_h[slot, : tb.n_blocks] = tb.ids
+                    start, cow, deps = 0, None, set()
+                    if index is not None:
+                        plan = planned.pop(req.rid, None) or index.plan(p)
+                        if plan is None:
+                            raise RuntimeError("prefix admit raced the block pool")
+                        table_ids, cow_dst = index.commit(plan)
+                        for payload, b in plan.uploads:
+                            if payload:
+                                self._upload_block(payload, b)
+                        row_tables[slot].adopt(table_ids)
+                        tables_h[slot, :] = self._trash_block
+                        tables_h[slot, : len(table_ids)] = table_ids
+                        self.prefix_lookups += 1
+                        self.prefill_tokens_total += length
+                        start = plan.start
+                        if start:
+                            self.prefix_hits += 1
+                            self.prefill_tokens_saved += start
+                            self.prefix_shared_total += len(plan.shared) + (cow_dst is not None)
+                        if cow_dst is not None and plan.cow_src is not None:
+                            # a device boundary copy is still to be made; a
+                            # spilled boundary uploaded above
+                            cow = (plan.cow_src, cow_dst)
+                        # wait on shared or COW-source chunks that another
+                        # in-flight fill has registered but not yet written
+                        deps = {
+                            b for b in (set(plan.shared) | ({plan.cow_src} if cow else set()))
+                            if b in pending_blocks
+                        }
+                        for c in range(len(plan.nodes), length // bs):
+                            pending_blocks[table_ids[c]] = (slot, (c + 1) * bs)
+                    else:
+                        tb = row_tables[slot]
+                        if not tb.extend_to(length + 1):
+                            raise RuntimeError("paged admit raced the block pool")
+                        tables_h[slot, :] = self._trash_block
+                        tables_h[slot, : tb.n_blocks] = tb.ids
                     scheduler.record_tenant_admit(
-                        req.tenant, prefill_tokens=length, prefill_tokens_saved=0, hit=False
+                        req.tenant, prefill_tokens=length, prefill_tokens_saved=start, hit=start > 0
                     )
                     slots[slot] = req
-                    fills[slot] = dict(p=p, length=length, b_new=b_new, pos=0, deps=set())
+                    fills[slot] = dict(p=p, length=length, b_new=b_new, pos=start, cow=cow, deps=deps)
                     # inert on device until the fill's last chunk seeds it
                     em_h[slot], dn_h[slot] = 0, True
                     bu_h[slot], ln_h[slot] = b_new, length
 
                 active = [i for i in range(B) if slots[i] is not None]
-                scheduler.record_occupancy(free_slots=B - len(active), free_blocks=pool.free_blocks)
+                scheduler.record_occupancy(
+                    free_slots=B - len(active),
+                    free_blocks=pool.free_blocks,
+                    reclaimable_blocks=pool.reclaimable_blocks if index is not None else None,
+                )
+                report_prefix()
                 scheduler.record_dispatch_stats(
                     admit_dispatches=0,
                     decode_dispatches=self.decode_dispatches - d0,
@@ -583,8 +751,19 @@ class ServeEngine:
                         pending_blocks.keys(),
                     )
                 except AdmissionDeadlock as exc:
-                    for i in sorted(set(exc.stuck)):
-                        req = slots[i]
+                    # every in-flight fill waits on a chunk nobody will
+                    # write: roll back their chunk registrations (leaf
+                    # first), drop COW pins, retire them empty
+                    doomed = set(exc.stuck)
+                    inv = [b for b, (s, _) in pending_blocks.items() if s in doomed]
+                    if index is not None and inv:
+                        index.invalidate(inv)
+                    for b in inv:
+                        del pending_blocks[b]
+                    for i in sorted(doomed):
+                        fl, req = fills[i], slots[i]
+                        if fl["cow"] is not None:
+                            pool.free([fl["cow"][0]])
                         row_tables[i].release()
                         tables_h[i, :] = self._trash_block
                         scheduler.finish(req, empty, deadlocked=True)
@@ -616,6 +795,14 @@ class ServeEngine:
                         if lanes <= 0:
                             break
                         fl = fills[i]
+                        if fl["cow"] is not None:
+                            # the boundary copy precedes this fill's first
+                            # write on the stream; commit's pin on the
+                            # source drops once the copy is queued
+                            src, dst = fl["cow"]
+                            LM.paged_copy_block(self.cfg, self._cache, src, dst)
+                            pool.free([src])
+                            fl["cow"] = None
                         take = min(fl["length"] - fl["pos"], lanes)
                         tok[i, :take] = fl["p"][fl["pos"] : fl["pos"] + take]
                         q_start_h[i] = fl["pos"]
@@ -624,6 +811,11 @@ class ServeEngine:
                         b_new_h[i] = fl["b_new"]
                         lanes -= take
                         fl["pos"] += take
+                        # chunks this dispatch writes become shareable: a
+                        # waiting fill runs in a later dispatch on the same
+                        # stream, so it reads them after they are written
+                        for b in [b for b, (s, e) in pending_blocks.items() if s == i and e <= fl["pos"]]:
+                            del pending_blocks[b]
                         if fl["pos"] >= fl["length"]:
                             fills[i] = None  # completes in this dispatch
                     st = mark_oom(st, oom)
@@ -662,10 +854,15 @@ class ServeEngine:
                         tables_h[i, :] = self._trash_block
                         yield req.rid, ans
         finally:
-            # the pool outlives this call: an abandoned stream must not leak
-            # owned blocks into the next serve (normal exit: a no-op)
+            # the pool and index outlive this call: an abandoned stream must
+            # not leak owned blocks or unwritten chunk registrations into the
+            # next serve (normal exit: a no-op)
+            if index is not None and pending_blocks:
+                index.invalidate(list(pending_blocks))
             pending_blocks.clear()
             for i in range(B):
+                if fills[i] is not None and fills[i]["cow"] is not None:
+                    pool.free([fills[i]["cow"][0]])
                 fills[i] = None
                 if slots[i] is not None and slots[i].status == "active":
                     scheduler.finish(slots[i], empty, deadlocked=True)
@@ -673,6 +870,7 @@ class ServeEngine:
                 if row_tables[i].ids:
                     row_tables[i].release()
                 tables_h[i, :] = self._trash_block
+            report_prefix()
             self._serving = False
 
     def serve_prompts(

@@ -673,3 +673,134 @@ def test_ssd_chunk_unaligned_rows_equal_aligned(cuda_device, dtype):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ---------------- the prefix cache on the card ----------------
+_WARM_LEN = (200, 231, 257, 287, 192, 150, 95, 288)  # prompt lengths; 192 and 288 end on a block
+
+
+def _warm_admission_case(device, dtype, bs=32, n_t=9, h=16, kv=8, dh=128, w=256):
+    """Rows 0-3 and 4-7 each share one cached chain: a row's table points
+    its first L // bs entries at the chain (less the boundary block, copied
+    privately, where L ends on a block) and prefills only its suffix."""
+    r = len(_WARM_LEN)
+    n_pool = r * n_t + 1
+    chain = (list(range(n_t)), list(range(n_t, 2 * n_t)))
+    tables = np.full((r, n_t), n_pool - 1, np.int32)
+    desc, nxt = [], 2 * n_t
+    for i, ln in enumerate(_WARM_LEN):
+        cow = ln % bs == 0
+        own = chain[i // 4][: ln // bs - cow]
+        for c in range(-(-ln // bs)):
+            if c < len(own):
+                tables[i, c] = own[c]
+            else:
+                tables[i, c], nxt = nxt, nxt + 1
+        q0 = ln - 1 if cow else ln // bs * bs
+        desc.append((i, q0, ln - q0, ln))
+    g = torch.Generator(device="cpu").manual_seed(17)
+    q = torch.randn(r, w, h, dh, generator=g).to(dtype).to(device)
+    kp, vp = (torch.randn(n_pool, bs, kv, dh, generator=g).to(dtype).to(device) for _ in range(2))
+    return q, kp, vp, torch.as_tensor(tables, device=device), torch.as_tensor(desc, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixed_prefill_warm_admission_matches_plain(cuda_device, dtype):
+    q, kp, vp, tables, desc = _warm_admission_case(cuda_device, dtype)
+    o = cp_ops.mixed_prefill_attention(q, kp, vp, tables, desc)
+    o_p = cp_ops.mixed_prefill_attention_plain(q, kp, vp, tables, desc)
+    torch.cuda.synchronize()
+    tol = _tol(dtype)
+    np.testing.assert_allclose(o.float().cpu().numpy(), o_p.float().cpu().numpy(), rtol=tol, atol=tol)
+    dead = torch.arange(q.shape[1], device=cuda_device)[None, :] >= desc[:, 2:3]
+    assert bool((o[dead] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixed_prefill_warm_lanes_equal_cold_lanes(cuda_device, dtype):
+    """A warm row's suffix lanes give bitwise what the same positions give
+    in the cold row that prefills the whole prompt from 0 over the same
+    pool: a lane's result depends on its position, not on its lane or the
+    lanes beside it (the trailing key tiles its tile walks are fully
+    masked for it and leave its softmax unchanged)."""
+    q, kp, vp, tables, desc = _warm_admission_case(cuda_device, dtype)
+    warm = cp_ops.mixed_prefill_attention(q, kp, vp, tables, desc)
+    # cold: row i prefills [0, L) in lanes 0..L-1 (L reaches 288, past the
+    # warm step's 256 lanes): the warm row's lane j is position q0 + j
+    qc = torch.zeros((q.shape[0], 320, *q.shape[2:]), dtype=q.dtype, device=q.device)
+    desc_c = desc.clone()
+    for i, (_, q0, ql, ln) in enumerate(desc.tolist()):
+        qc[i, q0 : q0 + ql] = q[i, :ql]
+        desc_c[i, 1], desc_c[i, 2] = 0, ln
+    cold = cp_ops.mixed_prefill_attention(qc, kp, vp, tables, desc_c)
+    torch.cuda.synchronize()
+    for i, (_, q0, ql, _) in enumerate(desc.tolist()):
+        assert torch.equal(warm[i, :ql], cold[i, q0 : q0 + ql]), f"row {i}"
+
+
+def _small_engine(device, dtype="float32", **kw):
+    """Smoke-width qwen3-0.6b (weights drawn from seed 0) on
+    ``device``, activations and pool in ``dtype``."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import lm as LM
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import ServeConfig, ServeEngine
+
+    cfg = smoke_config(get_config("qwen3-0.6b")).with_overrides(dtype=dtype, vocab_size=8192)
+    params = init_params(LM.param_specs(cfg), torch.Generator(device=device).manual_seed(0), device=device)
+    return ServeEngine(cfg, params, ServeConfig(**kw), device=device)
+
+
+def test_bf16_block_demoted_and_readmitted_bitwise(cuda_device):
+    """A bf16 pool block leaves the card for the host tier and comes back
+    bit for bit, in bf16; the readmitted chain decodes the cold tokens."""
+    kw = dict(max_batch=1, max_prompt_len=8, max_new_tokens=4, sched_chunk=2, paged=True, prefix_cache=True,
+              block_size=4, n_pool_blocks=3, spill_bytes=4 << 20)
+    eng = _small_engine(cuda_device, "bfloat16", **kw)
+    fetched, uploaded = [], []
+    real_fetch, real_upload = eng._fetch_block, eng._upload_block
+
+    def fetch(b):
+        before = [leaf[:, b].clone() for leaf in eng._pool_leaves()]
+        payload, nbytes = real_fetch(b)
+        fetched.append((before, [p.clone() for p in payload]))
+        return payload, nbytes
+
+    def upload(payload, b):
+        real_upload(payload, b)
+        uploaded.append(([p.clone() for p in payload], [leaf[:, b].clone() for leaf in eng._pool_leaves()]))
+
+    eng._fetch_block, eng._upload_block = fetch, upload
+    rng = np.random.default_rng(9)
+    a, b = (rng.integers(8, 8192, size=8).astype(np.int32) for _ in range(2))
+    cold = eng.serve_prompts([a], max_new_tokens=4)[0]
+    eng.serve_prompts([b], max_new_tokens=4)
+    warm = eng.serve_prompts([a], max_new_tokens=4)[0]
+    assert eng._index.n_demotions >= 1 and eng._index.n_readmits >= 1 and uploaded
+    assert np.array_equal(cold, warm)
+    for before, payload in fetched:
+        assert all(p.dtype == torch.bfloat16 and p.device.type == "cpu" for p in payload)
+        assert all(torch.equal(x.cpu(), p) for x, p in zip(before, payload))
+    for payload, after in uploaded:
+        assert all(torch.equal(p, x.cpu()) for p, x in zip(payload, after))
+        assert any(all(torch.equal(p, q) for p, q in zip(payload, d)) for _, d in fetched)
+
+
+@pytest.mark.parametrize("block_size", [4, 16])
+def test_prefix_cache_warm_equals_cold_tokens(cuda_device, block_size):
+    """On the card at smoke width: a shared/COW workload with the prefix
+    cache gives the tokens of the engine without it, and serving it again
+    on the warm engine gives them once more."""
+    rng = np.random.default_rng(42)
+    pre = rng.integers(8, 8192, size=16).astype(np.int32)
+    prompts = [np.concatenate([pre, rng.integers(8, 8192, size=n).astype(np.int32)]) for n in (1, 3)]
+    prompts += [pre.copy(), rng.integers(8, 8192, size=9).astype(np.int32), pre.copy()]
+    budgets = [5, 1, 4, 5, 2]
+    kw = dict(max_batch=2, max_prompt_len=20, max_new_tokens=5, sched_chunk=2, paged=True, block_size=block_size)
+    cold = _small_engine(cuda_device, **kw).serve_prompts(prompts, budgets)
+    eng = _small_engine(cuda_device, prefix_cache=True, **kw)
+    for _ in range(2):
+        got = eng.serve_prompts(prompts, budgets)
+        for w, g in zip(cold, got):
+            assert np.array_equal(w, g)
+    assert eng.prefix_hits >= len(prompts) + 2

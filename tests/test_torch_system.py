@@ -223,14 +223,22 @@ def test_contiguous_refuses_paged_only_options(bridged):
 
 
 @pytest.mark.parametrize(
-    "override",
-    [dict(prefix_cache=True), dict(spill_bytes=1 << 20), dict(draft_k=2), dict(shards=2)],
+    "override,exc,match",
+    [
+        (dict(prefix_cache=True, paged=False), ValueError, "requires paged"),
+        (dict(spill_bytes=1 << 20), ValueError, "requires prefix_cache"),
+        (dict(draft_k=2), NotImplementedError, "not ported"),
+        (dict(shards=2), NotImplementedError, "not ported"),
+    ],
     ids=["prefix_cache", "spill", "draft_k", "shards"],
 )
-def test_unported_engine_options_raise(bridged, override):
+def test_unported_engine_options_raise(bridged, override, exc, match):
+    """Speculative decoding and the sharded pool are not ported and raise;
+    the prefix cache and its spill tier are, and refuse what the
+    reference refuses (tests/test_torch_prefix.py runs them)."""
     _, tcfg, _, tparams = bridged
     scfg = TE.ServeConfig(**{"paged": True, **override})
-    with pytest.raises(NotImplementedError, match="later|slice"):
+    with pytest.raises(exc, match=match):
         TE.ServeEngine(tcfg, tparams, scfg, device="cpu")
 
 
