@@ -40,7 +40,13 @@ only when every phase passed):
               paged_decode (f32 and bf16), bf16 flash_attention,
               retrieval_topk (scores and ids, f32 and bf16) and ssd_chunk
               (f32 and bf16) must give outputs bitwise equal to the
-              parent's build;
+              parent's build.  Then, at qwen2-moe-a2.7b's heads (H = KV =
+              16, one query head per KV head), mixed prefill at the step's
+              mix above, paged decode, the causal admit prefill and
+              flash-decode, checked and timed the same way; and verify rows
+              (q_len 4 from the committed position) bitwise equal, lane by
+              lane, to q_len = 1 rows at the same positions (f32 and bf16,
+              G = 2 and G = 1);
 4. paged      ``CFedRAGSystem.serve`` on 16 queries at the full width of
               qwen3-0.6b (28 layers, bf16, random weights from a seed) on
               the paged engine with the bag embedder; then retrieval
@@ -82,9 +88,32 @@ only when every phase passed):
               and centralized, recall printed, f32 contexts on the card ==
               the CPU run's near-ties aside; one ``answer_batch`` routed by
               ``ProviderSelector(top_p=1)``: the picks and contexts == the
-              CPU run's, every context from its selected provider alone.
+              CPU run's, every context from its selected provider alone;
+11. spec      speculative decoding on the paged engine: (a) the phase-4
+              configuration with draft_k = 3, the model drafting for
+              itself: every status done, contexts == phase 4's, tokens ==
+              phase 4's but at rounding ties, rounds > 0, drafts accepted,
+              no decode dispatch, drafter dispatches <= rounds; the first
+              verify dispatch's descriptors and tables recorded, and
+              mixed prefill checked and timed at them; (b) qwen3-4b at full
+              width (36 layers) served plain, then over the same parameter
+              tensors with draft_k = 3 and a qwen3-0.6b drafter of another
+              seed: tokens equal but at rounding ties, the accept rate
+              printed; (c) smoke width, f32: spec == plain, token for token,
+              with and without the prefix cache;
+12. moe       the phase-4 federation serving qwen2-moe-a2.7b at full width
+              (24 layers, d_model 2048, 16/16 heads of 128, 60 experts
+              allocated as 64, top-4, d_ff 1408, 4 shared experts, 60.6 GB
+              of f32 weights) on the paged engine, after the earlier phases'
+              models are freed, then on the contiguous engine over the same
+              parameter tensors: statuses done, contexts == phase 4's, a
+              prompt's mixed-step logits finite, tokens equal across the
+              engines but at rounding ties, one MoE layer at 2048 tokens in
+              bf16 within 2e-2 of the dense oracle; at smoke width in f32,
+              paged == contiguous == the CPU run; resident and peak memory
+              printed.
 
-Every kernel's launch counter is set to 0 just before each main-path run
+Each phase prints its seconds.  Every kernel's launch counter is set to 0 just before each main-path run
 (the serves, phase 5's index build, phase 10's retrievals) and read just
 after; a kernel of that path left at 0 fails the run.
 
@@ -431,6 +460,89 @@ def read_launches(what: str, need) -> dict:
     if any(got[n] == 0 for n in need):
         fail(f"a kernel of the path was never launched during {what}: {got}")
     return got
+
+
+def mixed_prefill_row(torch, timer, gen, desc_h: list, tables, n_pool: int, h: int, kv: int, dtype: str,
+                      label: str) -> dict:
+    """``mixed_prefill`` at the descriptors ``desc_h`` ((slot, q_start,
+    q_len, kv_len) by row) over a random pool of ``n_pool`` blocks of 32
+    positions and ``tables``, R = 8 rows of W = 256 lanes, ``h`` query and
+    ``kv`` KV heads of 128: checked against its plain version (dead lanes
+    exactly 0), then timed beside the plain version and SDPA over the
+    gathered views, with its bound from what these descriptors need."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.chunked_prefill import ops as cp
+
+    dev = torch.device("cuda")
+    r, w, dh, bs = len(desc_h), 256, 128, 32
+    tdt = getattr(torch, dtype)
+    es = torch.empty((), dtype=tdt).element_size()
+    desc = torch.tensor(desc_h, dtype=torch.int32, device=dev)
+    q = torch.randn(r, w, h, dh, generator=gen, device=dev).to(tdt)
+    kp = torch.randn(n_pool, bs, kv, dh, generator=gen, device=dev).to(tdt)
+    vp = torch.randn(n_pool, bs, kv, dh, generator=gen, device=dev).to(tdt)
+    o = cp.mixed_prefill_attention(q, kp, vp, tables, desc)
+    err = (o.float() - cp.mixed_prefill_attention_plain(q, kp, vp, tables, desc).float()).abs().max().item()
+    check(f"mixed_prefill {label} H={h} KV={kv} {dtype}", err, dtype)
+    lane = torch.arange(w, device=dev)
+    if not bool((o[lane[None, :] >= desc[:, 2:3]] == 0).all()):
+        fail(f"mixed_prefill {label}: dead lanes are not exactly 0")
+    s_pad = tables.shape[1] * bs
+    kpos = torch.arange(s_pad, device=dev)
+    qpos = desc[:, 1:2] + lane[None, :]
+    mask = (kpos[None, None, :] <= qpos[:, :, None]) & (kpos[None, None, :] < desc[:, 3, None, None])
+    mask = (mask | (kpos[None, None, :] == 0))[:, None]  # keeps dead lanes finite
+    kv_k = kp[tables.long()].reshape(r, s_pad, kv, dh).permute(0, 2, 1, 3)
+    kv_v = vp[tables.long()].reshape(r, s_pad, kv, dh).permute(0, 2, 1, 3)
+    qt = q.permute(0, 2, 1, 3)
+    n_q = sum(d[2] for d in desc_h)
+    n_kv = [min(kl, q0 + ql) if ql > 0 else 0 for _, q0, ql, kl in desc_h]
+    flops = sum(4 * h * dh * min(q0 + j + 1, kl) for _, q0, ql, kl in desc_h for j in range(ql))
+    nbytes = (n_q * h * dh * es + r * w * h * dh * es + 2 * sum(n_kv) * kv * dh * es + desc.numel() * 4
+              + sum(-(-n // bs) for n in n_kv) * 4)
+    b_ms, b_by = bound(nbytes, (flops, dtype))
+    return dict(
+        **timer.turns(dict(
+            ms=lambda: cp.mixed_prefill_attention(q, kp, vp, tables, desc),
+            plain_ms=lambda: cp.mixed_prefill_attention_plain(q, kp, vp, tables, desc),
+            library_ms=lambda: F.scaled_dot_product_attention(qt, kv_k, kv_v, attn_mask=mask, enable_gqa=True),
+        )),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+        shape=f"{label}: R={r} W={w} H={h} KV={kv} dh={dh} bs={bs}, (q_start, q_len, kv_len) "
+              f"{[d[1:] for d in desc_h]} {dtype}",
+    )
+
+
+def verify_lanes_check(torch, gen, h: int, kv: int, dtype: str) -> None:
+    """Verify rows (q_len = 4 lanes from the committed position) against
+    q_len = 1 rows at each lane's position over the same pool: bitwise
+    equal, the lane's trailing fully masked key tiles leaving its m, l and
+    output exact.  Windows end on, before and past a block and a 64-key
+    tile."""
+    from repro_torch.kernels.chunked_prefill import ops as cp
+
+    dev = torch.device("cuda")
+    r, w, dh, bs, n_t, k1 = 8, 256, 128, 32, 9, 4
+    n_pool = r * n_t + 1
+    tdt = getattr(torch, dtype)
+    kp = torch.randn(n_pool, bs, kv, dh, generator=gen, device=dev).to(tdt)
+    vp = torch.randn(n_pool, bs, kv, dh, generator=gen, device=dev).to(tdt)
+    tables = torch.randperm(n_pool - 1, generator=torch.Generator().manual_seed(SEED))[: r * n_t]
+    tables = tables.reshape(r, n_t).to(torch.int32).to(dev)
+    q0 = [0, 27, 28, 31, 62, 63, 100, 283]
+    q = torch.randn(r, w, h, dh, generator=gen, device=dev).to(tdt)
+    ver = cp.mixed_prefill_attention(q, kp, vp, tables, torch.tensor(
+        [(i, s, k1, s + k1) for i, s in enumerate(q0)], dtype=torch.int32, device=dev))
+    for j in range(k1):
+        qj = torch.zeros_like(q)
+        qj[:, 0] = q[:, j]
+        one = cp.mixed_prefill_attention(qj, kp, vp, tables, torch.tensor(
+            [(i, s + j, 1, s + j + 1) for i, s in enumerate(q0)], dtype=torch.int32, device=dev))
+        if not torch.equal(ver[:, j], one[:, 0]):
+            fail(f"mixed_prefill H={h} KV={kv} {dtype}: verify lane {j} differs from a q_len=1 row at its position")
+    print(f"  mixed_prefill H={h} KV={kv} {dtype}: every lane of 8 verify rows (q_len 4, q_start {q0}) bitwise "
+          f"equal to a q_len=1 row at its position", flush=True)
 
 
 def kernel_phase(torch, timer, parent: Parent | None) -> dict:
@@ -840,17 +952,90 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         )
         del x, bg, cg, dt, outs, plain
 
-    for key, row in rows.items():
-        lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms (kernel / library {row['ms'] / row['library_ms']:.2f})"
-        par = "" if row.get("parent_ms") is None else f", parent {row['parent_ms']:.4f} ms (parent / kernel {row['parent_ms'] / row['ms']:.2f})"
-        late = "".join(f", {n} late {c}/20" for n, c in row["late"].items())
-        print(
-            f"  {key[0]} [{row['shape']}]: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"library {lib}, bound {row['bound_ms']:.6f} ms ({row['bound_by']}; kernel / bound "
-            f"{row['ms'] / row['bound_ms']:.1f}){par}{late}",
-            flush=True,
+    # ---- one query head per KV head: qwen2-moe-a2.7b (H = KV = 16, dh 128) ----
+    # the paged and admit shapes above with qwen2-moe's heads; and the
+    # verify rows of speculative decoding against single-lane rows
+    HM = 16
+    for dtype in ("float32", "bfloat16"):
+        rows["mixed_prefill", dtype, "G=1"] = mixed_prefill_row(
+            torch, timer, gen, desc_h, tables, n_pool, HM, HM, dtype, "qwen2-moe heads, the step's mix above")
+        tdt = getattr(torch, dtype)
+        es = torch.empty((), dtype=tdt).element_size()
+        qd = torch.randn(R, HM, DH, generator=gen, device=dev).to(tdt)
+        kp = torch.randn(n_pool, BS, HM, DH, generator=gen, device=dev).to(tdt)
+        vp = torch.randn(n_pool, BS, HM, DH, generator=gen, device=dev).to(tdt)
+        od = da.paged_decode_attention(qd, kp, vp, tables, lens)
+        err = (od.float() - da.paged_decode_attention_plain(qd, kp, vp, tables, lens).float()).abs().max().item()
+        check(f"paged_decode B={R} H=KV={HM} {dtype}", err, dtype)
+        kv_k = kp[tables.long()].reshape(R, s_pad, HM, DH).permute(0, 2, 1, 3)
+        kv_v = vp[tables.long()].reshape(R, s_pad, HM, DH).permute(0, 2, 1, 3)
+        b_ms, b_by = bound(2 * R * HM * DH * es + 2 * sum(lens_h) * HM * DH * es
+                           + sum(-(-n // BS) for n in lens_h) * 4 + R * 4, (4 * sum(lens_h) * HM * DH, dtype))
+        rows["paged_decode", dtype, "G=1"] = dict(
+            **timer.turns(dict(
+                ms=lambda: da.paged_decode_attention(qd, kp, vp, tables, lens),
+                plain_ms=lambda: da.paged_decode_attention_plain(qd, kp, vp, tables, lens),
+                library_ms=lambda: F.scaled_dot_product_attention(qd[:, :, None], kv_k, kv_v, attn_mask=mask_d),
+            )),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            shape=f"B={R} H=KV={HM} dh={DH} bs={BS} n_t={NT} lengths {min(lens_h)}-{max(lens_h)} {dtype}",
         )
+        del kp, vp, kv_k, kv_v
+        q = torch.randn(8, 256, HM, DH, generator=gen, device=dev).to(tdt)
+        k = torch.randn(8, 256, HM, DH, generator=gen, device=dev).to(tdt)
+        v = torch.randn(8, 256, HM, DH, generator=gen, device=dev).to(tdt)
+        o = fa.flash_attention(q, k, v, causal=True)
+        err = (o.float() - fa.flash_attention_plain(q, k, v, causal=True).float()).abs().max().item()
+        check(f"flash_attention admit prefill B=8 S=256 H=KV={HM} causal {dtype}", err, dtype)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        pairs = 256 * 257 // 2
+        b_ms, b_by = bound(es * 4 * 8 * 256 * HM * DH, (4 * 8 * HM * DH * pairs, dtype))
+        rows["flash_attention", dtype, "G=1"] = dict(
+            **timer.turns(dict(
+                ms=lambda: fa.flash_attention(q, k, v, causal=True),
+                plain_ms=lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                library_ms=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+            )),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            shape=f"admit prefill: B=8 S=256 H=KV={HM} dh={DH} causal {dtype}",
+        )
+        del q, k, v, qt, kt, vt
+        kc = torch.randn(R, S, HM, DH, generator=gen, device=dev).to(tdt)
+        vc = torch.randn(R, S, HM, DH, generator=gen, device=dev).to(tdt)
+        o = da.decode_attention(qd, kc, vc, lens_t)
+        err = (o.float() - da.decode_attention_plain(qd, kc, vc, lens_t).float()).abs().max().item()
+        check(f"flash_decode B={R} S={S} H=KV={HM} {dtype}", err, dtype)
+        b_ms, b_by = bound(es * (2 * R * HM * DH + 2 * sum(lens_c) * HM * DH) + 4 * R,
+                           (4 * sum(lens_c) * HM * DH, dtype))
+        rows["flash_decode", dtype, "G=1"] = dict(
+            **timer.turns(dict(
+                ms=lambda: da.decode_attention(qd, kc, vc, lens_t),
+                plain_ms=lambda: da.decode_attention_plain(qd, kc, vc, lens_t),
+                library_ms=lambda: F.scaled_dot_product_attention(
+                    qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask_c),
+            )),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            shape=f"B={R} H=KV={HM} dh={DH} S={S} lengths {min(lens_c)}-{max(lens_c)} {dtype}",
+        )
+        del qd, kc, vc
+        for h, kv in ((H, KV), (HM, HM)):
+            verify_lanes_check(torch, gen, h, kv, dtype)
+
+    for key, row in rows.items():
+        print_row(key[0], row)
     return rows
+
+
+def print_row(name: str, row: dict) -> None:
+    lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms (kernel / library {row['ms'] / row['library_ms']:.2f})"
+    par = "" if row.get("parent_ms") is None else f", parent {row['parent_ms']:.4f} ms (parent / kernel {row['parent_ms'] / row['ms']:.2f})"
+    late = "".join(f", {n} late {c}/20" for n, c in row["late"].items())
+    print(
+        f"  {name} [{row['shape']}]: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"library {lib}, bound {row['bound_ms']:.6f} ms ({row['bound_by']}; kernel / bound "
+        f"{row['ms'] / row['bound_ms']:.1f}){par}{late}",
+        flush=True,
+    )
 
 
 # --------------------------------------------------------------------- #
@@ -1102,12 +1287,15 @@ def mamba2_phase(torch, smi: str) -> dict:
 # --------------------------------------------------------------------- #
 
 
-def rounding_tie(torch, engine, prompt, prefix) -> tuple[bool, float, float]:
+def rounding_tie(torch, engine, prompt, prefix, contiguous: bool = False) -> tuple[bool, float, float]:
     """Whether the token after ``prompt + prefix`` is decided by rounding on
-    the card: its logits, computed the two ways the engine computes a decode
+    the card: its logits, computed the ways the engines compute a decode
     token (a lane of one mixed step over the whole sequence; a decode step
-    after a mixed step over the rest), differ by at least half their top-2
-    gap.  Returns (tie, gap, largest difference)."""
+    after a mixed step over the rest; with ``contiguous``, also the
+    contiguous engine's: a prefill over the prompt padded to
+    ``max_prompt_len`` for the first token, a contiguous decode step after
+    a prefill of the rest for a later one), differ by at least half their
+    top-2 gap.  Returns (tie, gap, largest difference)."""
     import numpy as np
 
     from repro_torch.models import lm as LM
@@ -1126,18 +1314,32 @@ def rounding_tie(torch, engine, prompt, prefix) -> tuple[bool, float, float]:
         LM.mixed_step(cfg, params, seq[:, : n - 1], cache, tables, zero, torch.tensor([n - 1], **i32), bs)
         b = LM.decode_step(cfg, params, cache, seq[:, n - 1 :], torch.tensor([n - 1], **i32),
                            block_tables=tables, block_size=bs)[0, -1].float()
+        ways = [a, b]
+        if contiguous:
+            width = engine.scfg.max_prompt_len
+            m = n if len(prefix) == 0 else n - 1  # the prefilled positions
+            padded = torch.zeros((1, width), **i32)
+            padded[0, :m] = seq[0, :m]
+            logits, cache = LM.prefill(cfg, params, {"tokens": padded}, cache_len=width + engine.scfg.max_new_tokens)
+            if len(prefix) == 0:
+                ways.append(logits[0, n - 1].float())
+            else:
+                ways.append(LM.decode_step(cfg, params, cache, seq[:, n - 1 :], torch.tensor([n - 1], **i32))[0, -1].float())
     top = torch.topk(a, 2).values
-    gap, diff = (top[0] - top[1]).item(), (a - b).abs().max().item()
+    gap = (top[0] - top[1]).item()
+    diff = max((x - y).abs().max().item() for i, x in enumerate(ways) for y in ways[i + 1 :])
     return gap <= 2 * diff, gap, diff
 
 
-def same_answers(want: list, got: list, what: str, engine=None) -> None:
+def same_answers(want: list, got: list, what: str, engine=None, contiguous: bool = False) -> None:
     """Every query's answer tokens equal; prints, then fails on, the queries
     that differ, each with its first differing place.  With ``engine`` (runs
     whose engine steps were composed differently, so that a row's decode
     token may come from a mixed step in one run and a decode step in the
     other) a query may differ from a later place than its first token,
-    where ``rounding_tie`` finds the token decided by rounding."""
+    where ``rounding_tie`` finds the token decided by rounding; with
+    ``contiguous`` (one of the runs on the contiguous engine, whose first
+    token comes from a packed prefill) at its first token too."""
     import numpy as np
     import torch
 
@@ -1149,10 +1351,10 @@ def same_answers(want: list, got: list, what: str, engine=None) -> None:
     print(f"  {what}: {len(want) - len(diff)}/{len(want)} queries' tokens equal"
           + (f"; first differing place by query {diff}" if diff else ""), flush=True)
     for i, j in diff.items():
-        if engine is None or j == 0:
+        if engine is None or (j == 0 and not contiguous):
             fail(f"{what}: answer tokens differ")
         prompt = np.asarray(want[i]["prompt"]).reshape(-1)
-        tie, gap, d = rounding_tie(torch, engine, prompt, np.asarray(want[i]["answer_tokens"][:j]))
+        tie, gap, d = rounding_tie(torch, engine, prompt, np.asarray(want[i]["answer_tokens"][:j]), contiguous)
         print(f"    query {i}, place {j}: top-2 gap {gap:.4e}, the two step kinds' logits differ by up to "
               f"{d:.4e}: {'decided by rounding' if tie else 'NOT a rounding tie'}", flush=True)
         if not tie:
@@ -1379,6 +1581,218 @@ def table1_phase(torch, smi: str) -> list[dict]:
     return runs
 
 
+# --------------------------------------------------------------------- #
+# phases 11-12: speculative decoding, the MoE family
+# --------------------------------------------------------------------- #
+
+
+def free_device(torch) -> None:
+    """Drop what earlier phases left: their systems sit in reference cycles,
+    and the allocator keeps their segments cached."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def spec_gauges(st: dict, label: str) -> str:
+    line = (f"  {label}: {st['spec_rounds']} rounds, {st['draft_dispatches']} drafter + "
+            f"{st['draft_fill_dispatches']} drafter-fill + {st['mixed_dispatches']} mixed + {st['decode_dispatches']} "
+            f"decode dispatches, {st['spec_tokens_proposed']} drafts proposed, {st['spec_tokens_accepted']} accepted, "
+            f"{st['spec_tokens_emitted']} tokens emitted: accept rate {st.get('spec_accept_rate', 0.0):.4f}, "
+            f"{st.get('spec_tokens_per_round', 0.0):.3f} tokens/round, "
+            f"{st.get('dispatches_per_spec_round', 0.0):.3f} dispatches/round, drafter pool "
+            f"{st['min_draft_free_blocks']} blocks free at its lowest")
+    print(line, flush=True)
+    return line
+
+
+def spec_phase(torch, smi: str, cold: list, timer, rows: dict) -> list[dict]:
+    """[11] speculative decoding on the paged engine: (a) self-speculation
+    in the phase-4 configuration; (b) qwen3-4b plain, then verified against
+    a qwen3-0.6b drafter; (c) smoke width, f32, spec == plain."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import full_width_system
+    from repro_torch.models import lm as LM
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import ServeConfig, ServeEngine, engine_generator
+
+    runs = []
+    # (a) qwen3-0.6b drafting for itself, draft_k = 3; the first verify
+    # dispatch's descriptors and tables are recorded for the kernel row
+    sys_, engine, texts = full_width_system(16, "cuda", SEED, draft_k=3)
+    first: dict = {}
+    step = engine._spec_mixed_rows
+
+    def record(st, tok, q_start_h, q_len, is_spec, drafts, row_len, b_new, tables):
+        if not first and bool((is_spec & (q_len > 1)).any()):
+            q_start = torch.where(is_spec, st[1] + st[2] - 1, q_start_h)
+            first["desc"] = [(i, a, n, a + n) for i, (a, n) in enumerate(zip(q_start.tolist(), q_len.tolist()))]
+            first["tables"] = tables.clone()
+        return step(st, tok, q_start_h, q_len, is_spec, drafts, row_len, b_new, tables)
+
+    engine._spec_mixed_rows = record
+    res, launches = serve_phase(torch, smi, sys_, engine, texts, "self-speculation, qwen3-0.6b full width bf16, "
+                                "draft_k 3", ("retrieval_topk", "mixed_prefill"))
+    runs.append(launches)
+    st = sys_.last_serve_stats
+    spec_gauges(st, "self-speculation")
+    print(f"  self-speculation: mixed_prefill launches {launches['mixed_prefill']}, paged_decode launches "
+          f"{launches['paged_decode']}", flush=True)
+    if not (st["spec_rounds"] > 0 and st["spec_tokens_accepted"] > 0 and st["decode_dispatches"] == 0
+            and st["draft_dispatches"] <= st["spec_rounds"]):
+        fail(f"self-speculation gauges: {st}")
+    for r, c in zip(res, cold):
+        if list(r["context"]["chunk_ids"]) != list(c["context"]["chunk_ids"]):
+            fail("self-speculation contexts differ from phase 4's")
+    print("  self-speculation contexts equal to phase 4's", flush=True)
+    # verify lanes are mixed-step lanes where phase 4 decoded with decode steps
+    same_answers(cold, res, "self-speculation against phase 4 (plain)", engine)
+    print(f"  the first verify dispatch: (q_start, q_len, kv_len) by row {[d[1:] for d in first['desc']]}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows["mixed_prefill", "bfloat16", "verify"] = row = mixed_prefill_row(
+        torch, timer, gen, first["desc"], first["tables"], engine._n_pool_blocks + 1, 16, 8, "bfloat16",
+        "the first verify dispatch of the self-speculation serve")
+    print_row("mixed_prefill", row)
+    prompts = [np.asarray(r["prompt"]).reshape(-1) for r in res[:4]]
+    vocab = sys_.tok.vocab_size
+    del sys_, engine, res
+    free_device(torch)
+
+    # (b) qwen3-4b verified against a qwen3-0.6b drafter of another seed;
+    # the plain engine runs over the same parameter tensors
+    q06 = get_config("qwen3-0.6b")
+    dparams = init_params(LM.param_specs(q06), torch.Generator(device="cuda").manual_seed(SEED + 1), device="cuda")
+    sys_, spec_eng, texts = full_width_system(16, "cuda", SEED, arch="qwen3-4b", draft_k=3, draft_config=q06,
+                                              draft_params=dparams)
+    plain_eng = ServeEngine(spec_eng.cfg, spec_eng.params, ServeConfig(paged=True, max_batch=8, max_prompt_len=256,
+                                                                        max_new_tokens=16))
+    spec_gen = sys_.orchestrator.generator
+    sys_.orchestrator.generator = engine_generator(plain_eng)
+    plain, launches = serve_phase(torch, smi, sys_, plain_eng, texts, "qwen3-4b full width bf16, plain",
+                                  ("retrieval_topk", "mixed_prefill", "paged_decode"))
+    runs.append(launches)
+    plain_eng.reset_cache()
+    sys_.orchestrator.generator = spec_gen
+    spec, launches = serve_phase(torch, smi, sys_, spec_eng, texts, "qwen3-4b full width bf16, draft_k 3, "
+                                 "qwen3-0.6b drafter (seed 1)", ("retrieval_topk", "mixed_prefill"))
+    runs.append(launches)
+    st = sys_.last_serve_stats
+    spec_gauges(st, "qwen3-4b <- qwen3-0.6b")
+    if not (st["spec_rounds"] > 0 and st["decode_dispatches"] == 0):
+        fail(f"qwen3-4b speculation gauges: {st}")
+    same_answers(plain, spec, "qwen3-4b speculative against plain", plain_eng)
+    del sys_, spec_eng, plain_eng, spec_gen, dparams, plain, spec
+    free_device(torch)
+
+    # (c) smoke width, f32, on the card: spec == plain, token for token,
+    # with and without the prefix cache (two repeats on the warm engine)
+    small, _, p_gpu = small_model(torch, vocab)
+    kw = dict(paged=True, max_batch=4, max_prompt_len=256, max_new_tokens=8, block_size=16)
+    want = ServeEngine(small, p_gpu, ServeConfig(**kw), device="cuda").serve_prompts(prompts)
+    checks = {}
+    for name, extra in (("spec", {}), ("spec + prefix cache", dict(prefix_cache=True))):
+        eng = ServeEngine(small, p_gpu, ServeConfig(draft_k=3, **kw, **extra), device="cuda")
+        outs = [eng.serve_prompts(prompts) for _ in range(2 if extra else 1)]
+        checks[name] = all(np.array_equal(a, b) for o in outs for a, b in zip(want, o))
+        print(f"  smoke width f32 on the card, {name}: {eng.spec_rounds} rounds, {eng.spec_tokens_accepted}/"
+              f"{eng.spec_tokens_proposed} drafts accepted, {eng.prefix_hits} prefix hits; tokens equal plain's: "
+              f"{checks[name]}", flush=True)
+    if not all(checks.values()):
+        fail(f"smoke-width speculative tokens differ from plain: {checks}")
+    return runs
+
+
+def moe_phase(torch, smi: str, cold: list) -> list[dict]:
+    """[12] qwen2-moe-a2.7b at full width, on the paged engine and then on
+    the contiguous engine over the same parameter tensors."""
+    import numpy as np
+
+    from repro_torch.launch.serve import full_width_system
+    from repro_torch.models import lm as LM
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.params import map_tree, param_bytes
+    from repro_torch.serving.engine import ServeConfig, ServeEngine, engine_generator
+
+    free_device(torch)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    sys_, engine, texts = full_width_system(16, "cuda", SEED, arch="qwen2-moe-a2.7b")
+    torch.cuda.synchronize()
+    cfg = engine.cfg
+    print(f"  built qwen2-moe-a2.7b ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.resolved_head_dim}, {cfg.n_experts} experts allocated as "
+          f"{engine.params['blocks']['pos0']['moe']['wg'].shape[1]}, top-{cfg.moe_top_k}, d_ff {cfg.moe_d_ff}, "
+          f"{cfg.n_shared_experts} shared) in {time.perf_counter() - t0:.1f} s: "
+          f"{param_bytes(LM.param_specs(cfg)) / 1e9:.2f} GB of f32 weights; resident "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (was {before / 2**30:.2f}), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} [{smi}]", flush=True)
+    runs = []
+    paged, launches = serve_phase(torch, smi, sys_, engine, texts, "qwen2-moe-a2.7b full width bf16, paged",
+                                  ("retrieval_topk", "mixed_prefill", "paged_decode"))
+    runs.append(launches)
+    for r, c in zip(paged, cold):
+        if list(r["context"]["chunk_ids"]) != list(c["context"]["chunk_ids"]):
+            fail("qwen2-moe contexts differ from phase 4's")
+    print("  qwen2-moe contexts equal to phase 4's", flush=True)
+
+    prompt = torch.as_tensor(np.asarray(paged[0]["prompt"]).reshape(1, -1), device="cuda")
+    bs = engine.scfg.block_size
+    bpp = -(-prompt.shape[1] // bs)
+    cache = LM.init_paged_cache(cfg, bpp + 1, bs, dtype=torch.bfloat16, device="cuda")
+    logits = LM.mixed_step(cfg, engine.params, prompt, cache, torch.arange(bpp, dtype=torch.int32, device="cuda")[None],
+                           torch.tensor([0], device="cuda"), torch.tensor([prompt.shape[1]], device="cuda"), bs)
+    if tuple(logits.shape) != (1, prompt.shape[1], cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        fail(f"qwen2-moe full-width logits: shape {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    print(f"  qwen2-moe full-width mixed_step logits {tuple(logits.shape)} all finite", flush=True)
+    del cache, logits
+
+    # one MoE layer at the mixed step's 2048 tokens, bf16, against the dense oracle
+    p0 = map_tree(lambda t: t[0], engine.params["blocks"]["pos0"]["moe"])
+    x = torch.randn(8, 256, cfg.d_model, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                    device="cuda").to(torch.bfloat16)
+    out, aux = MOE.moe_apply(cfg, p0, x)
+    ref, aux_r = MOE.moe_reference(cfg, p0, x)
+    gate = torch.sigmoid((x @ p0["shared_gate"].to(x.dtype)).float())
+    ref = ref + MOE.mlp_apply(cfg, p0["shared"], x) * gate.to(x.dtype)
+    check(f"moe_apply layer 0, 2048 tokens bf16, vs moe_reference + shared (max |out| "
+          f"{out.float().abs().max().item():.3f})", (out.float() - ref.float()).abs().max().item(), "bfloat16")
+    if float(aux) != float(aux_r):
+        fail(f"moe_apply aux {float(aux)} != moe_reference's {float(aux_r)}")
+    del x, out, ref, gate, p0
+
+    # the contiguous engine over the same parameter tensors
+    engine.reset_cache()
+    cont_eng = ServeEngine(cfg, engine.params, ServeConfig(max_batch=8, max_prompt_len=256, max_new_tokens=16))
+    sys_.orchestrator.generator = engine_generator(cont_eng)
+    cont, launches = serve_phase(torch, smi, sys_, cont_eng, texts, "qwen2-moe-a2.7b full width bf16, contiguous",
+                                 ("retrieval_topk", "flash_attention", "flash_decode"))
+    runs.append(launches)
+    # another engine: other kernels, other matmul shapes, other expert groups
+    same_answers(paged, cont, "qwen2-moe paged against contiguous", engine, contiguous=True)
+    prompts = [np.asarray(r["prompt"]).reshape(-1) for r in paged[:4]]
+    vocab = sys_.tok.vocab_size
+    del sys_, engine, cont_eng, paged, cont
+    free_device(torch)
+
+    # smoke width (H = KV = 4, 8 experts), f32: paged == contiguous on the
+    # card == the CPU run, token for token
+    small, p_cpu, p_gpu = small_model(torch, vocab, "qwen2-moe-a2.7b")
+    kw = dict(max_batch=4, max_prompt_len=256, max_new_tokens=8)
+    cont = ServeEngine(small, p_gpu, ServeConfig(**kw), device="cuda").serve_prompts(prompts)
+    pg = ServeEngine(small, p_gpu, ServeConfig(paged=True, block_size=16, **kw), device="cuda").serve_prompts(prompts)
+    cpu = ServeEngine(small, p_cpu, ServeConfig(**kw), device="cpu").serve_prompts(prompts)
+    checks = {"paged": all(np.array_equal(a, b) for a, b in zip(cont, pg)),
+              "CPU": all(np.array_equal(a, b) for a, b in zip(cont, cpu))}
+    print(f"  smoke-width qwen2-moe tokens on the card (contiguous) equal: {checks}", flush=True)
+    if not all(checks.values()):
+        fail(f"smoke-width qwen2-moe tokens differ: {checks}")
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", help="a directory holding an earlier commit's six kernel sources (csrc/*.cu), "
@@ -1420,26 +1834,31 @@ def main() -> int:
         print_ptxas(parent.logs, " (parent)")
 
     print("[3] kernels against their plain versions", flush=True)
+    t0 = time.perf_counter()
     timer = Timer(torch)
     print(f"  timer: median of 20 calls in turns; the spin before each call: {timer.cycles} cycles, "
           f"{timer.spin:.4f} ms; a row names the calls whose enqueue outlasted it (late)", flush=True)
     rows = kernel_phase(torch, timer, parent)
+    print(f"  [3] took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("[4] end to end: paged engine, bag embedder", flush=True)
-    launches, cold = paged_phase(torch, smi)
+    def phase(title: str, fn, *args):
+        print(title, flush=True)
+        t = time.perf_counter()
+        out = fn(torch, smi, *args)
+        print(f"  {title.split()[0]} took {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
+    launches, cold = phase("[4] end to end: paged engine, bag embedder", paged_phase)
     runs = [launches]
-    print("[5] end to end: the paper's models", flush=True)
-    runs += paper_phase(torch, smi)
-    print("[6] end to end: contiguous engine", flush=True)
-    runs.append(contiguous_phase(torch, smi))
-    print("[7] end to end: mamba2-1.3b, contiguous engine", flush=True)
-    runs.append(mamba2_phase(torch, smi))
-    print("[8] end to end: the prefix cache and its host spill tier", flush=True)
-    runs += prefix_phase(torch, smi, cold)
-    print("[9] end to end: the pipelined serve_stream", flush=True)
-    runs += stream_phase(torch, smi, cold)
-    print("[10] Table 1, the paper's models federated and centralized, the provider selector", flush=True)
-    runs += table1_phase(torch, smi)
+    runs += phase("[5] end to end: the paper's models", paper_phase)
+    runs.append(phase("[6] end to end: contiguous engine", contiguous_phase))
+    runs.append(phase("[7] end to end: mamba2-1.3b, contiguous engine", mamba2_phase))
+    runs += phase("[8] end to end: the prefix cache and its host spill tier", prefix_phase, cold)
+    runs += phase("[9] end to end: the pipelined serve_stream", stream_phase, cold)
+    runs += phase("[10] Table 1, the paper's models federated and centralized, the provider selector", table1_phase)
+    runs += phase("[11] speculative decoding: self-speculation, qwen3-4b with a qwen3-0.6b drafter", spec_phase,
+                  cold, timer, rows)
+    runs += phase("[12] the MoE family: qwen2-moe-a2.7b at full width, paged and contiguous", moe_phase, cold)
 
     meta = {
         "retrieval_topk": ("src/repro_torch/kernels/csrc/retrieval_topk.cu", "src/repro/kernels/retrieval_topk/kernel.py:105"),
@@ -1451,8 +1870,9 @@ def main() -> int:
     }
     # one row per kernel at the dtype the path gives it (f32 provider
     # embeddings; bf16 activations, KV pool and encoders) and, for
-    # flash_attention, its largest path shape (the rerank); launches are
-    # summed over the main-path runs of phases 4-10
+    # flash_attention, its largest path shape (the rerank), with the
+    # further path shapes beside it; launches are summed over the
+    # main-path runs of phases 4-12
     path_row = {
         "retrieval_topk": ("retrieval_topk", "float32"), "mixed_prefill": ("mixed_prefill", "bfloat16"),
         "paged_decode": ("paged_decode", "bfloat16"), "flash_attention": ("flash_attention", "bfloat16", "rerank"),
@@ -1468,10 +1888,13 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
             **{k: row[k] for k in ("combine_err", "max_rel_err", "parent_ms") if row.get(k) is not None},
         })
-        if name == "mixed_prefill":  # the prefix cache's warm-admission shape, beside the path row
-            warm = rows["mixed_prefill", "bfloat16", "warm"]
-            kernels[-1]["warm_admission"] = {k: warm[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+        # the prefix cache's warm-admission shape, the first verify dispatch,
+        # and qwen2-moe's heads (one query head per KV head), beside the path row
+        for tag, key in (("warm_admission", "warm"), ("verify", "verify"), ("one_head_per_kv_head", "G=1")):
+            extra = rows.get((name, "bfloat16", key))
+            if extra is not None:
+                kernels[-1][tag] = {k: extra[k] for k in (
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
     if any(not math.isfinite(k["ms"]) for k in kernels):
         fail("a kernel time is not finite")
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -7,12 +7,17 @@ Builds one of the configurations ``chip_smoke.py`` serves, random
 weights from ``--seed``: ``--system paged`` (default) or ``contiguous``
 is ``launch.serve.full_width_system`` with that engine layout, ``paper``
 is ``launch.serve.paper_models_system``, ``mamba2`` is
-``full_width_system`` with mamba2-1.3b on the contiguous engine.  It warms the system up,
+``full_width_system`` with mamba2-1.3b on the contiguous engine, ``spec``
+the paged qwen3-0.6b engine with ``draft_k=3`` (self-speculation), ``moe``
+qwen2-moe-a2.7b at full width on the paged engine.  It warms the system up,
 then runs ``CFedRAGSystem.serve`` on ``--queries`` queries under
 ``torch.profiler`` and prints the wall time, the device's busy share
 (summed kernel time over wall time; one stream, so kernels never
 overlap), the number of kernel launches, and the kernels that take the
-most device time, grouped by kind.  ``--prefix-cache`` (paged only)
+most device time, grouped by kind; for ``moe`` also the device time of
+the kernels launched inside ``models/moe``'s expert loop (its
+``moe_expert_loop`` profiler range) and its share, for ``spec`` the
+drafter dispatches and the speculation gauges.  ``--prefix-cache`` (paged only)
 builds the engine with its prefix cache and serves the queries
 ``--repeat`` times on the one resident engine, the last repeat under the
 profiler: with ``--repeat 2`` that is the warm repeat, whose prompts
@@ -25,6 +30,18 @@ from __future__ import annotations
 import argparse
 import subprocess
 import time
+
+
+LOOP = "moe_expert_loop"  # models/moe.py's profiler range around the expert loop
+
+
+def _inside(e) -> bool:
+    """Whether profiler event ``e`` or one of its CPU parents is the expert loop's range."""
+    while e is not None:
+        if e.name == LOOP:
+            return True
+        e = e.cpu_parent
+    return False
 
 
 def _kind(name: str) -> str:
@@ -54,7 +71,7 @@ def _kind(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--system", default="paged", choices=["paged", "contiguous", "paper", "mamba2"])
+    ap.add_argument("--system", default="paged", choices=["paged", "contiguous", "paper", "mamba2", "spec", "moe"])
     ap.add_argument("--queries", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
@@ -81,6 +98,10 @@ def main(argv=None) -> int:
         sys_, _, texts = paper_models_system(args.queries, "cuda", args.seed)
     elif args.system == "mamba2":
         sys_, _, texts = full_width_system(args.queries, "cuda", args.seed, paged=False, arch="mamba2-1.3b")
+    elif args.system == "spec":
+        sys_, _, texts = full_width_system(args.queries, "cuda", args.seed, draft_k=3)
+    elif args.system == "moe":
+        sys_, _, texts = full_width_system(args.queries, "cuda", args.seed, arch="qwen2-moe-a2.7b")
     else:
         pool = 2 * 8 * blocks_for(256 + 16, 32) if args.prefix_cache else None
         sys_, _, texts = full_width_system(args.queries, "cuda", args.seed, paged=args.system == "paged",
@@ -101,7 +122,11 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     st = sys_.last_serve_stats
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    # a profiler range (``record_function``) also shows on the device
+    # timeline as a span from its first kernel to its last, idle gaps
+    # included: it is no kernel, so it is left out of the sums
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total > 0 and e.key != LOOP]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     print(f"[{smi}] torch {torch.__version__}, system {args.system}"
@@ -115,6 +140,19 @@ def main(argv=None) -> int:
         f"{st['admit_dispatches']} admit + {st['mixed_dispatches']} mixed + "
         f"{st['decode_dispatches']} decode engine dispatches"
     )
+    if args.system == "spec":
+        print(f"speculation: {st['draft_dispatches']} drafter + {st['draft_fill_dispatches']} drafter-fill "
+              f"dispatches, {st['spec_rounds']} rounds, accept rate {st.get('spec_accept_rate', 0.0):.4f}, "
+              f"{st.get('spec_tokens_per_round', 0.0):.3f} tokens/round, "
+              f"{st.get('dispatches_per_spec_round', 0.0):.3f} dispatches/round")
+    loops = [e for e in prof.events() if e.name == LOOP and e.device_type.name == "CPU"]
+    if loops:
+        # the kernels of the ops launched inside the expert loop's range
+        loop_ms = sum(k.duration for e in prof.events() if e.kernels and e.name != LOOP and _inside(e.cpu_parent)
+                      for k in e.kernels) / 1e3
+        print(f"expert loop ({LOOP}): {len(loops)} calls, device time of its kernels {loop_ms:.1f} ms = "
+              f"{100 * loop_ms / busy_ms:.1f}% of device busy, host time in the range "
+              f"{sum(e.cpu_time_total for e in loops) / 1e3:.1f} ms = {100 * sum(e.cpu_time_total for e in loops) / 1e3 / (wall * 1e3):.1f}% of wall")
     by_kind: dict[str, list] = {}
     for e in kernels:
         k = by_kind.setdefault(_kind(e.key), [0.0, 0])

@@ -6,6 +6,7 @@ providers + enclave orchestrator, and answer queries.
   python -m repro_torch.launch.serve --queries 16 --generate --paged --token-budget 32
   python -m repro_torch.launch.serve --queries 16 --prefix-cache --repeat 2 --spill-mb 8
   python -m repro_torch.launch.serve --queries 16 --stream --collect-batch 4 --tenants interactive=4:1,batch=1
+  python -m repro_torch.launch.serve --queries 16 --generate --paged --draft-k 3
 
 Uses the bag embedder + lexical-overlap reranker (training-free).
 ``--generate`` stands up a random-init, smoke-width LM ``ServeEngine``
@@ -15,13 +16,16 @@ routes the whole query set through ``CFedRAGSystem.serve`` (or, with
 p50/p95.  ``--prefix-cache`` shares prompt prefixes on the paged pool,
 ``--repeat N`` serves the query set N times through one resident engine
 and ``--spill-mb`` adds the host spill tier; ``--tenants`` tags queries
-with SLO classes.  Everything runs on ``--device`` (default ``cuda``;
+with SLO classes; ``--draft-k K`` turns on speculative decoding with the
+demo model as its own drafter (self-speculation) and prints the drafter
+pool and the speculation gauges.  Everything runs on ``--device`` (default ``cuda``;
 ``cpu`` runs the kernels' plain versions).
 
-``full_width_system`` (qwen3-0.6b on the paged or contiguous engine, or
-mamba2-1.3b on the contiguous engine) and ``paper_models_system`` build
-the configurations measured on the card (``chip_smoke.py``,
-``launch/profile_serve.py``).
+``full_width_system`` (qwen3-0.6b, qwen3-4b or qwen2-moe-a2.7b on the
+paged or contiguous engine, mamba2-1.3b on the contiguous engine; with
+``draft_k`` and a drafter for speculative decoding) and
+``paper_models_system`` build the configurations measured on the card
+(``chip_smoke.py``, ``launch/profile_serve.py``).
 """
 from __future__ import annotations
 
@@ -69,11 +73,13 @@ def make_demo_engine(max_new_tokens: int = 16, paged: bool = False, block_size: 
                      pool_blocks: int | None = None, max_batch: int = 4,
                      token_budget: int | None = None, vocab_size: int = 8192,
                      device: str = "cuda", seed: int = 0, prefix_cache: bool = False,
-                     spill_bytes: int | None = None):
+                     spill_bytes: int | None = None, draft_k: int = 0):
     """Random-init smoke-width qwen3-0.6b ``ServeEngine`` + generator
     adapter, over contiguous stripes or (``paged``) the block pool.  The
     model's vocabulary is ``vocab_size``, which must cover the tokenizer
-    the prompts come from (an id outside it raises)."""
+    the prompts come from (an id outside it raises).  ``draft_k > 0``
+    speculates with the model as its own drafter (a real deployment passes
+    a small ``draft_config`` / ``draft_params`` pair to ``ServeConfig``)."""
     cfg = smoke_config(get_config("qwen3-0.6b")).with_overrides(
         dtype="float32", vocab_size=vocab_size
     )
@@ -85,6 +91,7 @@ def make_demo_engine(max_new_tokens: int = 16, paged: bool = False, block_size: 
             max_batch=max_batch, max_prompt_len=256, max_new_tokens=max_new_tokens,
             paged=paged, block_size=block_size, n_pool_blocks=pool_blocks,
             token_budget=token_budget, prefix_cache=prefix_cache, spill_bytes=spill_bytes,
+            draft_k=draft_k,
         ),
         device=device,
     )
@@ -122,8 +129,10 @@ def _on(tree, device):
 def _full_width_engine(tok: HashTokenizer, device: str, seed: int, paged: bool, arch: str = "qwen3-0.6b",
                        **serve_kw):
     """``arch`` at full width (qwen3-0.6b: 28 layers, bf16 activations and
-    KV cache; mamba2-1.3b: 48 layers, bf16 activations, f32 SSM state, on
-    the contiguous engine only), random weights from ``seed``, behind
+    KV cache; qwen3-4b: 36 layers; qwen2-moe-a2.7b: 24 layers of 60
+    routed top-4 experts and 4 shared ones, 60.6 GB of f32 weights;
+    mamba2-1.3b: 48 layers, bf16 activations, f32 SSM state, on the
+    contiguous engine only), random weights from ``seed``, behind
     ``ServeConfig(max_batch=8, max_prompt_len=256, max_new_tokens=16,
     **serve_kw)``."""
     cfg = get_config(arch)
@@ -140,14 +149,16 @@ def _full_width_engine(tok: HashTokenizer, device: str, seed: int, paged: bool, 
 def full_width_system(n_queries: int = 16, device: str = "cuda", seed: int = 0,
                       generate: bool = True, paged: bool = True, arch: str = "qwen3-0.6b",
                       prefix_cache: bool = False, spill_bytes: int | None = None,
-                      n_pool_blocks: int | None = None):
+                      n_pool_blocks: int | None = None, draft_k: int = 0,
+                      draft_config=None, draft_params=None):
     """The bag-embedder configuration measured on the card: the full-width
     ``arch`` engine (``_full_width_engine``; qwen3-0.6b by default on the
     paged block pool, or contiguous stripes with ``paged=False``;
     ``arch="mamba2-1.3b"`` needs ``paged=False``) over a 128-fact +
     128-distractor federated corpus with the overlap reranker.
-    ``prefix_cache``, ``spill_bytes`` and ``n_pool_blocks`` go to the
-    engine's ``ServeConfig``.
+    ``prefix_cache``, ``spill_bytes``, ``n_pool_blocks`` and the
+    speculative ``draft_k``, ``draft_config`` and ``draft_params`` (None:
+    self-speculation) go to the engine's ``ServeConfig``.
 
     Returns ``(system, engine, texts)``, ``texts`` being the corpus's
     first ``n_queries`` questions.  ``generate=False`` builds the same
@@ -156,7 +167,7 @@ def full_width_system(n_queries: int = 16, device: str = "cuda", seed: int = 0,
     corpus = make_federated_corpus(n_facts=128, n_distractors=128, n_queries=n_queries, seed=seed)
     engine = _full_width_engine(
         tok, device, seed, paged, arch, prefix_cache=prefix_cache, spill_bytes=spill_bytes,
-        n_pool_blocks=n_pool_blocks,
+        n_pool_blocks=n_pool_blocks, draft_k=draft_k, draft_config=draft_config, draft_params=draft_params,
     ) if generate else None
     system = CFedRAGSystem(
         corpus, CFedRAGConfig(device=device), tokenizer=tok, reranker=overlap_reranker(tok),
@@ -247,6 +258,13 @@ def main(argv=None):
         "implies --paged --generate",
     )
     ap.add_argument(
+        "--draft-k", type=int, default=0, metavar="K",
+        help="speculative decoding: the demo model drafts K greedy tokens per "
+        "row from its own paged pool (self-speculation) and the target verifies "
+        "all K+1 lanes in one mixed dispatch; tokens equal plain decode's "
+        "(implies --paged --generate)",
+    )
+    ap.add_argument(
         "--repeat", type=int, default=1,
         help="serve the query set N times through one resident engine and "
         "prefix index (prints the per-repeat hit rate)",
@@ -289,7 +307,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.spill_mb is not None:
         args.prefix_cache = True
-    if args.prefix_cache or args.token_budget is not None:
+    if args.prefix_cache or args.token_budget is not None or args.draft_k > 0:
         args.paged = args.generate = True
     if args.tenants is not None or args.stream:
         args.generate = True
@@ -321,6 +339,7 @@ def main(argv=None):
             token_budget=args.token_budget, vocab_size=tok.vocab_size, device=args.device,
             prefix_cache=args.prefix_cache,
             spill_bytes=int(args.spill_mb * 2**20) if args.spill_mb else None,
+            draft_k=args.draft_k,
         ) if args.generate else None,
     )
     if args.kill_provider is not None:
@@ -412,11 +431,24 @@ def main(argv=None):
                     f"{st['min_free_blocks']} at peak ({args.block_size} tok/block)"
                 )
             print(line)
+            if args.draft_k > 0 and "draft_free_blocks" in st:
+                print(
+                    f"drafter pool: {st['draft_free_blocks']} blocks free now / "
+                    f"{st['min_draft_free_blocks']} at peak"
+                )
         if st.get("engine_steps"):
             print(
                 f"dispatches: {st['admit_dispatches']} admit + {st['decode_dispatches']} decode + "
                 f"{st['mixed_dispatches']} mixed over {st['engine_steps']} "
                 f"engine steps ({st['dispatches_per_step']:.2f}/step)"
+            )
+        if "spec_tokens_per_round" in st:
+            print(
+                f"speculation: {st['spec_tokens_per_round']:.2f} tokens/round "
+                f"at accept rate {st.get('spec_accept_rate', 0.0):.0%} "
+                f"(draft_k={args.draft_k}), "
+                f"{st['dispatches_per_spec_round']:.2f} dispatches/spec round "
+                f"over {st['spec_rounds']} rounds"
             )
         if "prefix_lookups" in st:
             print(

@@ -1,5 +1,5 @@
-"""Causal LM: full forward, prefill and the serving steps, for the dense
-and the ``ssm`` (all-Mamba2) families.
+"""Causal LM: full forward, prefill and the serving steps, for the dense,
+``moe`` (all-attention, MoE FFNs) and ``ssm`` (all-Mamba2) families.
 
 ``forward`` is the whole-sequence pass; ``prefill`` runs it over a prompt
 batch and fills the contiguous cache ``init_cache`` builds, and
@@ -9,10 +9,14 @@ stripes (the contiguous engine and the lock-step baseline).
 chunks and decode rows, one pass over the layer stack), and
 ``decode_step`` with block tables decodes one token per row through the
 pool that ``init_paged_cache`` builds; ``paged_copy_block`` copies one
-pool block, the copy-on-write half of the engine's prefix cache.  Whole-sequence attention runs
+pool block, the copy-on-write half of the engine's prefix cache;
+``verify_step`` is ``mixed_step`` over speculative verify rows; ``generate``
+decodes greedily (or samples) from a prompt batch.  Whole-sequence attention runs
 through ``kernels/flash_attention``, contiguous decode attention through
 ``kernels/decode_attention``, and the Mamba2 mixer (``models/mamba2``)
-through ``kernels/ssd_scan``.
+through ``kernels/ssd_scan``.  A layer whose ``ffn_kind`` is ``moe`` runs
+``models/moe.moe_apply`` in place of the dense MLP; ``forward`` returns the
+mean of those layers' load-balance losses.
 
 Parameters keep the JAX package's tree: ``blocks`` holds one scan
 period's ``pos{j}`` subtrees stacked on a leading ``n_blocks`` axis, so
@@ -24,8 +28,8 @@ conv histories, "ssm": state}``, which has no sequence axis to page, so
 the paged steps (``mixed_step``, ``init_paged_cache``) take attention
 models only, as the reference's unified path does.
 
-MoE, the hybrid family and the patch frontend are not ported yet and
-raise ``NotImplementedError``.  The encoders (``dual_encoder``,
+The hybrid family and the patch frontend are not ported yet and raise
+``NotImplementedError``.  The encoders (``dual_encoder``,
 ``cross_encoder``) declare their own trees with ``_stack_specs`` and run
 their layers through ``encoder_stack``.
 """
@@ -38,16 +42,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MOE
 from repro_torch.models.params import ParamSpec, map_tree
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """Dense all-attention and all-Mamba2 (``ssm``) models are ported."""
-    dense = cfg.family == "dense" and all(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
-    if cfg.n_experts or not (dense or cfg.family == "ssm"):
+    """Dense and MoE all-attention models and all-Mamba2 (``ssm``) models
+    are ported."""
+    attn = all(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    dense = cfg.family == "dense" and not cfg.n_experts
+    if not ((attn and (dense or cfg.family == "moe")) or cfg.family == "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: only dense all-attention and all-Mamba2 models are ported so far "
-            "(the MoE and hybrid families come with a later model-families slice)"
+            f"{cfg.name}: only dense and MoE all-attention and all-Mamba2 models are ported so far "
+            "(the hybrid family comes with a later model-families slice)"
         )
 
 
@@ -59,14 +66,17 @@ def _check_attention(cfg: ModelConfig, what: str) -> None:
         )
 
 
-def _position_specs(cfg: ModelConfig) -> dict:
+def _position_specs(cfg: ModelConfig, j: int) -> dict:
     d = cfg.d_model
     s: dict[str, Any] = {"mixer_norm": ParamSpec((d,), ("norm",), "ones")}
     if cfg.family == "ssm":
         s["mamba"] = M.mamba_specs(cfg)
     else:
         s["attn"] = L.attn_specs(cfg)
-    if cfg.d_ff > 0:
+    if cfg.ffn_kind(j) == "moe":
+        s["ffn_norm"] = ParamSpec((d,), ("norm",), "ones")
+        s["moe"] = MOE.moe_specs(cfg)
+    elif cfg.d_ff > 0:
         s["ffn_norm"] = ParamSpec((d,), ("norm",), "ones")
         s["mlp"] = L.mlp_specs(cfg)
     return s
@@ -84,7 +94,7 @@ def _stack_specs(tree, n: int):
 
 def param_specs(cfg: ModelConfig) -> dict:
     _check_ported(cfg)
-    block = {f"pos{j}": _position_specs(cfg) for j in range(cfg.scan_period)}
+    block = {f"pos{j}": _position_specs(cfg, j) for j in range(cfg.scan_period)}
     specs = {
         "embed": L.embed_specs(cfg),
         "blocks": _stack_specs(block, cfg.n_blocks),
@@ -164,9 +174,15 @@ def _layer_params(params, i: int, j: int):
 
 
 def _ffn(cfg, pp, h):
+    """h + the layer's FFN (dense MLP or MoE; none for a Mamba2 block) ->
+    (h, the MoE load-balance loss or None)."""
     if "ffn_norm" not in pp:
-        return h
-    return h + L.mlp_apply(cfg, pp["mlp"], L.rmsnorm(h, pp["ffn_norm"], cfg.norm_eps))
+        return h, None
+    x = L.rmsnorm(h, pp["ffn_norm"], cfg.norm_eps)
+    if "moe" in pp:
+        o, aux = MOE.moe_apply(cfg, pp["moe"], x)
+        return h + o, aux
+    return h + L.mlp_apply(cfg, pp["mlp"], x), None
 
 
 def _embed_tokens(cfg: ModelConfig, params, tokens):
@@ -183,10 +199,12 @@ def _positions(shape, device):
 
 def forward(cfg: ModelConfig, params, batch):
     """Full causal forward.  ``batch["tokens"]`` (B, S) -> ``(logits
-    (B, S, V), aux)``; ``aux`` is the MoE auxiliary loss, 0 for dense."""
+    (B, S, V), aux)``; ``aux`` is the MoE load-balance loss summed over the
+    MoE layers in f32 and divided by their count, 0 without experts."""
     tokens = batch["tokens"]
     h = _embed_tokens(cfg, params, tokens)
     positions = _positions(tokens.shape, tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i in range(cfg.n_blocks):
         for j in range(cfg.scan_period):
             pp = _layer_params(params, i, j)
@@ -195,9 +213,12 @@ def forward(cfg: ModelConfig, params, batch):
                 o, _ = M.mamba_apply(cfg, pp["mamba"], x)
             else:
                 o = L.attn_apply(cfg, pp["attn"], x, positions)
-            h = _ffn(cfg, pp, h + o)
+            h, a = _ffn(cfg, pp, h + o)
+            if a is not None:
+                aux = aux + a
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return L.head_apply(cfg, params, h), torch.zeros((), device=tokens.device)
+    n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers))
+    return L.head_apply(cfg, params, h), aux / max(n_moe, 1)
 
 
 def prefill(cfg: ModelConfig, params, batch, cache_len: int | None = None):
@@ -224,7 +245,7 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int | None = None):
                 c["k"][i, :, :s] = k.to(c["k"].dtype)
                 c["v"][i, :, :s] = v.to(c["v"].dtype)
                 o = L._out_proj(L.attention_core(cfg, q, k, v, causal=cfg.causal), pp["attn"]["wo"])
-            h = _ffn(cfg, pp, h + o)
+            h, _ = _ffn(cfg, pp, h + o)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return L.head_apply(cfg, params, h), cache
 
@@ -238,7 +259,7 @@ def encoder_stack(cfg: ModelConfig, params, h):
         bp = map_tree(lambda t: t[i], params["blocks"])
         x = L.rmsnorm(h, bp["mixer_norm"], cfg.norm_eps)
         h = h + L.attn_apply(cfg, bp["attn"], x, positions, causal=False)
-        h = _ffn(cfg, bp, h)
+        h, _ = _ffn(cfg, bp, h)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
 
 
@@ -264,9 +285,24 @@ def mixed_step(cfg: ModelConfig, params, tokens, cache, block_tables, q_start, q
             h = h + L.attn_mixed_paged(
                 cfg, pp["attn"], x, c["k"][i], c["v"][i], positions, block_tables, block_size, q_len
             )
-            h = _ffn(cfg, pp, h)
+            h, _ = _ffn(cfg, pp, h)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return L.head_apply(cfg, params, h)
+
+
+def verify_step(cfg: ModelConfig, params, tokens, cache, block_tables, q_start, q_len,
+                block_size: int):
+    """The speculative target pass: ``mixed_step`` over verify rows.  A
+    speculating row ``b`` carries ``q_len[b] <= k + 1`` lanes from its last
+    committed position ``q_start[b]``: lane 0 its last committed token,
+    lanes 1.. the drafter's proposals.  Each layer writes the lanes' K/V
+    into the pool before attending, so lane ``j``'s logits are what a
+    1-token decode would give after emitting lanes ``< j``; the engine's
+    greedy accept-prefix then keeps the output equal to plain decode.
+    Rejected lanes need no rollback: the next round's window starts at the
+    new committed position and rewrites every stale position before any
+    lane reads it.  Returns logits (B, W, V)."""
+    return mixed_step(cfg, params, tokens, cache, block_tables, q_start, q_len, block_size)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos, block_tables=None,
@@ -296,6 +332,37 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, block_tables=None,
                 o = L.attn_decode(cfg, pp["attn"], x, c["k"][i], c["v"][i], pos)
             else:
                 o = L.attn_decode_paged(cfg, pp["attn"], x, c["k"][i], c["v"][i], pos, block_tables, block_size)
-            h = _ffn(cfg, pp, h + o)
+            h, _ = _ffn(cfg, pp, h + o)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return L.head_apply(cfg, params, h)
+
+
+def generate(cfg: ModelConfig, params, batch, n_tokens: int, temperature: float = 0.0,
+             generator: torch.Generator | None = None):
+    """Autoregressive generation of ``n_tokens`` per row from the prompt
+    batch ``batch["tokens"]`` (B, S): a prefill into a contiguous cache of
+    S + n_tokens positions, then one ``decode_step`` per token.  Greedy
+    (argmax) at ``temperature <= 0``; otherwise each token is drawn from
+    softmax(logits / temperature) with ``generator`` (on the tokens'
+    device, required: the draws are its own, not JAX's).  Returns (B,
+    n_tokens) int32."""
+    if temperature > 0.0 and generator is None:
+        raise ValueError("generate: sampling (temperature > 0) needs an explicit torch.Generator")
+    tokens = batch["tokens"]
+    prompt_len = tokens.shape[1]
+    logits, cache = prefill(cfg, params, batch, cache_len=prompt_len + n_tokens)
+
+    def pick(lg):
+        if temperature <= 0.0:
+            return torch.argmax(lg, -1).to(torch.int32)
+        # Gumbel-max: argmax(logits / T + Gumbel noise) is a draw from the softmax
+        u = torch.rand(lg.shape, generator=generator, device=lg.device, dtype=torch.float32)
+        return torch.argmax(lg.float() / temperature - torch.log(-torch.log(u.clamp_min(1e-20))), -1).to(torch.int32)
+
+    tok = pick(logits[:, -1, :])
+    out = [tok]
+    for t in range(1, n_tokens):
+        logits = decode_step(cfg, params, cache, tok[:, None], prompt_len + t - 1)
+        tok = pick(logits[:, -1, :])
+        out.append(tok)
+    return torch.stack(out, dim=1)

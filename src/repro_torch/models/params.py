@@ -7,7 +7,8 @@ drawn from a ``torch.Generator`` with the same init rules) and
 ``from_reference`` (the JAX package's parameter tree, given as numpy
 arrays, turned into this package's tensors).  Both return the nested
 dict of tensors the model functions take; ``ParamTree`` holds such a
-dict as an ``nn.Module`` (device moves, ``state_dict``).
+dict as an ``nn.Module`` (device moves, ``state_dict``).  ``param_count``
+and ``param_bytes`` size a declaration; ``cast_tree`` casts a tree.
 
 The two packages draw different numbers from the same seed, so tests
 that hold the port against the reference feed both the same weights
@@ -72,8 +73,10 @@ def init_params(specs, generator: torch.Generator, device="cuda", dtype=torch.fl
             std = 1.0 / math.sqrt(max(fan, 1))
         else:
             std = spec.scale
+        # scaled in place: a full-width expert leaf (qwen2-moe's wg is
+        # 24 x 64 x 2048 x 1408 f32, 17.7 GB) must not be held twice
         v = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
-        return (v * std).to(dtype)
+        return v.mul_(std).to(dtype)
 
     return map_tree(make, specs)
 
@@ -93,6 +96,22 @@ def from_reference(specs, tree_of_numpy, device="cuda", dtype=torch.float32):
         return {k: walk(spec_node[k], ref_node[k], f"{path}/{k}") for k in spec_node}
 
     return walk(specs, tree_of_numpy, "")
+
+
+def param_count(specs) -> int:
+    """Number of parameters ``specs`` declares."""
+    return sum(math.prod(s.shape) for _, s in leaves(specs))
+
+
+def param_bytes(specs, dtype=torch.float32) -> int:
+    """Bytes of ``specs``' parameters stored in ``dtype``."""
+    return param_count(specs) * torch.empty((), dtype=dtype).element_size()
+
+
+def cast_tree(tree, dtype):
+    """Every floating leaf of a nested dict of tensors cast to ``dtype``;
+    other leaves (integer tables) as they are."""
+    return map_tree(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
 
 
 class ParamTree(nn.Module):

@@ -51,12 +51,29 @@ chains stay parked in the pool for the next serve.  With ``spill_bytes``
 the parked chains that pool pressure evicts are demoted to a host tier
 (``HostBlockStore``) and re-admitted by upload instead of re-prefill.
 
+Speculative decoding (``draft_k > 0``, paged only): a drafter model (the
+target itself by default, or ``draft_config`` / ``draft_params``) keeps
+its own resident ``BlockPool``, tables and paged cache, of the target
+pool's block geometry and with no prefix index, and re-prefills every
+prompt through its own fill lanes.  A round is at most two dispatches: one
+drafter dispatch (its fill chunks, then ``draft_k`` greedy q_len=1 mixed
+steps and a trailing write-only step for the k-th proposal's K/V) and one
+target ``verify_step`` whose verify rows ``(q_start = lengths + emitted -
+1, q_len <= draft_k + 1)`` ride beside the fill chunks.  ``accept_prefix``
+commits the longest run of drafts that match the target's per-lane
+argmaxes plus one target token, so the tokens are plain greedy decode's.
+A drafter-pool OOM drops the row's drafter chain; the row keeps verifying
+(garbage drafts are accepted only where they match).  The gauges
+``draft_dispatches``, ``draft_fill_dispatches``, ``spec_rounds`` and
+``spec_tokens_{proposed,accepted,emitted}`` feed the scheduler's accept
+rate, tokens per round and dispatches per round.
+
 Both layouts give the same tokens for the same admission order.  An
 all-Mamba2 model (``ssm`` family) serves on the contiguous path and the
 lock-step baseline, whose admit prefills carry its conv and SSM state into
-the slot; the paged path refuses it, as the reference's does.  Options
-of the JAX package's engine that this port does not run yet raise
-``NotImplementedError``: speculative decoding and the sharded pool.
+the slot; the paged path refuses it, as the reference's does.  The
+sharded pool of the JAX package's engine is not ported yet and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -89,6 +106,35 @@ class AdmissionDeadlock(RuntimeError):
         self.stuck = stuck
 
 
+def accept_prefix(draft, target, *, q_len=None, rem=None, done=None, eos=EOS):
+    """Greedy draft-k / verify-1 acceptance.  ``draft`` (B, k) holds the
+    drafter's proposals, ``target`` (B, k + 1) the target's per-lane
+    argmaxes (lane ``j`` is the target's next token after the row emitted
+    ``target[:j]``).  Lane ``j`` commits iff every draft before it matched,
+    no earlier lane was EOS, and the optional caps hold: ``j < q_len``
+    (live verify lanes), ``j < rem`` (remaining budget), not ``done``.
+    Every mask is prefix-monotone, so the committed lanes are the run
+    ``target[:n_emit]``, what plain greedy decode emits one at a time.
+    Integer tensors (or arrays) in; returns ``(n_emit (B,) int32, can
+    (B, k + 1) bool)`` on the draft's device."""
+    d = torch.as_tensor(draft)
+    dev = d.device
+    t = torch.as_tensor(target, device=dev)
+    b, k = d.shape
+    j = torch.arange(k + 1, device=dev)
+    one = torch.ones((b, 1), dtype=torch.int32, device=dev)
+    ok = torch.cumprod(torch.cat([one, (d == t[:, :k]).to(torch.int32)], dim=1), dim=1).bool()
+    no_eos = torch.cumprod(torch.cat([one, (t[:, :k] != eos).to(torch.int32)], dim=1), dim=1).bool()
+    can = ok & no_eos
+    if q_len is not None:
+        can = can & (j[None, :] < torch.as_tensor(q_len, device=dev)[:, None])
+    if rem is not None:
+        can = can & (j[None, :] < torch.as_tensor(rem, device=dev)[:, None])
+    if done is not None:
+        can = can & ~torch.as_tensor(done, device=dev)[:, None]
+    return can.sum(dim=1).to(torch.int32), can
+
+
 def resolve_fill_deps(fill_deps: dict[int, frozenset], pending) -> list[int]:
     """Runnable in-flight fills: those none of whose dependency blocks is
     still pending.  Raises :class:`AdmissionDeadlock` when fills exist but
@@ -116,7 +162,14 @@ class ServeConfig:
     token_budget: int | None = None
     # host spill tier for the prefix cache, in bytes (None -> no tier)
     spill_bytes: int | None = None
-    draft_k: int = 0  # speculative decoding: not ported yet
+    # speculative decoding (paged only): drafter proposals per decode row
+    # and round, verified in the target's one mixed dispatch; 0 is off
+    draft_k: int = 0
+    # the drafter's architecture and parameters; None -> the target's own
+    # (self-speculation).  draft_config needs draft_params and the target's
+    # vocabulary, and must be all-attention
+    draft_config: ModelConfig | None = None
+    draft_params: object | None = None
     shards: int | None = None  # sharded pool: not ported yet
 
 
@@ -145,10 +198,6 @@ class ServeEngine:
                 )
             if scfg.spill_bytes < 1:
                 raise ValueError(f"spill_bytes={scfg.spill_bytes} must be >= 1")
-        if scfg.draft_k < 0:
-            raise ValueError(f"draft_k={scfg.draft_k} must be >= 0")
-        if scfg.draft_k > 0:
-            raise _not_ported("speculative decoding (draft_k > 0)", "speculative-decoding")
         if scfg.shards is not None:
             raise _not_ported("the sharded KV pool (shards)", "multi-device")
         if scfg.paged and any(cfg.mixer_kind(i) != "attn" for i in range(cfg.n_layers)):
@@ -187,6 +236,40 @@ class ServeEngine:
         self._token_budget = (
             scfg.token_budget if scfg.token_budget is not None else scfg.max_prompt_len
         )
+        if scfg.draft_k < 0:
+            raise ValueError(f"draft_k={scfg.draft_k} must be >= 0")
+        if scfg.draft_k > 0:
+            if not scfg.paged:
+                raise ValueError(
+                    "draft_k (speculative decoding) requires paged=True: the "
+                    "verify dispatch reads and writes K/V through the shared "
+                    "block pool"
+                )
+            if self._token_budget < scfg.draft_k + 1:
+                raise ValueError(
+                    f"token_budget={self._token_budget} cannot fit one verify "
+                    f"descriptor of q_len={scfg.draft_k + 1} (draft_k + 1)"
+                )
+            if scfg.draft_config is not None and scfg.draft_params is None:
+                raise ValueError(
+                    "draft_config without draft_params: a drafter with its "
+                    "own architecture needs its own weights"
+                )
+            dcfg = scfg.draft_config if scfg.draft_config is not None else cfg
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"drafter vocab_size={dcfg.vocab_size} != target "
+                    f"vocab_size={cfg.vocab_size}: greedy accept-prefix "
+                    "compares token ids across the two models"
+                )
+            if any(dcfg.mixer_kind(i) != "attn" for i in range(dcfg.n_layers)):
+                raise ValueError(
+                    "draft_config must be all-attention: the drafter decodes "
+                    "through its own paged pool"
+                )
+            dparams = scfg.draft_params if scfg.draft_params is not None else self.params
+            self._draft_cfg = dcfg
+            self._draft_params = dparams.tree() if isinstance(dparams, torch.nn.Module) else dparams
         # dispatch observability: fused admit prefills (contiguous), fused
         # decode chunks and unified mixed steps (paged)
         self.admit_dispatches = 0
@@ -200,6 +283,15 @@ class ServeEngine:
         self.prefill_tokens_total = 0
         self.prefill_tokens_saved = 0
         self.prefix_shared_total = 0  # blocks adopted by reference
+        # speculative-decoding gauges (engine lifetime): at most one drafter
+        # dispatch and one verify dispatch per round; the accept rate and
+        # tokens per round derive from the three token tallies
+        self.draft_dispatches = 0
+        self.draft_fill_dispatches = 0  # drafter prefill only (admission cost)
+        self.spec_rounds = 0
+        self.spec_tokens_proposed = 0
+        self.spec_tokens_accepted = 0
+        self.spec_tokens_emitted = 0
         self.queue: list[np.ndarray] = []  # lock-step requests (submit / step_batch)
         self._pool: BlockPool | None = None
         self._row_tables: list[BlockTable] | None = None
@@ -207,6 +299,11 @@ class ServeEngine:
         self._cache = None
         self._index: PrefixIndex | None = None
         self._spill_store: HostBlockStore | None = None
+        # the drafter's resident pool, tables and paged cache (draft_k > 0)
+        self._draft_pool: BlockPool | None = None
+        self._draft_row_tables: list[BlockTable] | None = None
+        self._draft_tables_h: np.ndarray | None = None
+        self._draft_cache = None
         self._serving = False
 
     # ------------------------------------------------------------------ #
@@ -250,6 +347,81 @@ class ServeEngine:
             done | (emit_dec & ((nxt == EOS) | (emitted >= budget))),
         )
         return cur, lengths, emitted, done, budget, out
+
+    def _spec_mixed_rows(self, st, tok, q_start_h, q_len, is_spec, drafts, row_len, b_new, tables):
+        """ONE target step in speculative mode: fill chunks advance as in
+        ``_mixed_rows``; each speculating row (``is_spec``) is a verify row
+        from ``q_start = lengths + emitted - 1`` whose lane 0 carries
+        ``cur`` and lanes 1..q_len-1 the drafts.  The per-lane argmaxes go
+        through ``accept_prefix``, and the committed run lands at the row's
+        own ``emitted`` offsets.  Rollback is positional: only ``emitted``
+        advances, and the next window rewrites every rejected position
+        before any lane reads it."""
+        cur, lengths, emitted, done, budget, out = st
+        b, t_cap, kd = self.scfg.max_batch, self.scfg.max_new_tokens, self.scfg.draft_k
+        rows = torch.arange(b, device=self.device)
+        q_start = torch.where(is_spec, lengths + emitted - 1, q_start_h)
+        tok[:, 0] = torch.where(is_spec, cur, tok[:, 0])
+        tok[:, 1 : kd + 1] = torch.where(is_spec[:, None], drafts, tok[:, 1 : kd + 1])
+        logits = LM.verify_step(
+            self.cfg, self.params, tok, self._cache, tables, q_start, q_len, self.scfg.block_size
+        )
+        # fill rows: the next token off the chunk's last live lane
+        nxt = torch.argmax(logits[rows, torch.clamp(q_len - 1, min=0).long()], -1).to(torch.int32)
+        completes = (~is_spec) & (q_len > 0) & (q_start + q_len >= row_len)
+        # verify rows: per-lane targets, greedy accept-prefix
+        tgt = torch.argmax(logits[:, : kd + 1, :], -1).to(torch.int32)
+        n_emit, can = accept_prefix(drafts, tgt, q_len=q_len, rem=budget - emitted, done=done)
+        n_emit = torch.where(is_spec, n_emit, torch.zeros_like(n_emit))
+        can = can & is_spec[:, None]
+        # a lane clamped to the spare column t_cap never commits (j < rem),
+        # so every write there puts back the value it read
+        j = torch.arange(kd + 1, device=self.device)
+        idx = torch.clamp(emitted[:, None] + j[None, :], max=t_cap).long()
+        keep = out[rows[:, None], idx]
+        out[rows[:, None], idx] = torch.where(can, tgt, keep)
+        seeded = torch.zeros_like(out)
+        seeded[:, 0] = nxt
+        out = torch.where(completes[:, None], seeded, out)
+        last_emit = torch.gather(tgt, 1, torch.clamp(n_emit - 1, min=0).long()[:, None])[:, 0]
+        cur = torch.where(n_emit > 0, last_emit, cur)
+        cur = torch.where(completes, nxt, cur)
+        lengths = torch.where(completes, row_len, lengths)
+        budget = torch.where(completes, b_new, budget)
+        emitted = torch.where(completes, torch.ones_like(emitted), emitted + n_emit)
+        done = torch.where(
+            completes,
+            (nxt == EOS) | (b_new <= 1),
+            done | ((n_emit > 0) & ((last_emit == EOS) | (emitted >= budget))),
+        )
+        return cur, lengths, emitted, done, budget, out
+
+    def _draft_tokens(self, cur, dec_pos, d_dec_tables):
+        """The drafter's ``draft_k`` greedy proposals per row (B, draft_k):
+        q_len=1 mixed steps from ``dec_pos`` (each writes the fed token's
+        K/V, then attends), then a trailing write-only step for the k-th
+        proposal's K/V: a full accept moves the committed position past it,
+        and a hole there would corrupt every later draft of the row.  Rows
+        with an all-trash ``d_dec_tables`` row write into the trash block."""
+        b, kd, bs = self.scfg.max_batch, self.scfg.draft_k, self.scfg.block_size
+        dcfg, dparams, dcache = self._draft_cfg, self._draft_params, self._draft_cache
+        one = torch.ones((b,), dtype=torch.int32, device=self.device)
+        drafts = torch.zeros((b, max(kd, 1)), dtype=torch.int32, device=self.device)
+        tok = cur
+        for t in range(kd):
+            logits = LM.mixed_step(dcfg, dparams, tok[:, None], dcache, d_dec_tables, dec_pos + t, one, bs)
+            tok = torch.argmax(logits[:, -1, :], -1).to(torch.int32)
+            drafts[:, t] = tok
+        LM.mixed_step(dcfg, dparams, tok[:, None], dcache, d_dec_tables, dec_pos + kd, one, bs)
+        return drafts
+
+    def _draft_rows(self, d_tok, d_q_start, d_q_len, cur, dec_pos, d_tables, d_dec_tables):
+        """The drafter's fill chunks (rows still streaming their prompt into
+        the drafter pool; q_len == 0 rows are inert), then ``_draft_tokens``:
+        one drafter dispatch."""
+        LM.mixed_step(self._draft_cfg, self._draft_params, d_tok, self._draft_cache, d_tables,
+                      d_q_start, d_q_len, self.scfg.block_size)
+        return self._draft_tokens(cur, dec_pos, d_dec_tables)
 
     def _decode_chunk(self, st, n_steps: int, cache, tables=None):
         """Fused decode of up to ``n_steps`` tokens across all slots, until
@@ -422,6 +594,15 @@ class ServeEngine:
             (scfg.max_batch, self._blocks_per_slot), self._trash_block, np.int32
         )
         self._cache = self._init_serve_cache(self.device)
+        if scfg.draft_k > 0:
+            # the drafter's pool: the target's block geometry, no prefix index
+            self._draft_pool = BlockPool(self._n_pool_blocks, scfg.block_size)
+            self._draft_row_tables = [BlockTable(self._draft_pool) for _ in range(scfg.max_batch)]
+            self._draft_tables_h = np.full_like(self._tables_h, self._trash_block)
+            self._draft_cache = LM.init_paged_cache(
+                self._draft_cfg, self._n_pool_blocks + 1, scfg.block_size,
+                dtype=torch_dtype(self._draft_cfg.dtype), device=self.device,
+            )
         if scfg.prefix_cache:
             store = HostBlockStore(scfg.spill_bytes) if scfg.spill_bytes is not None else None
             self._spill_store = store
@@ -429,11 +610,13 @@ class ServeEngine:
 
     def reset_cache(self):
         """Drop all resident paged state: device cache, block pool, prefix
-        index and host spill tier.  The next serve starts cold."""
+        index, host spill tier and the drafter's pool.  The next serve
+        starts cold."""
         if self._serving:
             raise RuntimeError("reset_cache() during an active serve loop")
         self._pool = self._row_tables = self._tables_h = self._cache = None
         self._index = self._spill_store = None
+        self._draft_pool = self._draft_row_tables = self._draft_tables_h = self._draft_cache = None
 
     # ------------------------------------------------------------------ #
     # serving
@@ -554,6 +737,12 @@ class ServeEngine:
             "admit_dispatches": self.admit_dispatches,
             "decode_dispatches": self.decode_dispatches,
             "mixed_dispatches": self.mixed_dispatches,
+            "draft_dispatches": self.draft_dispatches,
+            "draft_fill_dispatches": self.draft_fill_dispatches,
+            "spec_rounds": self.spec_rounds,
+            "spec_tokens_proposed": self.spec_tokens_proposed,
+            "spec_tokens_accepted": self.spec_tokens_accepted,
+            "spec_tokens_emitted": self.spec_tokens_emitted,
         }
 
     def _grow(self, i: int, need_tok: int, oom: np.ndarray, dn_h, oom_slots: set) -> bool:
@@ -615,9 +804,27 @@ class ServeEngine:
         fills: list[dict | None] = [None] * B
         pending_blocks: dict[int, tuple[int, int]] = {}
         planned: dict[int, object] = {}
+        # speculative decoding: d_fills[slot] is the drafter's prompt stream
+        # (always the whole prompt: the drafter has no prefix cache); a
+        # decode row speculates once its drafter fill is done and sits out
+        # meanwhile.  d_broken marks rows whose drafter ran out of blocks:
+        # they keep verifying, so their tokens never depend on the drafter
+        spec, kd = scfg.draft_k > 0, scfg.draft_k
+        d_pool, d_row_tables, d_tables_h = self._draft_pool, self._draft_row_tables, self._draft_tables_h
+        d_fills: list[dict | None] = [None] * B
+        d_broken = np.zeros((B,), bool)
+        dr0, sr0 = self.draft_dispatches, self.spec_rounds
+        sp0, sa0 = self.spec_tokens_proposed, self.spec_tokens_accepted
+        se0, df0 = self.spec_tokens_emitted, self.draft_fill_dispatches
         self._serving = True
 
         def admit_gate(req: Request) -> bool:
+            # both pools: the drafter re-prefills the whole prompt, so it
+            # needs blocks for the prompt and the first draft position
+            # (checked first: a prefix plan is memoised only for requests
+            # that clear both)
+            if spec and not d_pool.can_alloc(blocks_for(min(len(req.tokens), width) + 1, bs)):
+                return False
             if index is not None:
                 plan = index.plan(req.tokens[-width:])
                 if plan is not None:
@@ -657,6 +864,44 @@ class ServeEngine:
                 return st
             cur, lengths, emitted, done, budget, out = st
             return cur, lengths, emitted, done | self._dev(oom, torch.bool), budget, out
+
+        def drop_draft(i):
+            if d_row_tables[i].ids:
+                d_row_tables[i].release()
+            d_tables_h[i, :] = self._trash_block
+            d_fills[i] = None
+
+        def take_fills(runnable, tok, q_start_h, q_len_h, row_len_h, b_new_h, lanes):
+            """Fill chunks of the runnable rows, FIFO, into the lanes left;
+            returns the lanes still free."""
+            for i in runnable:
+                if lanes <= 0:
+                    break
+                fl = fills[i]
+                if fl["cow"] is not None:
+                    # the boundary copy precedes this fill's first write on
+                    # the stream; commit's pin on the source drops once the
+                    # copy is queued
+                    src, dst = fl["cow"]
+                    LM.paged_copy_block(self.cfg, self._cache, src, dst)
+                    pool.free([src])
+                    fl["cow"] = None
+                take = min(fl["length"] - fl["pos"], lanes)
+                tok[i, :take] = fl["p"][fl["pos"] : fl["pos"] + take]
+                q_start_h[i] = fl["pos"]
+                q_len_h[i] = take
+                row_len_h[i] = fl["length"]
+                b_new_h[i] = fl["b_new"]
+                lanes -= take
+                fl["pos"] += take
+                # chunks this dispatch writes become shareable: a waiting
+                # fill runs in a later dispatch on the same stream, so it
+                # reads them after they are written
+                for b in [b for b, (s, e) in pending_blocks.items() if s == i and e <= fl["pos"]]:
+                    del pending_blocks[b]
+                if fl["pos"] >= fl["length"]:
+                    fills[i] = None  # completes in this dispatch
+            return lanes
 
         try:
             while True:
@@ -717,6 +962,14 @@ class ServeEngine:
                     )
                     slots[slot] = req
                     fills[slot] = dict(p=p, length=length, b_new=b_new, pos=start, cow=cow, deps=deps)
+                    if spec:
+                        d_tb = d_row_tables[slot]
+                        if not d_tb.extend_to(length + 1):
+                            raise RuntimeError("draft admit raced the draft pool")
+                        d_tables_h[slot, :] = self._trash_block
+                        d_tables_h[slot, : d_tb.n_blocks] = d_tb.ids
+                        d_fills[slot] = dict(p=p, length=length, pos=0)
+                        d_broken[slot] = False
                     # inert on device until the fill's last chunk seeds it
                     em_h[slot], dn_h[slot] = 0, True
                     bu_h[slot], ln_h[slot] = b_new, length
@@ -726,6 +979,9 @@ class ServeEngine:
                     free_slots=B - len(active),
                     free_blocks=pool.free_blocks,
                     reclaimable_blocks=pool.reclaimable_blocks if index is not None else None,
+                    # without the drafter's headroom a drafter OOM would not
+                    # show in the memory gauges
+                    draft_free_blocks=d_pool.free_blocks if spec else None,
                 )
                 report_prefix()
                 scheduler.record_dispatch_stats(
@@ -734,6 +990,12 @@ class ServeEngine:
                     mixed_dispatches=self.mixed_dispatches - m0,
                     steps=steps,
                     lifetime=self._dispatch_lifetime(),
+                    draft_dispatches=self.draft_dispatches - dr0,
+                    draft_fill_dispatches=self.draft_fill_dispatches - df0,
+                    spec_rounds=self.spec_rounds - sr0,
+                    spec_tokens_proposed=self.spec_tokens_proposed - sp0,
+                    spec_tokens_accepted=self.spec_tokens_accepted - sa0,
+                    spec_tokens_emitted=self.spec_tokens_emitted - se0,
                 )
                 if not active:
                     if drain or scheduler.closed:
@@ -766,13 +1028,125 @@ class ServeEngine:
                             pool.free([fl["cow"][0]])
                         row_tables[i].release()
                         tables_h[i, :] = self._trash_block
+                        if spec:
+                            drop_draft(i)
                         scheduler.finish(req, empty, deadlocked=True)
                         slots[i], fills[i] = None, None
                         em_h[i], dn_h[i] = 1, True
                         yield req.rid, empty
                     continue
 
-                if runnable:
+                if spec:
+                    # ---- a speculative round: at most two dispatches ----
+                    # (1) one drafter dispatch: drafter prompt chunks of rows
+                    #     still streaming, then k proposals for every
+                    #     drafter-ready decode row;
+                    # (2) one target dispatch: verify rows (q_len <= k + 1),
+                    #     then target fill chunks in the lanes left
+                    spec_rows = [i for i in dec_rows if d_fills[i] is None]
+                    d_fill_rows = [i for i in range(B) if d_fills[i] is not None]
+                    draft_ok: list[int] = []
+                    for i in spec_rows:
+                        if d_broken[i]:
+                            continue
+                        if int(bu_h[i] - em_h[i]) < 2 or int(self._cache_len_padded - (ln_h[i] + em_h[i] - 1)) < 2:
+                            continue  # a 1-token tail cannot accept a draft
+                        # +1: the k-loop writes K/V for every proposal,
+                        # d_k included, at dec_pos + kd
+                        need = int(ln_h[i] + em_h[i] + kd)
+                        if need > self._cache_len_padded:
+                            continue  # the cache's tail: no drafts this round
+                        d_tb = d_row_tables[i]
+                        if d_tb.n_tokens_capacity < need:
+                            n0 = d_tb.n_blocks
+                            if d_tb.extend_to(need):
+                                d_tables_h[i, n0 : d_tb.n_blocks] = d_tb.ids[n0:]
+                            else:
+                                # drafter pool OOM: drop its chain, keep verifying
+                                d_broken[i] = True
+                                drop_draft(i)
+                                continue
+                        draft_ok.append(i)
+                    # rows excluded from drafting write into the trash block
+                    d_dec_tab = np.full_like(d_tables_h, self._trash_block)
+                    d_dec_tab[draft_ok] = d_tables_h[draft_ok]
+                    dec_pos = self._dev(ln_h + em_h - 1)
+                    cur = st[0]
+                    drafts = None
+                    if d_fill_rows:
+                        d_tok = np.zeros((B, W), np.int32)
+                        d_qs = np.zeros((B,), np.int32)
+                        d_ql = np.zeros((B,), np.int32)
+                        d_lanes = W
+                        for i in d_fill_rows:
+                            if d_lanes <= 0:
+                                break
+                            fl = d_fills[i]
+                            take = min(fl["length"] - fl["pos"], d_lanes)
+                            d_tok[i, :take] = fl["p"][fl["pos"] : fl["pos"] + take]
+                            d_qs[i], d_ql[i] = fl["pos"], take
+                            d_lanes -= take
+                            fl["pos"] += take
+                            if fl["pos"] >= fl["length"]:
+                                d_fills[i] = None
+                        drafts = self._draft_rows(
+                            self._dev(d_tok), self._dev(d_qs), self._dev(d_ql), cur, dec_pos,
+                            self._dev(d_tables_h), self._dev(d_dec_tab),
+                        )
+                        # a dispatch that only streams drafter prompt chunks
+                        # is admission cost (the drafter's prefill), not a round's
+                        if draft_ok:
+                            self.draft_dispatches += 1
+                        else:
+                            self.draft_fill_dispatches += 1
+                    elif draft_ok:
+                        drafts = self._draft_tokens(cur, dec_pos, self._dev(d_dec_tab))
+                        self.draft_dispatches += 1
+                    tok = np.zeros((B, W), np.int32)
+                    q_start_h = np.zeros((B,), np.int32)
+                    q_len_h = np.zeros((B,), np.int32)
+                    is_spec = np.zeros((B,), bool)
+                    row_len_h = np.zeros((B,), np.int32)
+                    b_new_h = np.ones((B,), np.int32)
+                    oom = np.zeros((B,), bool)
+                    lanes = W
+                    # verify lanes first (fills absorb the wait), drafted rows
+                    # before the others: a round that paid for a k-loop always
+                    # lands at least one verify row of q_len >= 2
+                    for i in draft_ok + [r for r in spec_rows if r not in set(draft_ok)]:
+                        if lanes <= 0:
+                            break
+                        v = min(kd + 1, int(bu_h[i] - em_h[i]), int(self._cache_len_padded - (ln_h[i] + em_h[i] - 1)),
+                                lanes)
+                        if v < 1:
+                            continue
+                        need = min(ln_h[i] + em_h[i] - 1 + v, self._cache_len_padded)
+                        if not self._grow(i, need, oom, dn_h, oom_slots):
+                            continue
+                        is_spec[i] = True
+                        q_len_h[i] = v
+                        lanes -= v
+                    take_fills(runnable, tok, q_start_h, q_len_h, row_len_h, b_new_h, lanes)
+                    st = mark_oom(st, oom)
+                    if is_spec.any() or q_len_h.any():
+                        em_before = em_h.copy()
+                        st = self._spec_mixed_rows(
+                            st, self._dev(tok), self._dev(q_start_h), self._dev(q_len_h),
+                            self._dev(is_spec, torch.bool),
+                            drafts if drafts is not None else torch.zeros((B, kd), dtype=torch.int32, device=dev),
+                            self._dev(row_len_h), self._dev(b_new_h), self._dev(tables_h),
+                        )
+                        self.mixed_dispatches += 1
+                        steps += 1
+                        em_h, dn_h = st[2].cpu().numpy().astype(np.int64), st[3].cpu().numpy().copy()
+                        if is_spec.any():
+                            committed = em_h[is_spec] - em_before[is_spec]
+                            self.spec_tokens_emitted += int(committed.sum())
+                            self.spec_tokens_proposed += int((q_len_h[is_spec] - 1).sum())
+                            self.spec_tokens_accepted += int(np.maximum(committed - 1, 0).sum())
+                            if (q_len_h[is_spec] > 1).any():
+                                self.spec_rounds += 1
+                elif runnable:
                     # ---- ONE mixed dispatch: decode lanes + fill chunks ----
                     tok = np.zeros((B, W), np.int32)
                     q_start_h = np.zeros((B,), np.int32)
@@ -791,33 +1165,7 @@ class ServeEngine:
                         is_dec[i] = True
                         q_len_h[i] = 1
                         lanes -= 1
-                    for i in runnable:
-                        if lanes <= 0:
-                            break
-                        fl = fills[i]
-                        if fl["cow"] is not None:
-                            # the boundary copy precedes this fill's first
-                            # write on the stream; commit's pin on the
-                            # source drops once the copy is queued
-                            src, dst = fl["cow"]
-                            LM.paged_copy_block(self.cfg, self._cache, src, dst)
-                            pool.free([src])
-                            fl["cow"] = None
-                        take = min(fl["length"] - fl["pos"], lanes)
-                        tok[i, :take] = fl["p"][fl["pos"] : fl["pos"] + take]
-                        q_start_h[i] = fl["pos"]
-                        q_len_h[i] = take
-                        row_len_h[i] = fl["length"]
-                        b_new_h[i] = fl["b_new"]
-                        lanes -= take
-                        fl["pos"] += take
-                        # chunks this dispatch writes become shareable: a
-                        # waiting fill runs in a later dispatch on the same
-                        # stream, so it reads them after they are written
-                        for b in [b for b, (s, e) in pending_blocks.items() if s == i and e <= fl["pos"]]:
-                            del pending_blocks[b]
-                        if fl["pos"] >= fl["length"]:
-                            fills[i] = None  # completes in this dispatch
+                    take_fills(runnable, tok, q_start_h, q_len_h, row_len_h, b_new_h, lanes)
                     st = mark_oom(st, oom)
                     st = self._mixed_rows(
                         st, self._dev(tok), self._dev(q_start_h), self._dev(q_len_h),
@@ -852,6 +1200,9 @@ class ServeEngine:
                         slots[i] = None
                         row_tables[i].release()
                         tables_h[i, :] = self._trash_block
+                        if spec:
+                            drop_draft(i)
+                            d_broken[i] = False
                         yield req.rid, ans
         finally:
             # the pool and index outlive this call: an abandoned stream must
@@ -870,6 +1221,8 @@ class ServeEngine:
                 if row_tables[i].ids:
                     row_tables[i].release()
                 tables_h[i, :] = self._trash_block
+                if spec:
+                    drop_draft(i)
             report_prefix()
             self._serving = False
 

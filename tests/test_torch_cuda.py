@@ -804,3 +804,108 @@ def test_prefix_cache_warm_equals_cold_tokens(cuda_device, block_size):
         for w, g in zip(cold, got):
             assert np.array_equal(w, g)
     assert eng.prefix_hits >= len(prompts) + 2
+
+
+# --------------------------------------------------------------------- #
+# one query head per KV head (qwen2-moe-a2.7b: H = KV = 16, dh = 128),
+# speculative verify rows, and the MoE layer
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_at_one_head_per_kv_head(cuda_device, dtype):
+    """The four attention kernels at qwen2-moe's heads (G = 1, dh = 128)
+    and the path's batch, block size and lengths, against their plain
+    versions: mixed prefill's tile of 64 flattened (lane, group) rows then
+    holds 64 lanes of one head, the decode kernels' blocks one head."""
+    rng = np.random.default_rng(61)
+    tol = _tol(dtype)
+
+    def close(a, b):
+        np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(), rtol=tol, atol=tol)
+
+    args = _mixed_case(rng, 8, 256, 16, 16, 128, 32, 9, dtype, cuda_device)
+    o = cp_ops.mixed_prefill_attention(*args)
+    close(o, cp_ops.mixed_prefill_attention_plain(*args))
+    assert bool((o[torch.arange(256, device=cuda_device)[None, :] >= args[4][:, 2:3]] == 0).all())
+    q, kp, vp, tables = args[0][:, 0], args[1], args[2], args[3]
+    lens = torch.as_tensor(rng.integers(1, 9 * 32 + 1, size=8), dtype=torch.int32, device=cuda_device)
+    close(da_ops.paged_decode_attention(q, kp, vp, tables, lens), da_ops.paged_decode_attention_plain(q, kp, vp, tables, lens))
+    g = torch.Generator(device="cpu").manual_seed(62)
+    qf, kf, vf = (torch.randn(8, 256, 16, 128, generator=g).to(dtype).to(cuda_device) for _ in range(3))
+    close(fa_ops.flash_attention(qf, kf, vf, causal=True), fa_ops.flash_attention_plain(qf, kf, vf, causal=True))
+    kc, vc = (torch.randn(8, 272, 16, 128, generator=g).to(dtype).to(cuda_device) for _ in range(2))
+    lc = torch.as_tensor([272, 17, 200, 64, 250, 131, 99, 1], dtype=torch.int32, device=cuda_device)
+    close(da_ops.decode_attention(q, kc, vc, lc), da_ops.decode_attention_plain(q, kc, vc, lc))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv", [(16, 8), (16, 16)], ids=["G2", "G1"])
+def test_verify_lanes_equal_single_lane_rows(cuda_device, h, kv, dtype):
+    """A verify row (q_len = k + 1 lanes from the committed position)
+    gives each lane bitwise what a q_len = 1 row at that position gives
+    over the same pool: the lane's trailing, fully masked key tiles leave
+    its m, l and output exactly as they were."""
+    bs, n_t, dh, k1 = 32, 9, 128, 4
+    rng = np.random.default_rng(h + kv)
+    r = 8
+    n_pool = r * n_t + 1
+    g = torch.Generator(device="cpu").manual_seed(63)
+    kp, vp = (torch.randn(n_pool, bs, kv, dh, generator=g).to(dtype).to(cuda_device) for _ in range(2))
+    tables = torch.as_tensor(rng.permutation(n_pool - 1)[: r * n_t].reshape(r, n_t), dtype=torch.int32,
+                             device=cuda_device)
+    q0 = [0, 27, 28, 31, 62, 63, 100, 283]  # windows that end on, before and past a block or a 64-key tile
+    q = torch.randn(r, 256, h, dh, generator=g).to(dtype).to(cuda_device)
+    desc = torch.as_tensor([(i, s, k1, s + k1) for i, s in enumerate(q0)], dtype=torch.int32, device=cuda_device)
+    ver = cp_ops.mixed_prefill_attention(q, kp, vp, tables, desc)
+    for j in range(k1):
+        qj = torch.zeros_like(q)
+        qj[:, 0] = q[:, j]
+        dj = torch.as_tensor([(i, s + j, 1, s + j + 1) for i, s in enumerate(q0)], dtype=torch.int32,
+                             device=cuda_device)
+        one = cp_ops.mixed_prefill_attention(qj, kp, vp, tables, dj)
+        torch.cuda.synchronize()
+        assert torch.equal(ver[:, j], one[:, 0]), f"lane {j}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_apply_matches_dense_oracle_on_the_card(cuda_device, dtype):
+    """The routed experts on the card (expert loop, deterministic combine)
+    against ``moe_reference``'s dense products, with every pair kept."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.params import init_params
+
+    cfg = ModelConfig(name="t", family="moe", d_model=256, n_experts=12, moe_top_k=4, moe_d_ff=192, d_ff=192,
+                      capacity_slack=1.5, dtype="float32")
+    p = init_params(MOE.moe_specs(cfg), torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    x = torch.randn(4, 64, 256, generator=torch.Generator(device=cuda_device).manual_seed(1), device=cuda_device)
+    x = x.to(dtype)
+    out, aux = MOE.moe_apply(cfg, p, x)
+    ref, aux_r = MOE.moe_reference(cfg, p, x)
+    torch.cuda.synchronize()
+    tol = _tol(dtype)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(), rtol=tol, atol=tol)
+    assert float(aux) == float(aux_r)
+    again, _ = MOE.moe_apply(cfg, p, x)
+    assert torch.equal(out, again), "the combine is deterministic"
+
+
+@pytest.mark.parametrize("prefix_cache", [False, True])
+def test_spec_decode_equals_plain_tokens(cuda_device, prefix_cache):
+    """Smoke width, f32, on the card: speculation gives plain decode's
+    tokens, with and without the prefix cache."""
+    rng = np.random.default_rng(42)
+    pre = rng.integers(8, 8192, size=16).astype(np.int32)
+    prompts = [np.concatenate([pre, rng.integers(8, 8192, size=n).astype(np.int32)]) for n in (1, 3)]
+    prompts += [pre.copy(), rng.integers(8, 8192, size=9).astype(np.int32), pre.copy()]
+    budgets = [5, 1, 4, 5, 2]
+    kw = dict(max_batch=2, max_prompt_len=20, max_new_tokens=5, sched_chunk=2, paged=True, block_size=8,
+              token_budget=7)
+    plain = _small_engine(cuda_device, **kw).serve_prompts(prompts, budgets)
+    eng = _small_engine(cuda_device, draft_k=3, prefix_cache=prefix_cache, **kw)
+    got = eng.serve_prompts(prompts, budgets)
+    for w, g in zip(plain, got):
+        assert np.array_equal(w, g)
+    assert eng.spec_rounds > 0 and eng.spec_tokens_accepted > 0 and eng.decode_dispatches == 0

@@ -41,7 +41,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert {
         "repro_torch.kernels.flash_attention.ops", "repro_torch.models.dual_encoder",
         "repro_torch.models.cross_encoder", "repro_torch.launch.profile_serve",
-        "repro_torch.core.advanced", "repro_torch.launch.table1",
+        "repro_torch.core.advanced", "repro_torch.launch.table1", "repro_torch.models.moe",
     } <= walked
 
 

@@ -182,7 +182,9 @@ def test_embed_rejects_out_of_range_ids():
 
 
 def test_non_dense_families_raise():
-    # mamba2-1.3b (ssm) is ported: tests/test_torch_mamba2.py
-    for name in ("qwen2-moe-a2.7b", "jamba-1.5-large-398b"):
+    # mamba2-1.3b (ssm) and qwen2-moe-a2.7b (moe) are ported:
+    # tests/test_torch_mamba2.py, tests/test_torch_moe.py
+    TLM.param_specs(t_smoke(t_get("qwen2-moe-a2.7b")))
+    for name in ("jamba-1.5-large-398b", "pixtral-12b"):
         with pytest.raises(NotImplementedError):
             TLM.param_specs(t_smoke(t_get(name)))

@@ -227,15 +227,16 @@ def test_contiguous_refuses_paged_only_options(bridged):
     [
         (dict(prefix_cache=True, paged=False), ValueError, "requires paged"),
         (dict(spill_bytes=1 << 20), ValueError, "requires prefix_cache"),
-        (dict(draft_k=2), NotImplementedError, "not ported"),
+        (dict(draft_k=2, paged=False), ValueError, "requires paged"),
         (dict(shards=2), NotImplementedError, "not ported"),
     ],
     ids=["prefix_cache", "spill", "draft_k", "shards"],
 )
 def test_unported_engine_options_raise(bridged, override, exc, match):
-    """Speculative decoding and the sharded pool are not ported and raise;
-    the prefix cache and its spill tier are, and refuse what the
-    reference refuses (tests/test_torch_prefix.py runs them)."""
+    """The sharded pool is not ported and raises; the prefix cache, its
+    spill tier and speculative decoding are, and refuse what the reference
+    refuses (tests/test_torch_prefix.py and tests/test_torch_spec_decode.py
+    run them)."""
     _, tcfg, _, tparams = bridged
     scfg = TE.ServeConfig(**{"paged": True, **override})
     with pytest.raises(exc, match=match):
