@@ -46,7 +46,18 @@ only when every phase passed):
               flash-decode, checked and timed the same way; and verify rows
               (q_len 4 from the committed position) bitwise equal, lane by
               lane, to q_len = 1 rows at the same positions (f32 and bf16,
-              G = 2 and G = 1);
+              G = 2 and G = 1).  Training: flash_attention's output and
+              gradient (the autograd Function: kernel forward, plain
+              recompute backward) against the plain version's autograd at
+              the train (B=8, S=256, 16/8 heads of 128, causal), HuBERT
+              (B=4, S=256, 16 heads of 80) and contriever (16 x 40, 12 heads
+              of 64) shapes, error over the largest entry at 2e-5 f32 and
+              2e-2 bf16; the head_dim-80 forward timed against SDPA and the
+              backward against the forward kernel and SDPA's backward;
+              ssd_chunk's gradient at the shape above at 1e-4; the four
+              serving kernels raise on an input that requires grad; with
+              --parent-csrc, bf16 flash_attention at dh 16-128 bitwise equal
+              to the parent's build;
 4. paged      ``CFedRAGSystem.serve`` on 16 queries at the full width of
               qwen3-0.6b (28 layers, bf16, random weights from a seed) on
               the paged engine with the bag embedder; then retrieval
@@ -111,11 +122,40 @@ only when every phase passed):
               engines but at rounding ties, one MoE layer at 2048 tokens in
               bf16 within 2e-2 of the dense oracle; at smoke width in f32,
               paged == contiguous == the CPU run; resident and peak memory
-              printed.
+              printed;
+13. train     qwen3-0.6b at full width (f32 master weights and AdamW moments,
+              bf16 activations, remat per block) through the Trainer on
+              LMBatchStream batches of 8 x 256: a straight run of 4 steps,
+              and a run killed at step 3 and resumed from its step-1
+              checkpoint, losses equal at rel 1e-5, every step's gradient
+              norm finite and positive (a leaf the loss does not reach
+              raises in value_and_grad); flash_attention launched at least
+              forward + recompute times; 4 steps on one repeated batch
+              through value_and_grad with the loss falling, every leaf's
+              gradient finite and non-zero, each step split into forward /
+              backward / update;
+              mamba2-1.3b two steps on a repeated batch through ssd_chunk;
+14. hubert    hubert-xlarge at full width (1.26 B parameters, head_dim 80),
+              frames 4 x 256 at a 0.3 mask rate: loss_fn, two AdamW steps
+              with finite, falling loss, embed_corpus; its first layer's q, k,
+              v through the dh-80 kernel against the plain version, forward
+              and gradient, bf16;
+15. pixtral   pixtral-12b at full width (12.25 B parameters, 49.0 GB f32)
+              with 64 patch embeddings on B=2, S=256: prefill's logits ==
+              forward's, other patches move the logits, generate 8 tokens;
+16. fedembed  the paper's §2.2: federated_train_embedder over the phase-4
+              corpus's two providers, contriever-110m at full width (f32) as
+              F_emb, InfoNCE on 16 (query, gold chunk) pairs per provider,
+              clipped SGD; 3 rounds with secure aggregation and 3 plain:
+              trajectories equal at rtol 1e-4, the loss falling; the masked
+              exchange's host seconds; one rank_loss step of
+              bge-reranker-base.
 
-Each phase prints its seconds.  Every kernel's launch counter is set to 0 just before each main-path run
-(the serves, phase 5's index build, phase 10's retrievals) and read just
-after; a kernel of that path left at 0 fails the run.
+Each phase prints its seconds and peak memory.  Every kernel's launch
+counter is set to 0 just before each main-path run (the serves, phase 5's
+index build, phase 10's retrievals, the training runs and steps of
+13-16) and read just after; a kernel of that path left at 0 fails the
+run.
 
 The line before the last lines is ``{"kernels": [...]}``, then the card's
 nvidia-smi line, then ``{"ok": true, "device": {...}}``.
@@ -333,10 +373,13 @@ class Parent:
                 for sh in ((b, kv, n_split, g, dh), (b, kv, n_split, g), (b, kv, n_split, g))]
 
     def flash_attention(self, q, k, v, causal: bool):
+        """The entry point without the softmax scale's head_dim (22
+        arguments) or with it (23; dh itself here)."""
         b, sq, h, dh = q.shape
         out = self.torch.empty_like(q)
+        dims = (dh,) if len(self.fns["flash_attention"].argtypes) == 22 else (dh, dh)
         self._call("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, k.shape[1], h,
-                   k.shape[2], dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+                   k.shape[2], *dims, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
                    int(q.dtype == self.torch.bfloat16))
         return out
 
@@ -1021,9 +1064,178 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         for h, kv in ((H, KV), (HM, HM)):
             verify_lanes_check(torch, gen, h, kv, dtype)
 
+    training_checks(torch, timer, gen, parent, rows)
+
     for key, row in rows.items():
         print_row(key[0], row)
     return rows
+
+
+def grads_through(torch, fn, ins, ups):
+    """(outputs, gradients) of sum(out * up) + sum(out^2) / 2 with respect
+    to ``ins``: the second term carries the forward's own output (and so
+    the kernel's error) into the gradients."""
+    leaves = [t.detach().requires_grad_(True) for t in ins]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    loss = sum((o.float() * u).sum() + 0.5 * (o.float() ** 2).sum() for o, u in zip(outs, ups))
+    return outs, torch.autograd.grad(loss, leaves)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, across pairs of tensors."""
+    a_, b_ = ([t.detach().float() for t in ts] for ts in (got, want))
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(a_, b_))
+
+
+def training_checks(torch, timer, gen, parent: Parent | None, rows: dict) -> None:
+    """Phase 3's training part: ``flash_attention``'s and ``ssd_chunk``'s
+    gradients (the autograd Functions: kernel forward, plain recompute
+    backward) against the plain versions' autograd; head_dim 80; the
+    serving kernels' requires-grad raise; timed rows for the head_dim-80
+    forward and the backward; with ``--parent-csrc``, bf16 flash attention
+    at dh 16-128 bitwise equal to the parent's build."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.chunked_prefill import ops as cp
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.retrieval_topk import ops as rt
+    from repro_torch.kernels.ssd_scan import ops as ss
+
+    dev = torch.device("cuda")
+    cases = [
+        # (label, B, S, H, KV, dh, causal): the shapes phases 13, 14 and 16 train at
+        ("train", 8, 256, 16, 8, 128, True),  # qwen3-0.6b, LMBatchStream batch 8 x 256
+        ("hubert", 4, 256, 16, 16, 80, False),  # hubert-xlarge frames 4 x 256, head_dim 80
+        ("contriever", 16, 40, 12, 12, 64, False),  # 16 (query, chunk) pairs x 40 tokens
+    ]
+    for label, b, sl, h, kv, dh, causal in cases:
+        pairs = sum(min(i + 1, sl) for i in range(sl)) if causal else sl * sl
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            es = torch.empty((), dtype=tdt).element_size()
+            q = torch.randn(b, sl, h, dh, generator=gen, device=dev).to(tdt)
+            k = torch.randn(b, sl, kv, dh, generator=gen, device=dev).to(tdt)
+            v = torch.randn(b, sl, kv, dh, generator=gen, device=dev).to(tdt)
+            up = (torch.randn(b, sl, h, dh, generator=gen, device=dev),)
+            (o,), g = grads_through(torch, lambda *t: fa.flash_attention(*t, causal=causal), (q, k, v), up)
+            (o_p,), g_p = grads_through(torch, lambda *t: fa.flash_attention_plain(*t, causal=causal), (q, k, v), up)
+            if o.grad_fn is None or any(x.dtype != tdt for x in g):
+                fail(f"flash_attention {label} {dtype}: no grad_fn, or gradients in another dtype")
+            shape = f"B={b} S={sl} H={h} KV={kv} dh={dh} {'causal' if causal else 'non-causal'} {dtype}"
+            check(f"flash_attention {label} {shape} forward, error / max |out|", rel_err([o], [o_p]), dtype)
+            err_g = rel_err(g, g_p)
+            check(f"flash_attention {label} {shape} dq, dk, dv, error / max |grad|", err_g, dtype)
+            if dtype != "bfloat16":
+                continue
+            # timed: the head_dim-80 forward against SDPA; the backward (the
+            # plain version recomputed and differentiated) against the forward
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            fwd_bytes = es * (2 * b * sl * h * dh + 2 * b * sl * kv * dh)
+            if dh == 80:
+                b_ms, b_by = bound(fwd_bytes, (4 * b * h * dh * pairs, dtype))
+                rows["flash_attention", dtype, "dh80"] = dict(
+                    **timer.turns(dict(
+                        ms=lambda: fa.flash_attention(q, k, v, causal=causal),
+                        plain_ms=lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+                        library_ms=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                                          enable_gqa=True),
+                    )),
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=rel_err([o], [o_p]),
+                    shape=f"{label} forward (padded to dh 128 in the wrapper): {shape}",
+                )
+            live = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            live_t = [t.transpose(1, 2) for t in live]
+            out_k = fa.flash_attention(*live, causal=causal)
+            out_p = fa.flash_attention_plain(*live, causal=causal)
+            out_l = F.scaled_dot_product_attention(*live_t, is_causal=causal, enable_gqa=True)
+            d_o = up[0].to(tdt)
+            # the least work: P = softmax(QK^T) again, dV, dP, dQ, dK (5 products)
+            # over q, k, v, dO read once and dq, dk, dv written once
+            b_ms, b_by = bound(fwd_bytes + es * (b * sl * h * dh + 2 * b * sl * kv * dh),
+                               (10 * b * h * dh * pairs, dtype))
+            t = timer.turns(dict(
+                ms=lambda: torch.autograd.grad(out_k, live, d_o, retain_graph=True),
+                plain_ms=lambda: torch.autograd.grad(out_p, live, d_o, retain_graph=True),
+                library_ms=lambda: torch.autograd.grad(out_l, live, d_o.transpose(1, 2), retain_graph=True),
+                fwd_ms=lambda: fa.flash_attention(q, k, v, causal=causal),
+            ))
+            rows["flash_attention", dtype, f"backward {label}"] = dict(
+                **t, bound_ms=b_ms, bound_by=b_by, max_abs_err=err_g,
+                shape=f"{label} backward (plain recompute + autograd; plain: autograd of the plain forward's graph; "
+                      f"library: SDPA's backward): {shape}",
+            )
+            print(f"  flash_attention {label} {dtype}: backward {t['ms']:.4f} ms = {t['ms'] / t['fwd_ms']:.1f}x the "
+                  f"forward kernel's {t['fwd_ms']:.4f} ms", flush=True)
+            del live, live_t, out_k, out_p, out_l, qt, kt, vt
+            del q, k, v, o, o_p, g, g_p
+
+    if parent:  # bf16 at every head_dim the parent takes: bitwise
+        for dh in (16, 32, 64, 128):
+            for causal in (True, False):
+                q = torch.randn(3, 100, 8, dh, generator=gen, device=dev).to(torch.bfloat16)
+                k = torch.randn(3, 100, 4, dh, generator=gen, device=dev).to(torch.bfloat16)
+                v = torch.randn(3, 100, 4, dh, generator=gen, device=dev).to(torch.bfloat16)
+                if not torch.equal(fa.flash_attention(q, k, v, causal=causal), parent.flash_attention(q, k, v, causal)):
+                    fail(f"flash_attention bf16 dh={dh} causal={causal}: differs from the parent's build")
+        print("  flash_attention bf16 at dh 16, 32, 64, 128, causal and not: bitwise equal to the parent's build",
+              flush=True)
+
+    # ssd_chunk's gradient at the phase-7 shape (mamba2-1.3b, one group)
+    SB, SL, SH, SHD, SDS = 8, 256, 64, 64, 128
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        x = F.silu(torch.randn(SB, SL, SH, SHD, generator=gen, device=dev)).to(tdt)
+        bg = F.silu(torch.randn(SB, SL, 1, SDS, generator=gen, device=dev)).to(tdt)
+        cg = F.silu(torch.randn(SB, SL, 1, SDS, generator=gen, device=dev)).to(tdt)
+        dt = F.softplus(torch.randn(SB, SL, SH, generator=gen, device=dev))
+        a = -torch.exp(0.5 * torch.randn(SH, generator=gen, device=dev))
+        ups = (torch.randn(SB, SL, SH, SHD, generator=gen, device=dev), torch.randn(SB, SH, SHD, SDS, generator=gen,
+               device=dev), torch.randn(SB, SH, generator=gen, device=dev))
+
+        def run(fn):
+            return lambda x_, b_, c_, dt_, a_: fn(x_, b_.expand(SB, SL, SH, SDS), c_.expand(SB, SL, SH, SDS), dt_, a_)
+
+        outs, g = grads_through(torch, run(ss.ssd_chunk), (x, bg, cg, dt, a), ups)
+        outs_p, g_p = grads_through(torch, run(ss.ssd_chunk_plain), (x, bg, cg, dt, a), ups)
+        if any(o.grad_fn is None for o in outs):
+            fail(f"ssd_chunk {dtype}: an output has no grad_fn")
+        # the gradients pass the forward's outputs (into the hundreds) back
+        # through exp and sums of 256 terms: held to 1e-4 of their largest,
+        # the reference's own SSD tolerance, in both dtypes (bf16 inputs are
+        # upcast exactly; every product is f32)
+        err = rel_err(g, g_p)
+        print(f"  ssd_chunk gradient B={SB} L={SL} H={SH} hd={SHD} ds={SDS} {dtype}: dx, dB, dC, ddt, da "
+              f"error / max |grad| {err:.3e} (tol 1e-4) {'ok' if err <= 1e-4 else 'FAIL'}", flush=True)
+        if err > 1e-4:
+            fail(f"ssd_chunk {dtype}: the gradient disagrees with the plain version's autograd")
+        del x, bg, cg, dt, a, outs, g, outs_p, g_p
+
+    # the serving kernels refuse an input that requires grad
+    q = torch.randn(2, 4, 64, device=dev, requires_grad=True)
+    kc = torch.randn(2, 8, 2, 64, device=dev)
+    lengths = torch.tensor([3, 8], dtype=torch.int32, device=dev)
+    pool = torch.randn(5, 4, 2, 64, device=dev)
+    tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=dev)
+    desc = torch.tensor([[0, 0, 3, 3], [1, 0, 2, 2]], dtype=torch.int32, device=dev)
+    calls = {
+        "flash_decode": lambda: da.decode_attention(q, kc, kc, lengths),
+        "paged_decode": lambda: da.paged_decode_attention(q, pool, pool, tables, lengths),
+        "mixed_prefill": lambda: cp.mixed_prefill_attention(torch.randn(2, 3, 4, 64, device=dev, requires_grad=True),
+                                                            pool, pool, tables, desc),
+        "retrieval_topk": lambda: rt.retrieval_topk(torch.randn(3, 64, device=dev, requires_grad=True),
+                                                    torch.randn(20, 64, device=dev), 4),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            fail(f"{name}: an input that requires grad did not raise")
+    print(f"  {', '.join(calls)}: an input that requires grad raises", flush=True)
 
 
 def print_row(name: str, row: dict) -> None:
@@ -1793,6 +2005,425 @@ def moe_phase(torch, smi: str, cold: list) -> list[dict]:
     return runs
 
 
+# --------------------------------------------------------------------- #
+# phases 13-16: training, HuBERT, pixtral's patches, federated F_emb
+# --------------------------------------------------------------------- #
+
+
+def peak_line(torch, smi: str) -> str:
+    return (f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
+            f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} [{smi}]")
+
+
+def check_grads(torch, name: str, grads) -> None:
+    """Fail unless every leaf of a gradient tree is finite and non-zero."""
+    from repro_torch.models.params import leaves
+
+    bad = [path for path, g in leaves(grads) if not bool(torch.isfinite(g).all())]
+    zero = [path for path, g in leaves(grads) if not bool((g != 0).any())]
+    if bad or zero:
+        fail(f"{name}: gradient leaves non-finite {bad}, all zero {zero}")
+
+
+def timed_step(torch, cfg, opt, params, state, batch, lr: float):
+    """One train step as ``make_train_step`` runs it (``steps.value_and_grad``
+    of the family's loss, then the optimizer's update under ``no_grad``;
+    ``bf16_grads`` is off in every config trained here), timed in three
+    synchronised parts: forward (the loss function, synchronised at its
+    end), backward (the rest of ``value_and_grad``), update.  Every leaf's
+    gradient must be finite and non-zero.  Returns (params, state, loss,
+    {part: seconds})."""
+    from repro_torch.runtime.steps import model_loss_fn, value_and_grad
+
+    loss_fn = model_loss_fn(cfg)
+    marks = {}
+
+    def timed_loss(p):
+        out = loss_fn(cfg, p, batch)
+        torch.cuda.synchronize()
+        marks["forward"] = time.perf_counter()
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, grads = value_and_grad(timed_loss, params)
+    torch.cuda.synchronize()
+    times = {"forward": marks["forward"] - t0, "backward": time.perf_counter() - marks["forward"]}
+    check_grads(torch, cfg.name, grads)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params, state, _ = opt.update(grads, state, params, lr)
+    torch.cuda.synchronize()
+    times["update"] = time.perf_counter() - t0
+    return params, state, float(loss), times
+
+
+def train_phase(torch, smi: str) -> list[dict]:
+    """[13] qwen3-0.6b at full width through ``launch/train.py``'s
+    ``Trainer``: a straight run, a run killed at ``fail_at_step`` and
+    resumed with ``resume="auto"`` (losses equal at rel 1e-5); loss falling
+    over 4 AdamW steps on one repeated batch with every parameter leaf's
+    gradient finite and non-zero; mamba2-1.3b two steps on a repeated
+    batch."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LMBatchStream
+    from repro_torch.models import lm as LM
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.runtime.train_loop import SimulatedFailure, Trainer, TrainerConfig
+
+    free_device(torch)
+    cfg = get_config("qwen3-0.6b")  # bf16 activations, f32 master weights, remat="block"
+    steps, lr, batch, seq = 4, 3e-4, 8, 256
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    runs = []
+    try:
+        def trainer(tag, **kw):
+            tcfg = TrainerConfig(total_steps=steps, ckpt_dir=str(root / tag), **kw)
+            return Trainer(cfg, get_optimizer("adamw"), LMBatchStream(batch, seq, cfg.vocab_size, seed=SEED), tcfg,
+                           lr_fn=lambda s: lr, device="cuda")
+
+        torch.cuda.reset_peak_memory_stats()
+        straight = trainer("straight", ckpt_every=steps)
+        reset_launches()
+        t0 = time.perf_counter()
+        straight.run(resume="never", seed=SEED)
+        wall = time.perf_counter() - t0
+        runs.append(read_launches("the straight training run", ("flash_attention",)))
+        n_blocks_run = cfg.n_blocks * steps
+        if runs[-1]["flash_attention"] < 2 * n_blocks_run:
+            fail(f"flash_attention launched {runs[-1]['flash_attention']} times in {steps} steps of {cfg.n_blocks} "
+                 f"layers: fewer than forward + remat recompute ({2 * n_blocks_run})")
+        losses = [m["loss"] for m in straight.metrics_log]
+        norms = [m["grad_norm"] for m in straight.metrics_log]
+        step_s = straight.step_times
+        print(f"  qwen3-0.6b full width ({param_count(LM.param_specs(cfg)) / 1e9:.3f} B parameters, f32 master "
+              f"weights and AdamW moments, bf16 activations, remat per block), batch {batch} x {seq}, lr {lr:g}: "
+              f"losses {[round(x, 4) for x in losses]}, step seconds {[round(x, 3) for x in step_s]} (median after "
+              f"the first {statistics.median(step_s[1:]):.3f} s), {wall:.1f} s with one checkpoint; "
+              f"flash_attention launches {runs[-1]['flash_attention']} = forward + remat recompute of "
+              f"{cfg.n_blocks} layers x {steps} steps; gradient norms {[round(g, 4) for g in norms]}; "
+              f"{peak_line(torch, smi)}", flush=True)
+        if not all(np.isfinite(losses)) or not all(math.isfinite(g) and g > 0 for g in norms):
+            fail(f"qwen3-0.6b training: losses {losses}, gradient norms {norms} (finite, norms positive)")
+        shutil.rmtree(root / "straight", ignore_errors=True)
+
+        crashed = trainer("crash", ckpt_every=2, fail_at_step=3)
+        try:
+            crashed.run(resume="never", seed=SEED)
+            fail("the run with fail_at_step=3 did not fail")
+        except SimulatedFailure as e:
+            print(f"  killed: {e} (the last checkpoint at step {crashed.ckpt.latest_step()})", flush=True)
+        t0 = time.perf_counter()
+        resumed = trainer("crash", ckpt_every=2)
+        resumed.run(resume="auto", seed=SEED)
+        got = {m["step"]: m["loss"] for m in crashed.metrics_log + resumed.metrics_log}
+        print(f"  resumed at step {resumed.metrics_log[0]['step']} in {time.perf_counter() - t0:.1f} s (restore "
+              f"included): losses {[round(got[i], 4) for i in range(steps)]}", flush=True)
+        for i, want in enumerate(losses):
+            if not math.isclose(got[i], want, rel_tol=1e-5):
+                fail(f"step {i}: resumed loss {got[i]} != the straight run's {want} (rel 1e-5)")
+        print("  resumed losses equal the straight run's at rel 1e-5", flush=True)
+        del straight, crashed, resumed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_device(torch)
+
+    # loss falls over 4 steps on one repeated batch; every leaf's gradient
+    # finite and non-zero; each step split into forward / backward / update
+    opt = get_optimizer("adamw")
+    params = init_params(LM.param_specs(cfg), torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    state = opt.init(params)
+    one = {k: torch.as_tensor(v, device="cuda") for k, v in LMBatchStream(batch, seq, cfg.vocab_size, seed=SEED + 1)
+           .next().items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, parts = [], []
+    for _ in range(4):
+        params, state, loss, t = timed_step(torch, cfg, opt, params, state, one, lr)
+        losses.append(loss)
+        parts.append(t)
+    runs.append(read_launches("four steps on one repeated batch", ("flash_attention",)))
+    mean = {k: statistics.median(p[k] for p in parts[1:]) for k in parts[0]}
+    total = sum(mean.values())
+    print(f"  one repeated batch, lr {lr:g}: losses {[round(x, 4) for x in losses]}; every leaf's gradient finite "
+          f"and non-zero; step {total:.3f} s (median of steps 2-4): forward {mean['forward']:.3f} s, backward "
+          f"{mean['backward']:.3f} s ({mean['backward'] / total:.1%}), update {mean['update']:.3f} s; "
+          f"{peak_line(torch, smi)}", flush=True)
+    if not losses[-1] < losses[0]:
+        fail(f"qwen3-0.6b loss does not fall over 4 steps on one batch: {losses}")
+    del params, state, one
+    free_device(torch)
+
+    # mamba2-1.3b: two steps on a repeated batch, through ssd_chunk
+    mcfg = get_config("mamba2-1.3b")
+    params = init_params(LM.param_specs(mcfg), torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    state = opt.init(params)
+    one = {k: torch.as_tensor(v, device="cuda") for k, v in LMBatchStream(batch, seq, mcfg.vocab_size, seed=SEED)
+           .next().items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, parts = [], []
+    for _ in range(2):
+        params, state, loss, t = timed_step(torch, mcfg, opt, params, state, one, lr)
+        losses.append(loss)
+        parts.append(t)
+    runs.append(read_launches("two mamba2-1.3b steps", ("ssd_chunk",)))
+    print(f"  mamba2-1.3b full width ({param_count(LM.param_specs(mcfg)) / 1e9:.3f} B parameters), batch {batch} x "
+          f"{seq}: losses {[round(x, 4) for x in losses]}; every leaf's gradient finite and non-zero; second step "
+          f"forward {parts[1]['forward']:.3f} s, backward {parts[1]['backward']:.3f} s, update "
+          f"{parts[1]['update']:.3f} s; {peak_line(torch, smi)}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"mamba2-1.3b losses not finite: {losses}")
+    del params, state, one
+    free_device(torch)
+    return runs
+
+
+def hubert_phase(torch, smi: str) -> list[dict]:
+    """[14] hubert-xlarge at full width: ``encoder.loss_fn``, two train
+    steps with finite, falling loss, ``embed_corpus``; its first layer's
+    own q, k, v through head_dim-80 ``flash_attention`` against the plain
+    version, forward and gradient, bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import encoder as ENC
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import init_params, map_tree, param_count
+    from repro_torch.optim.optimizers import get_optimizer
+
+    free_device(torch)
+    cfg = get_config("hubert-xlarge")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(ENC.param_specs(cfg), gen, device="cuda")
+    b, sl, lr = 4, 256, 1e-4
+    batch = {
+        "frames": torch.randn(b, sl, cfg.d_model, generator=gen, device="cuda"),
+        "mask": torch.rand(b, sl, generator=gen, device="cuda") < 0.3,
+        "targets": torch.randint(0, cfg.vocab_size, (b, sl), generator=gen, device="cuda"),
+    }
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with torch.no_grad():
+        loss0, metrics = ENC.loss_fn(cfg, params, batch)
+    opt = get_optimizer("adamw")
+    state = opt.init(params)
+    losses, times = [], []
+    for _ in range(2):  # make_train_step's value_and_grad and update, timed in parts, every leaf checked
+        params, state, loss, t = timed_step(torch, cfg, opt, params, state, batch, lr)
+        losses.append(loss)
+        times.append(t)
+    with torch.no_grad():
+        loss2, _ = ENC.loss_fn(cfg, params, batch)
+        emb = ENC.embed_corpus(cfg, params, batch["frames"])
+    torch.cuda.synchronize()
+    runs = [read_launches("the hubert-xlarge loss, train steps and embed_corpus", ("flash_attention",))]
+    print(f"  hubert-xlarge full width ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+          f"{param_count(ENC.param_specs(cfg)) / 1e9:.3f} B parameters), frames {b} x {sl}, mask rate 0.3 "
+          f"({int(metrics['tokens'])} masked): loss_fn {float(loss0):.4f}; AdamW lr {lr:g} steps: losses "
+          f"{[round(x, 4) for x in losses]}, then {float(loss2):.4f}; every leaf's gradient finite and non-zero; "
+          f"second step forward {times[1]['forward']:.3f} s, backward {times[1]['backward']:.3f} s, update "
+          f"{times[1]['update']:.3f} s; embed_corpus {tuple(emb.shape)}; {peak_line(torch, smi)}", flush=True)
+    if not (all(math.isfinite(x) for x in losses + [float(loss2)]) and float(loss2) < losses[0]
+            and losses[1] < losses[0]):
+        fail(f"hubert-xlarge losses not finite and falling: {losses}, then {float(loss2)}")
+    if tuple(emb.shape) != (b, cfg.d_model) or not bool(torch.isfinite(emb).all()):
+        fail(f"hubert embed_corpus: shape {tuple(emb.shape)}, finite {bool(torch.isfinite(emb).all())}")
+
+    # the first layer's own q, k, v (bf16, head_dim 80) through the kernel and the plain version
+    p0 = map_tree(lambda t: t[0], params["blocks"])
+    with torch.no_grad():
+        h = torch.where(batch["mask"][..., None], params["mask_embed"].to(torch.bfloat16),
+                        batch["frames"].to(torch.bfloat16))
+        x = L.rmsnorm(h, p0["mixer_norm"], cfg.norm_eps)
+        q, k, v = L.attn_qkv(cfg, p0["attn"], x, torch.arange(sl, device=x.device)[None].expand(b, sl))
+    up = (torch.randn(q.shape, generator=gen, device="cuda"),)
+    (o,), g = grads_through(torch, lambda *t: fa.flash_attention(*t, causal=False), (q, k, v), up)
+    (o_p,), g_p = grads_through(torch, lambda *t: fa.flash_attention_plain(*t, causal=False), (q, k, v), up)
+    check("hubert layer 0 q, k, v (B=4 S=256 H=KV=16 dh=80 non-causal bf16) forward, error / max |out|",
+          rel_err([o], [o_p]), "bfloat16")
+    check("hubert layer 0 dq, dk, dv, error / max |grad|", rel_err(g, g_p), "bfloat16")
+    del params, state, batch, emb, q, k, v, o, o_p, g, g_p
+    free_device(torch)
+    return runs
+
+
+def pixtral_phase(torch, smi: str) -> list[dict]:
+    """[15] pixtral-12b at full width with 64 patch embeddings: forward and
+    prefill (logits equal), other patches change the logits, ``generate``
+    takes 8 tokens."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm as LM
+    from repro_torch.models.params import init_params, param_bytes, param_count
+
+    free_device(torch)
+    cfg = get_config("pixtral-12b")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(LM.param_specs(cfg), gen, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  built pixtral-12b ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+          f"of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, untied; "
+          f"{param_count(LM.param_specs(cfg)) / 1e9:.3f} B parameters, {param_bytes(LM.param_specs(cfg)) / 1e9:.2f} "
+          f"GB f32) in {time.perf_counter() - t0:.1f} s; resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    b, sl = 2, 256
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(8, cfg.vocab_size, size=(b, sl)).astype(np.int32), device="cuda")
+    pe = (0.02 * torch.randn(b, cfg.n_patches, cfg.d_model, generator=gen, device="cuda")).to(torch.bfloat16)
+    batch = {"tokens": tokens, "patch_embeds": pe}
+    reset_launches()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, _ = LM.forward(cfg, params, batch)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        pre, cache = LM.prefill(cfg, params, batch)
+        del cache
+        other, _ = LM.forward(cfg, params, dict(batch, patch_embeds=pe + 0.02))
+        t0 = time.perf_counter()
+        out = LM.generate(cfg, params, batch, 8)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+    runs = [read_launches("pixtral-12b forward, prefill and generate", ("flash_attention", "flash_decode"))]
+    diff = float((other - logits).abs().max())
+    print(f"  pixtral-12b B={b} S={sl}, {cfg.n_patches} patch embeddings: forward {t_fwd:.3f} s, logits "
+          f"{tuple(logits.shape)} finite {bool(torch.isfinite(logits).all())}; prefill logits equal forward's: "
+          f"{torch.equal(pre, logits)} (max diff {float((pre - logits).abs().max()):.3e}); other patches move the "
+          f"logits by {diff:.3e}; generate 8 tokens {out.tolist()} in {t_gen:.3f} s; {peak_line(torch, smi)}",
+          flush=True)
+    if tuple(logits.shape) != (b, sl, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        fail("pixtral-12b logits: wrong shape or not finite")
+    if not torch.equal(pre, logits):
+        fail("pixtral-12b prefill's logits differ from forward's")
+    if diff <= 1e-3:
+        fail("pixtral-12b: the patch embeddings do not reach the logits")
+    if tuple(out.shape) != (b, 8) or bool(((out < 0) | (out >= cfg.vocab_size)).any()):
+        fail(f"pixtral-12b generate: {tuple(out.shape)}, tokens outside the vocabulary")
+    del params, logits, pre, other, out
+    free_device(torch)
+    return runs
+
+
+def fedembed_phase(torch, smi: str) -> list[dict]:
+    """[16] the paper's §2.2: ``federated_train_embedder`` over the phase-4
+    federation's two providers (sites), contriever-110m at full width as
+    F_emb; 3 rounds secure and 3 plain from the same weights (mean-loss
+    trajectories equal at rtol 1e-4, the loss falling); one ``rank_loss``
+    step of bge-reranker-base."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.federated import federated_train_embedder
+    from repro_torch.data.corpus import make_federated_corpus
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.models import cross_encoder as CE
+    from repro_torch.models import dual_encoder as DE
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.optim.optimizers import clip_by_global_norm
+    from repro_torch.runtime.steps import value_and_grad
+
+    free_device(torch)
+    tok = HashTokenizer()
+    # the phase-4 corpus (128 facts, 128 distractors), a question per fact
+    corpus = make_federated_corpus(n_facts=128, n_distractors=128, n_queries=128, seed=SEED)
+    chunks = {c.chunk_id: c for c in corpus.chunks}
+    n_pairs, max_len, lr = 16, 40, 0.5
+    clients = []
+    for site in (0, 1):
+        qs = [q for q in corpus.queries if chunks[q.gold_chunk_id].site == site][:n_pairs]
+        clients.append({
+            "query_tokens": torch.as_tensor(np.stack([tok.encode(q.text, max_len=max_len) for q in qs]), device="cuda"),
+            "doc_tokens": torch.as_tensor(np.stack([tok.encode(chunks[q.gold_chunk_id].text, max_len=max_len)
+                                                    for q in qs]), device="cuda"),
+        })
+    cfg = get_config("contriever-110m").with_overrides(dtype="float32")
+    init = init_params(DE.param_specs(cfg), torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+
+    def grad_fn(params, batch):
+        loss, _, grads = value_and_grad(lambda p: DE.info_nce_loss(cfg, p, batch), params)
+        return float(loss), grads
+
+    def apply_update(params, grads):  # SGD on the clipped gradient
+        with torch.no_grad():
+            return _sgd(params, clip_by_global_norm(grads, 1.0)[0], lr)
+
+    torch.cuda.reset_peak_memory_stats()
+    hist, runs = {}, []
+    for secure in (True, False):
+        reset_launches()
+        t0 = time.perf_counter()
+        _, h = federated_train_embedder(init, [lambda r, b=b: b for b in clients], grad_fn, apply_update, n_rounds=3,
+                                        secure=secure)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append(read_launches(f"3 federated rounds, secure={secure}", ("flash_attention",)))
+        hist[secure] = h
+        print(f"  federated F_emb, contriever-110m full width f32 ({param_count(DE.param_specs(cfg)) / 1e6:.1f} M "
+              f"parameters), 2 providers x {n_pairs} (query, gold chunk) pairs x {max_len} tokens, clipped SGD lr "
+              f"{lr:g}, secure={secure}: mean loss by round {[round(r['mean_loss'], 6) for r in h]}; update exchange "
+              f"{[round(r['exchange_s'], 3) for r in h]} s host time by round; {wall:.1f} s in all", flush=True)
+    sec, plain = ([r["mean_loss"] for r in hist[s]] for s in (True, False))
+    if not all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(sec, plain)):
+        fail(f"secure and plain federated trajectories differ: {sec} vs {plain}")
+    if not (sec[-1] < sec[0] and plain[-1] < plain[0]):
+        fail(f"the federated InfoNCE loss does not fall: {sec}, {plain}")
+    n_par = param_count(DE.param_specs(cfg))
+    ex = [r["exchange_s"] for r in hist[True]]
+    print(f"  secure == plain trajectories at rtol 1e-4, loss falling; the masked exchange of {n_par / 1e6:.1f} M "
+          f"parameters (f64 -> fixed point uint64 mod 2^62, one pair mask per client, 2 clients) took "
+          f"{statistics.median(ex):.3f} s of host time per round (median; plain "
+          f"{statistics.median(r['exchange_s'] for r in hist[False]):.3f} s); {peak_line(torch, smi)}", flush=True)
+    del init
+
+    # one rank_loss step of bge-reranker-base (F_aggr): each query's gold
+    # chunk among 4 candidates of its provider
+    rcfg = get_config("bge-reranker-base")
+    rparams = init_params(CE.param_specs(rcfg), torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    site0 = [c for c in corpus.chunks if c.site == 0]
+    qs = [q for q in corpus.queries if chunks[q.gold_chunk_id].site == 0][:8]
+    toks, types = [], []
+    for i, q in enumerate(qs):
+        others = [c for c in site0 if c.chunk_id != q.gold_chunk_id]
+        cands = [chunks[q.gold_chunk_id]] + others[3 * i: 3 * i + 3]
+        t, ty = CE._pack_pairs(tok.encode(q.text, max_len=24), np.stack([tok.encode(c.text, max_len=max_len)
+                                                                          for c in cands]), 64)
+        toks.append(t)
+        types.append(ty)
+    rbatch = {"tokens": torch.as_tensor(np.stack(toks), device="cuda"),
+              "type_ids": torch.as_tensor(np.stack(types), device="cuda"),
+              "label": torch.zeros(len(qs), dtype=torch.int32, device="cuda")}
+    reset_launches()
+    loss, metrics, grads = value_and_grad(lambda p: CE.rank_loss(rcfg, p, rbatch), rparams)
+    with torch.no_grad():
+        rparams = _sgd(rparams, clip_by_global_norm(grads, 1.0)[0], lr)
+        loss2, _ = CE.rank_loss(rcfg, rparams, rbatch)
+    runs.append(read_launches("the rank_loss step", ("flash_attention",)))
+    print(f"  bge-reranker-base full width bf16, {len(qs)} queries x 4 candidates x 64 tokens: rank_loss "
+          f"{float(loss):.4f} (acc {float(metrics['acc']):.3f}), after one clipped SGD step {float(loss2):.4f}",
+          flush=True)
+    if not (math.isfinite(float(loss)) and math.isfinite(float(loss2))):
+        fail("bge-reranker-base rank_loss not finite")
+    del rparams, grads
+    free_device(torch)
+    return runs
+
+
+def _sgd(params, grads, lr: float):
+    from repro_torch.models.params import map_tree
+
+    return map_tree(lambda p, g: p - lr * g, params, grads)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", help="a directory holding an earlier commit's six kernel sources (csrc/*.cu), "
@@ -1844,8 +2475,10 @@ def main() -> int:
     def phase(title: str, fn, *args):
         print(title, flush=True)
         t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
         out = fn(torch, smi, *args)
-        print(f"  {title.split()[0]} took {time.perf_counter() - t:.1f} s", flush=True)
+        print(f"  {title.split()[0]} took {time.perf_counter() - t:.1f} s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
         return out
 
     launches, cold = phase("[4] end to end: paged engine, bag embedder", paged_phase)
@@ -1859,6 +2492,11 @@ def main() -> int:
     runs += phase("[11] speculative decoding: self-speculation, qwen3-4b with a qwen3-0.6b drafter", spec_phase,
                   cold, timer, rows)
     runs += phase("[12] the MoE family: qwen2-moe-a2.7b at full width, paged and contiguous", moe_phase, cold)
+    runs += phase("[13] training: qwen3-0.6b at full width through the Trainer, crash and resume; mamba2-1.3b",
+                  train_phase)
+    runs += phase("[14] hubert-xlarge at full width: masked prediction, head_dim 80", hubert_phase)
+    runs += phase("[15] pixtral-12b at full width: the patch frontend", pixtral_phase)
+    runs += phase("[16] federated F_emb (paper section 2.2): secure aggregation, contriever-110m", fedembed_phase)
 
     meta = {
         "retrieval_topk": ("src/repro_torch/kernels/csrc/retrieval_topk.cu", "src/repro/kernels/retrieval_topk/kernel.py:105"),
@@ -1872,7 +2510,7 @@ def main() -> int:
     # embeddings; bf16 activations, KV pool and encoders) and, for
     # flash_attention, its largest path shape (the rerank), with the
     # further path shapes beside it; launches are summed over the
-    # main-path runs of phases 4-12
+    # main-path runs of phases 4-16
     path_row = {
         "retrieval_topk": ("retrieval_topk", "float32"), "mixed_prefill": ("mixed_prefill", "bfloat16"),
         "paged_decode": ("paged_decode", "bfloat16"), "flash_attention": ("flash_attention", "bfloat16", "rerank"),
@@ -1889,12 +2527,17 @@ def main() -> int:
             **{k: row[k] for k in ("combine_err", "max_rel_err", "parent_ms") if row.get(k) is not None},
         })
         # the prefix cache's warm-admission shape, the first verify dispatch,
-        # and qwen2-moe's heads (one query head per KV head), beside the path row
-        for tag, key in (("warm_admission", "warm"), ("verify", "verify"), ("one_head_per_kv_head", "G=1")):
+        # qwen2-moe's heads (one query head per KV head), HuBERT's head_dim
+        # 80 and the training backward (plain recompute; fwd_ms the forward
+        # kernel at its shape), beside the path row
+        for tag, key in (("warm_admission", "warm"), ("verify", "verify"), ("one_head_per_kv_head", "G=1"),
+                         ("head_dim_80", "dh80"), ("backward_train", "backward train"),
+                         ("backward_hubert", "backward hubert"), ("backward_contriever", "backward contriever")):
             extra = rows.get((name, "bfloat16", key))
             if extra is not None:
                 kernels[-1][tag] = {k: extra[k] for k in (
-                    "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "fwd_ms")
+                    if k in extra}
     if any(not math.isfinite(k["ms"]) for k in kernels):
         fail("a kernel time is not finite")
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -53,9 +53,9 @@ SIGNATURES = {
         "paged_decode_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     },
     "flash_attention": {
-        # q, k, v, out, b, sq, sk, h, kv, dh, q strides (batch, seq, head),
-        # k strides, v strides, causal, is_bf16, stream
-        "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, L, L, L, I, I, P],
+        # q, k, v, out, b, sq, sk, h, kv, dh, scale_dh, q strides (batch,
+        # seq, head), k strides, v strides, causal, is_bf16, stream
+        "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, I, L, L, L, L, L, L, L, L, L, I, I, P],
     },
     "flash_decode": {
         # q, k_cache, v_cache, lengths, out, o, m, l, o_part, m_part,
@@ -160,3 +160,20 @@ def aligned16(t) -> bool:
     es = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(st * es % 16 == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd is recording and one of ``tensors`` requires grad
+    (non-tensor arguments are skipped)."""
+    import torch
+
+    return torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through ``what``, a
+    serving kernel with no backward: its output, written by the kernel,
+    would carry no graph, and the inputs' gradients would be dropped
+    silently."""
+    if needs_grad(*tensors):
+        raise RuntimeError(f"{what}: an input requires grad, and this kernel has no backward (serving only)")

@@ -10,6 +10,9 @@ Descriptor contract (one row per ``desc[r] = (slot, q_start, q_len,
 kv_len)``): lane ``j`` of row ``r`` attends pool position ``kpos`` of
 ``block_tables[slot]`` iff ``kpos <= q_start + j`` and ``kpos < kv_len``;
 lanes ``j >= q_len`` output exactly 0.
+
+Serving only: an input that requires grad under grad mode raises, since
+the kernel has no backward and would cut the autograd graph silently.
 """
 from __future__ import annotations
 
@@ -59,6 +62,7 @@ def mixed_prefill_attention_plain(q, k_pool, v_pool, block_tables, desc):
 def mixed_prefill_attention(q, k_pool, v_pool, block_tables, desc):
     """Ragged mixed prefill/decode attention through a block table (see
     the module docstring for the descriptor contract)."""
+    _build.refuse_grad("mixed_prefill_attention", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return mixed_prefill_attention_plain(q, k_pool, v_pool, block_tables, desc)
     if q.device.type != "cuda":

@@ -10,7 +10,12 @@
 // encoders' non-causal attention (cross encoder: 256 pairs x 64 tokens;
 // dual encoder: a provider's chunks x 40 tokens; head_dim 64, G = 1) and
 // the contiguous engine's causal admit prefill (qwen3-0.6b: 16 / 8 heads,
-// head_dim 128, G = 2).
+// head_dim 128, G = 2); in training, the same shapes' causal forward
+// (and its recompute under remat), and HuBERT's non-causal head_dim 80,
+// which the wrapper pads with zero columns to 128 and scales by 1/sqrt(80)
+// (scale_dh).  The backward is not a kernel: the wrapper's autograd
+// Function recomputes the plain version, as the reference differentiates
+// its XLA attention.
 //
 // What bounds it on an H100: at these shapes the bytes (q, k, v read
 // once, the output written once) and the FLOPs (4 * head_dim per visible
@@ -120,7 +125,7 @@ flash_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 template <int DH>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int b, int sq,
                         int sk, int h, int kv, Strides qs, Strides ks, Strides vs, int causal,
-                        cudaStream_t st) {
+                        int scale_dh, cudaStream_t st) {
   const size_t smem = repro::attn::Tile<DH>::SMEM;
   static size_t allowed = 0;
   cudaError_t e = repro::allow_smem(flash_attention_bf16<DH>, smem, allowed);
@@ -129,7 +134,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
   flash_attention_bf16<DH><<<b * n_qt * kv, kWgThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), b, sq, sk, h, kv, n_qt,
-      qs, ks, vs, causal, 1.4426950408889634f / sqrtf((float)DH));
+      qs, ks, vs, causal, 1.4426950408889634f / sqrtf((float)scale_dh));
   return cudaGetLastError();
 }
 
@@ -254,7 +259,7 @@ flash_attention(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int sq, int sk,
-                   int h, int kv, Strides qs, Strides ks, Strides vs, int causal,
+                   int h, int kv, Strides qs, Strides ks, Strides vs, int causal, int scale_dh,
                    cudaStream_t st) {
   const size_t smem = smem_bytes<DH>();
   static size_t allowed = 0;
@@ -265,7 +270,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   flash_attention<T, DH><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), sq, sk, h, kv, n_qt, qs, ks, vs, causal,
-      1.0f / sqrtf((float)DH));
+      1.0f / sqrtf((float)scale_dh));
   return cudaGetLastError();
 }
 
@@ -276,9 +281,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
 // out (b, sq, h, dh) contiguous.  q, k, v and out share one dtype (f32 or
 // bf16).  dh in {16, 32, 64, 128}; h % kv == 0; b, sq >= 1.  bf16: every
 // pointer 16-byte aligned and every stride a multiple of 8 elements (the
-// 16-byte copies).
+// 16-byte copies).  The softmax scale is 1 / sqrt(scale_dh): scale_dh is dh
+// itself, or the true head_dim of inputs the wrapper padded with zero
+// columns up to dh (HuBERT's 80 runs as 128).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int b, int sq, int sk, int h, int kv, int dh,
+                                      int b, int sq, int sk, int h, int kv, int dh, int scale_dh,
                                       long long q_sb, long long q_ss, long long q_sh,
                                       long long k_sb, long long k_ss, long long k_sh,
                                       long long v_sb, long long v_ss, long long v_sh,
@@ -287,7 +294,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   return (int)repro::with_head_dim(dh, [&](auto d) {
     constexpr int DH = decltype(d)::value;
-    return is_bf16 ? launch_bf16<DH>(q, k, v, out, b, sq, sk, h, kv, qs, ks, vs, causal, st)
-                   : launch<float, DH>(q, k, v, out, b, sq, sk, h, kv, qs, ks, vs, causal, st);
+    return is_bf16 ? launch_bf16<DH>(q, k, v, out, b, sq, sk, h, kv, qs, ks, vs, causal, scale_dh, st)
+                   : launch<float, DH>(q, k, v, out, b, sq, sk, h, kv, qs, ks, vs, causal, scale_dh, st);
   });
 }

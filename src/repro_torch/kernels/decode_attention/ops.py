@@ -13,6 +13,9 @@ partials of disjoint cache shards.
 Both kernels split each row's positions over blocks of ``SPLIT`` (one
 body, ``kernels/csrc/decode_split.cuh``) and merge the splits' f32
 partials in a second launch, into scratch the wrappers allocate.
+
+Serving only: an input that requires grad under grad mode raises, since
+the kernel has no backward and would cut the autograd graph silently.
 """
 from __future__ import annotations
 
@@ -93,6 +96,7 @@ def decode_attention(q, k_cache, v_cache, lengths, return_partials: bool = False
     read in place through their batch / sequence / head strides when
     head_dim is contiguous and the pointer and strides are 16-byte
     multiples, else from a contiguous copy."""
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths, return_partials)
     if q.device.type != "cuda":
@@ -144,6 +148,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     """Single-token attention through a block table over a shared KV pool.
     A row with ``lengths[b] == 0`` gives 0 (the plain version gives mean(V)
     over the table's span, as ``decode_attention_plain``)."""
+    _build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths)
     if q.device.type != "cuda":

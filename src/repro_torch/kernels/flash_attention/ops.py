@@ -6,7 +6,17 @@
 ``flash_attention_plain`` for CPU tensors; anything else raises.
 ``launches`` counts kernel launches.  Query position ``i`` sees key
 position ``j`` iff the call is non-causal or ``i >= j`` (top-left
-aligned); query head ``h`` reads KV head ``h // (H // KV)``.
+aligned); query head ``h`` reads KV head ``h // (H // KV)``.  The kernel
+takes head_dim 16, 32, 64 and 128; a smaller head_dim (HuBERT's 80) is
+padded with zero columns to the next of them, its scale kept at
+``1 / sqrt(head_dim)``.
+
+Gradients: when an input requires grad under grad mode, the call goes
+through ``FlashAttention``, an autograd Function whose forward is the
+kernel (the plain version on the CPU) and whose backward recomputes
+``flash_attention_plain`` from the saved q, k, v and differentiates it.
+The reference has no backward kernel either: it differentiates its XLA
+attention.
 """
 from __future__ import annotations
 
@@ -14,6 +24,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
@@ -48,12 +59,15 @@ def _in_place(t) -> bool:
     return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
-    """Full-sequence attention.  A non-zero ``q_offset`` raises: the
-    kernel serves whole-sequence prefill and the encoders, and decode goes
-    through ``layers.attn_decode``."""
-    if q_offset:
-        raise ValueError(f"flash_attention: q_offset={q_offset}; only full-sequence attention (0) is supported")
+def _padded_head_dim(dh: int) -> int | None:
+    """The kernel's head_dim for inputs of head_dim ``dh``: ``dh`` itself,
+    else the next one up (the inputs padded with zero columns), None above
+    128."""
+    return next((d for d in _HEAD_DIMS if d >= dh), None)
+
+
+def _launch(q, k, v, causal: bool):
+    """The kernel on CUDA tensors (checked), the plain version on CPU ones."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
@@ -62,8 +76,9 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
     b, sq, h, dh = q.shape
     _, sk, kv, dh_k = k.shape
+    dh_run = _padded_head_dim(dh)
     if (
-        v.shape != k.shape or k.shape[0] != b or dh_k != dh or dh not in _HEAD_DIMS
+        v.shape != k.shape or k.shape[0] != b or dh_k != dh or dh_run is None or dh == 0
         or kv == 0 or h % kv
     ):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -72,20 +87,58 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     for t in (k, v):
         if t.device != q.device:
             raise ValueError(f"flash_attention: tensors on {q.device} and {t.device}")
+    if dh_run != dh:  # zero columns add nothing to q . k and give zero output columns
+        q, k, v = (F.pad(t, (0, dh_run - dh)) for t in (q, k, v))
     # read in place through the strides; only head_dim must be contiguous,
     # and for bf16 (16-byte copies) every pointer and stride 16-byte aligned
     # (a fresh copy: a contiguous view at an odd offset stays unaligned)
     q, k, v = (t if _in_place(t) else t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
-    out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, dh_run), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0:
-        return out
+        return out[..., :dh]
     lib = _build.load("flash_attention")
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kv, dh,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kv, dh_run, dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal), int(q.dtype == torch.bfloat16),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     _build.check(err, "flash_attention")
     global launches
     launches += 1
-    return out
+    return out[..., :dh]
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel forward; a backward that recomputes the plain version
+    (top-left causal, query head h reading KV head h // G, softmax in f32)
+    from the saved inputs and returns dq, dk, dv in their dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        wanted = [i for i in range(3) if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(i in wanted) for i, t in enumerate((q, k, v))]
+            out = flash_attention_plain(*leaves, causal=ctx.causal)
+            got = torch.autograd.grad(out, [leaves[i] for i in wanted], grad_out)
+        grads = [None, None, None]
+        for i, g in zip(wanted, got):
+            grads[i] = g
+        return (*grads, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
+    """Full-sequence attention.  A non-zero ``q_offset`` raises: the
+    kernel serves whole-sequence prefill, training and the encoders, and
+    decode goes through ``layers.attn_decode``."""
+    if q_offset:
+        raise ValueError(f"flash_attention: q_offset={q_offset}; only full-sequence attention (0) is supported")
+    if _build.needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal)
+    return _launch(q, k, v, causal)

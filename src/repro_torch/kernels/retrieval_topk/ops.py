@@ -5,6 +5,9 @@
 ``retrieval_topk_plain`` for CPU tensors; anything else raises.
 ``launches`` counts the calls that reach the card, one each (two kernel
 launches: the partial lists over splits of the corpus, then their merge).
+
+Serving only: an input that requires grad under grad mode raises, since
+the kernel has no backward and would cut the autograd graph silently.
 """
 from __future__ import annotations
 
@@ -58,6 +61,7 @@ def _rows16(t: torch.Tensor, d_pad: int) -> torch.Tensor:
 def retrieval_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int):
     """queries (Q, D), corpus (N, D) -> (scores (Q, k) f32, idx (Q, k) i32),
     sorted by score descending, ties to the smaller index."""
+    _build.refuse_grad("retrieval_topk", queries, corpus)
     if queries.device.type == "cpu" and corpus.device.type == "cpu":
         return retrieval_topk_plain(queries, corpus, k)
     if queries.device.type != "cuda" or corpus.device != queries.device:

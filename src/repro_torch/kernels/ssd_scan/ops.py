@@ -15,6 +15,12 @@ head), with ``cum`` the inclusive prefix sum of ``dt * a`` over the chunk:
 ``b`` and ``c`` carry one row per head; a single group shared by every
 head may come as an ``expand``ed view (head stride 0), which the kernel
 reads in place, computing ``C . B^T`` once for all the heads.
+
+Gradients: when an input requires grad under grad mode, the call goes
+through ``SSDChunk``, an autograd Function whose forward is the kernel
+(the plain version on the CPU) and whose backward recomputes
+``ssd_chunk_plain`` from the saved inputs and differentiates it (the
+reference differentiates its XLA scan; it has no backward kernel).
 """
 from __future__ import annotations
 
@@ -70,8 +76,40 @@ def _rows16(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
+class SSDChunk(torch.autograd.Function):
+    """The kernel forward; a backward that recomputes the plain version from
+    the saved x, b, c, dt, a and returns their gradients in their dtypes
+    (an expanded b or c gets the full per-head gradient, which the expand's
+    own backward sums over the heads)."""
+
+    @staticmethod
+    def forward(ctx, x, b, c, dt, a):
+        ctx.save_for_backward(x, b, c, dt, a)
+        return _launch(x, b, c, dt, a)
+
+    @staticmethod
+    def backward(ctx, gy, gst, gdec):
+        saved = ctx.saved_tensors
+        wanted = [i for i in range(5) if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(saved)]
+            outs = ssd_chunk_plain(*leaves)
+            got = torch.autograd.grad(outs, [leaves[i] for i in wanted], (gy, gst, gdec))
+        grads = [None] * 5
+        for i, g in zip(wanted, got):
+            grads[i] = g
+        return tuple(grads)
+
+
 def ssd_chunk(x, b, c, dt, a):
     """One chunk's SSD terms per (batch, head); see the module docstring."""
+    if _build.needs_grad(x, b, c, dt, a):
+        return SSDChunk.apply(x, b, c, dt, a)
+    return _launch(x, b, c, dt, a)
+
+
+def _launch(x, b, c, dt, a):
+    """The kernel on CUDA tensors (checked), the plain version on CPU ones."""
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, b, c, dt, a)
     if x.device.type != "cuda":

@@ -4,8 +4,8 @@ Takes a (query, chunk) token pair packed into one sequence and outputs a
 relevance score; the orchestrator scores all k_n x m candidates pairwise
 and keeps the global top-n (paper §2.3.2).  The layer stack is
 bidirectional, so its attention runs through ``kernels/flash_attention``;
-as in the reference, attention does not mask PAD keys.  Training
-(``rank_loss``) is not ported yet.
+as in the reference, attention does not mask PAD keys.  ``rank_loss``
+trains it (listwise softmax over each query's candidates).
 """
 from __future__ import annotations
 
@@ -85,3 +85,18 @@ def make_reranker(cfg: ModelConfig, params, *, max_len: int = 64):
 
     rerank.supports_batch = True
     return rerank
+
+
+def rank_loss(cfg: ModelConfig, params, batch):
+    """Listwise softmax ranking loss: one positive among each query's
+    ``n_cand`` candidates.  batch: ``tokens`` and ``type_ids`` (B, n_cand,
+    S), ``label`` (B,) the positive's index.  Returns ``(loss, {"loss",
+    "acc"})``."""
+    b, n, s = batch["tokens"].shape
+    scores = score_pairs(cfg, params, batch["tokens"].reshape(b * n, s),
+                         batch["type_ids"].reshape(b * n, s)).reshape(b, n)
+    logp = torch.log_softmax(scores, dim=-1)
+    label = batch["label"].long()
+    loss = -logp.gather(1, label[:, None]).mean()
+    acc = (scores.argmax(-1) == label).float().mean()
+    return loss, {"loss": loss, "acc": acc}

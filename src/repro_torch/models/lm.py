@@ -28,16 +28,25 @@ conv histories, "ssm": state}``, which has no sequence axis to page, so
 the paged steps (``mixed_step``, ``init_paged_cache``) take attention
 models only, as the reference's unified path does.
 
-The hybrid family and the patch frontend are not ported yet and raise
-``NotImplementedError``.  The encoders (``dual_encoder``,
-``cross_encoder``) declare their own trees with ``_stack_specs`` and run
-their layers through ``encoder_stack``.
+The ``vlm`` family is a dense backbone whose batch may carry
+``patch_embeds`` (B, n_patches, d): precomputed patch embeddings that
+replace the first positions' token embeddings in ``forward`` and
+``prefill`` (and so in ``generate``), as in the reference.  ``loss_fn`` is
+next-token cross-entropy (``sharded_ce``) plus the weighted MoE loss.
+With ``cfg.remat == "block"`` and grad mode on, ``forward`` runs each
+scan block under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint``): its activations are recomputed in the backward,
+through the same kernels.  The hybrid family is not ported yet and
+raises ``NotImplementedError``.  The encoders (``dual_encoder``,
+``cross_encoder``, ``encoder``) declare their own trees with
+``_stack_specs`` and run their layers through ``encoder_stack``.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -47,10 +56,10 @@ from repro_torch.models.params import ParamSpec, map_tree
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """Dense and MoE all-attention models and all-Mamba2 (``ssm``) models
-    are ported."""
+    """Dense (and ``vlm``) and MoE all-attention models and all-Mamba2
+    (``ssm``) models are ported."""
     attn = all(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
-    dense = cfg.family == "dense" and not cfg.n_experts
+    dense = cfg.family in ("dense", "vlm") and not cfg.n_experts
     if not ((attn and (dense or cfg.family == "moe")) or cfg.family == "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: only dense and MoE all-attention and all-Mamba2 models are ported so far "
@@ -185,11 +194,16 @@ def _ffn(cfg, pp, h):
     return h + L.mlp_apply(cfg, pp["mlp"], x), None
 
 
-def _embed_tokens(cfg: ModelConfig, params, tokens):
+def _embed_inputs(cfg: ModelConfig, params, batch):
+    """Token embeddings of ``batch["tokens"]``; with the patch frontend and
+    ``batch["patch_embeds"]`` (B, P, d), those P rows replace the first P
+    positions."""
     _check_ported(cfg)
-    if cfg.frontend == "patches":
-        raise NotImplementedError(f"{cfg.name}: the patch-embedding frontend is not ported yet")
-    return L.embed_apply(cfg, params["embed"], tokens)
+    h = L.embed_apply(cfg, params["embed"], batch["tokens"])
+    if cfg.frontend == "patches" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(h.dtype)
+        h = torch.cat([pe, h[:, pe.shape[1]:, :]], dim=1)
+    return h
 
 
 def _positions(shape, device):
@@ -197,28 +211,70 @@ def _positions(shape, device):
     return torch.arange(shape[1], device=device)[None, :].expand(shape[0], shape[1])
 
 
+def _block(cfg: ModelConfig, params, i: int, h, positions, aux):
+    """Scan block ``i`` (its ``scan_period`` layers) of the whole-sequence
+    pass -> (h, aux plus the block's MoE load-balance losses)."""
+    for j in range(cfg.scan_period):
+        pp = _layer_params(params, i, j)
+        x = L.rmsnorm(h, pp["mixer_norm"], cfg.norm_eps)
+        if cfg.family == "ssm":
+            o, _ = M.mamba_apply(cfg, pp["mamba"], x)
+        else:
+            o = L.attn_apply(cfg, pp["attn"], x, positions)
+        h, a = _ffn(cfg, pp, h + o)
+        if a is not None:
+            aux = aux + a
+    return h, aux
+
+
+def _remat(cfg: ModelConfig) -> bool:
+    """Whether blocks run under activation checkpointing: ``remat="block"``
+    and a graph being recorded."""
+    return cfg.remat == "block" and torch.is_grad_enabled()
+
+
 def forward(cfg: ModelConfig, params, batch):
-    """Full causal forward.  ``batch["tokens"]`` (B, S) -> ``(logits
-    (B, S, V), aux)``; ``aux`` is the MoE load-balance loss summed over the
-    MoE layers in f32 and divided by their count, 0 without experts."""
+    """Full causal forward.  ``batch["tokens"]`` (B, S), optionally
+    ``batch["patch_embeds"]`` -> ``(logits (B, S, V), aux)``; ``aux`` is the
+    MoE load-balance loss summed over the MoE layers in f32 and divided by
+    their count, 0 without experts."""
     tokens = batch["tokens"]
-    h = _embed_tokens(cfg, params, tokens)
+    h = _embed_inputs(cfg, params, batch)
     positions = _positions(tokens.shape, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    remat = _remat(cfg)
     for i in range(cfg.n_blocks):
-        for j in range(cfg.scan_period):
-            pp = _layer_params(params, i, j)
-            x = L.rmsnorm(h, pp["mixer_norm"], cfg.norm_eps)
-            if cfg.family == "ssm":
-                o, _ = M.mamba_apply(cfg, pp["mamba"], x)
-            else:
-                o = L.attn_apply(cfg, pp["attn"], x, positions)
-            h, a = _ffn(cfg, pp, h + o)
-            if a is not None:
-                aux = aux + a
+        if remat:
+            h, aux = checkpoint(_block, cfg, params, i, h, positions, aux, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            h, aux = _block(cfg, params, i, h, positions, aux)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers))
     return L.head_apply(cfg, params, h), aux / max(n_moe, 1)
+
+
+def sharded_ce(logits, targets, mask):
+    """Mean next-token cross-entropy in f32 over the positions where
+    ``mask`` is set; a target below 0 (masked) reads class 0.  The
+    reference's one-hot contraction picks the label logit exactly, as the
+    gather here does."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    label = torch.gather(lg, -1, torch.clamp(targets, min=0).long()[..., None])[..., 0]
+    return -((label - lse) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Next-token CE plus ``router_aux_weight`` times the MoE loss.  batch:
+    ``tokens`` (B, S), ``targets`` (B, S) with -1 masked.  Returns ``(loss,
+    {"ce", "aux", "tokens"})``."""
+    logits, aux = forward(cfg, params, batch)
+    targets = batch["targets"]
+    mask = (targets >= 0).float()
+    ce = sharded_ce(logits, targets, mask)
+    loss = ce + cfg.router_aux_weight * aux
+    return loss, {"ce": ce, "aux": aux, "tokens": mask.sum()}
 
 
 def prefill(cfg: ModelConfig, params, batch, cache_len: int | None = None):
@@ -227,7 +283,7 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int | None = None):
     prompt's K/V fill ``[0, S)``).  Returns ``(logits (B, S, V), cache)``."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    h = _embed_tokens(cfg, params, tokens)
+    h = _embed_inputs(cfg, params, batch)
     positions = _positions(tokens.shape, tokens.device)
     cache = init_cache(cfg, b, cache_len or s, dtype=L.torch_dtype(cfg.dtype), device=tokens.device)
     for i in range(cfg.n_blocks):
@@ -250,16 +306,26 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int | None = None):
     return L.head_apply(cfg, params, h), cache
 
 
+def _encoder_layer(cfg: ModelConfig, params, i: int, h, positions):
+    bp = map_tree(lambda t: t[i], params["blocks"])
+    x = L.rmsnorm(h, bp["mixer_norm"], cfg.norm_eps)
+    h = h + L.attn_apply(cfg, bp["attn"], x, positions, causal=False)
+    return _ffn(cfg, bp, h)[0]
+
+
 def encoder_stack(cfg: ModelConfig, params, h):
     """The encoders' bidirectional layer stack: ``params["blocks"]`` holds
     one layer's tree stacked over ``n_layers``.  h (B, S, d) -> final-normed
-    (B, S, d)."""
+    (B, S, d).  Each layer runs under activation checkpointing when
+    ``remat="block"`` and grad mode is on."""
     positions = _positions(h.shape, h.device)
+    remat = _remat(cfg)
     for i in range(cfg.n_layers):
-        bp = map_tree(lambda t: t[i], params["blocks"])
-        x = L.rmsnorm(h, bp["mixer_norm"], cfg.norm_eps)
-        h = h + L.attn_apply(cfg, bp["attn"], x, positions, causal=False)
-        h, _ = _ffn(cfg, bp, h)
+        if remat:
+            h = checkpoint(_encoder_layer, cfg, params, i, h, positions, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = _encoder_layer(cfg, params, i, h, positions)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
 
 

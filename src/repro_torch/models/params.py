@@ -52,8 +52,12 @@ def leaves(tree, prefix: str = "") -> list[tuple[str, Any]]:
     return out
 
 
-def map_tree(fn, tree):
-    return {k: map_tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+def map_tree(fn, tree, *rest):
+    """``fn`` over the leaves of the nested dict ``tree``; the trees in
+    ``rest`` are read at the same paths (a subtree of theirs where
+    ``tree`` has a leaf is handed over whole)."""
+    return {k: map_tree(fn, v, *(r[k] for r in rest)) if isinstance(v, dict) else fn(v, *(r[k] for r in rest))
+            for k, v in tree.items()}
 
 
 def init_params(specs, generator: torch.Generator, device="cuda", dtype=torch.float32):

@@ -909,3 +909,166 @@ def test_spec_decode_equals_plain_tokens(cuda_device, prefix_cache):
     for w, g in zip(plain, got):
         assert np.array_equal(w, g)
     assert eng.spec_rounds > 0 and eng.spec_tokens_accepted > 0 and eng.decode_dispatches == 0
+
+
+# ------------------------------------------------------------------ #
+# training: gradients through the kernels, head_dim 80, the raise
+# ------------------------------------------------------------------ #
+
+
+def _grads_through(fn, ins, up):
+    """Gradients of sum(out * up) + sum(out^2) / 2: the second term makes
+    them depend on the forward's output, so the kernel's forward error
+    reaches them."""
+    leaves = [t.detach().requires_grad_(True) for t in ins]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    ups = up if isinstance(up, tuple) else (up,)
+    loss = sum((o.float() * u).sum() + 0.5 * (o.float() ** 2).sum() for o, u in zip(outs, ups))
+    return out, torch.autograd.grad(loss, leaves)
+
+
+def _close(a, b, tol):
+    """max |a - b| within tol of max(1, max |b|)."""
+    err = float((a.float() - b.float()).abs().max())
+    assert err <= tol * max(1.0, float(b.float().abs().max())), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 80, 128])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 100])
+def test_flash_attention_gradient_matches_plain_autograd(cuda_device, s, g, dh, causal, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(s * 7 + dh)
+    kv = 4
+    q, k, v = (torch.randn(2, s, n, dh, generator=gen, device=cuda_device).to(dtype) for n in (kv * g, kv, kv))
+    up = torch.randn(2, s, kv * g, dh, generator=gen, device=cuda_device)
+    before = fa_ops.launches
+    out, got = _grads_through(lambda a, b, c: fa_ops.flash_attention(a, b, c, causal=causal), (q, k, v), up)
+    assert fa_ops.launches == before + 1 and out.grad_fn is not None
+    out_p, want = _grads_through(lambda a, b, c: fa_ops.flash_attention_plain(a, b, c, causal=causal), (q, k, v), up)
+    torch.cuda.synchronize()
+    _close(out, out_p, _tol(dtype))
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _close(a, b, _tol(dtype))
+
+
+def test_flash_attention_gradient_through_strided_views(cuda_device):
+    """q, k, v as views into one fused projection (heads interleaved):
+    the kernel reads them in place, and the gradient lands in the fused
+    tensor's layout."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        fused = torch.randn(2, 70, 3, 8, 80, generator=gen, device=cuda_device).to(dtype).requires_grad_(True)
+        up = torch.randn(2, 70, 8, 80, generator=gen, device=cuda_device)
+        grads = []
+        for fn in (fa_ops.flash_attention, fa_ops.flash_attention_plain):
+            out = fn(fused[:, :, 0], fused[:, :, 1], fused[:, :, 2], causal=True)
+            (gf,) = torch.autograd.grad((out.float() * up).sum() + 0.5 * (out.float() ** 2).sum(), (fused,))
+            grads.append(gf)
+        torch.cuda.synchronize()
+        _close(grads[0], grads[1], _tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,kv", [(16, 16), (16, 8)])
+def test_flash_attention_head_dim_80_matches_plain(cuda_device, h, kv, causal, dtype):
+    """HuBERT's head_dim, padded to 128 by the wrapper and scaled by
+    1/sqrt(80), at its path shape (B=4, S=256) and a ragged one."""
+    gen = torch.Generator(device=cuda_device).manual_seed(h + kv)
+    for b, s in ((4, 256), (3, 77)):
+        q = torch.randn(b, s, h, 80, generator=gen, device=cuda_device).to(dtype)
+        k = torch.randn(b, s, kv, 80, generator=gen, device=cuda_device).to(dtype)
+        v = torch.randn(b, s, kv, 80, generator=gen, device=cuda_device).to(dtype)
+        o = fa_ops.flash_attention(q, k, v, causal=causal)
+        o_p = fa_ops.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert o.shape == (b, s, h, 80) and o.dtype == dtype
+        tol = _tol(dtype)
+        np.testing.assert_allclose(o.float().cpu().numpy(), o_p.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [64, 100, 256])
+def test_ssd_chunk_gradient_matches_plain_autograd(cuda_device, l, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(l)
+    b, h, hd, ds = 2, 8, 64, 128
+    x = torch.nn.functional.silu(torch.randn(b, l, h, hd, generator=gen, device=cuda_device)).to(dtype)
+    bg = torch.nn.functional.silu(torch.randn(b, l, 1, ds, generator=gen, device=cuda_device)).to(dtype)
+    cg = torch.nn.functional.silu(torch.randn(b, l, 1, ds, generator=gen, device=cuda_device)).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, l, h, generator=gen, device=cuda_device))
+    a = -torch.exp(0.5 * torch.randn(h, generator=gen, device=cuda_device))
+    ups = tuple(torch.randn(*shape, generator=gen, device=cuda_device)
+                for shape in ((b, l, h, hd), (b, h, hd, ds), (b, h)))
+
+    def run(fn):
+        return lambda x_, b_, c_, dt_, a_: fn(x_, b_.expand(b, l, h, ds), c_.expand(b, l, h, ds), dt_, a_)
+
+    before = ss_ops.launches
+    outs, got = _grads_through(run(ss_ops.ssd_chunk), (x, bg, cg, dt, a), ups)
+    assert ss_ops.launches == before + 1 and all(o.grad_fn is not None for o in outs)
+    outs_p, want = _grads_through(run(ss_ops.ssd_chunk_plain), (x, bg, cg, dt, a), ups)
+    torch.cuda.synchronize()
+    for o, p in zip(outs, outs_p):
+        _close(o, p, 1e-4)
+    for t, a_, w in zip((x, bg, cg, dt, a), got, want):
+        assert a_.shape == t.shape and a_.dtype == t.dtype
+        _close(a_, w, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+def test_serving_kernels_raise_on_inputs_that_require_grad(cuda_device):
+    dev = cuda_device
+    q = torch.randn(2, 4, 64, device=dev, requires_grad=True)
+    kc = torch.randn(2, 8, 2, 64, device=dev)
+    lengths = torch.tensor([3, 8], dtype=torch.int32, device=dev)
+    pool = torch.randn(5, 4, 2, 64, device=dev)
+    tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=dev)
+    desc = torch.tensor([[0, 0, 3, 3], [1, 0, 2, 2]], dtype=torch.int32, device=dev)
+    calls = [
+        lambda: da_ops.decode_attention(q, kc, kc, lengths),
+        lambda: da_ops.paged_decode_attention(q, pool, pool, tables, lengths),
+        lambda: cp_ops.mixed_prefill_attention(torch.randn(2, 3, 4, 64, device=dev, requires_grad=True), pool, pool,
+                                               tables, desc),
+        lambda: rt_ops.retrieval_topk(torch.randn(3, 64, device=dev, requires_grad=True),
+                                      torch.randn(20, 64, device=dev), 4),
+    ]
+    counts = (da_ops.flash_decode_launches, da_ops.launches, cp_ops.launches, rt_ops.launches)
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+    assert (da_ops.flash_decode_launches, da_ops.launches, cp_ops.launches, rt_ops.launches) == counts
+    with torch.no_grad():
+        assert da_ops.decode_attention(q, kc, kc, lengths).shape == (2, 4, 64)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-1.3b", "pixtral-12b"])
+def test_every_leaf_gets_the_cpu_gradient_on_the_card(cuda_device, arch):
+    """Smoke width, f32: the card's gradients (kernels forward, plain
+    recompute backward, remat on) equal the CPU run's to 1e-4 of each
+    leaf's largest entry, and none is missing or zero."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import lm as LM
+    from repro_torch.models.params import init_params, leaves, map_tree
+    from repro_torch.runtime.steps import value_and_grad
+
+    cfg = smoke_config(get_config(arch)).with_overrides(dtype="float32", remat="block", vocab_size=512)
+    p_cpu = init_params(LM.param_specs(cfg), torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(1)
+    tok = rng.integers(0, 512, size=(2, 64)).astype(np.int32)
+    batch = {"tokens": tok, "targets": tok}
+    if cfg.frontend == "patches":
+        batch["patch_embeds"] = rng.normal(size=(2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        p = p_cpu if dev == "cpu" else map_tree(lambda t: t.to(dev), p_cpu)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        _, _, grads[str(dev)] = value_and_grad(lambda pp: LM.loss_fn(cfg, pp, b), p)
+    torch.cuda.synchronize()
+    want = dict(leaves(grads["cpu"]))
+    for path, g in leaves(grads["cuda"]):
+        g = g.cpu()
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any()), path
+        assert float((g - want[path]).abs().max()) <= 1e-4 * float(want[path].abs().max()), path
