@@ -149,13 +149,34 @@ only when every phase passed):
               clipped SGD; 3 rounds with secure aggregation and 3 plain:
               trajectories equal at rtol 1e-4, the loss falling; the masked
               exchange's host seconds; one rank_loss step of
-              bge-reranker-base.
+              bge-reranker-base;
+17. sharded   the sharded paths with every shard on the one card
+              (``mesh=``): mixed_prefill's partials kernel at the phase-3
+              step's mix with an ``owned`` mask split row-affine over 4
+              shards against its plain version (m, l and o / l at the
+              dtype's tolerance), the 4 shards' partials combined bitwise
+              equal to 1 shard's, the rows of other shards exact zeros with
+              m = -1e30 (trash blocks poisoned with NaN and 1e4), timed;
+              dist_decode over 2 and 4 shards against flash-decode on the
+              whole cache (a row of length 0 gives 0), and one shard's
+              exact-zero flash-decode partials, timed; federated top-k over
+              4 providers at provider scale: ids equal and scores bitwise
+              equal to the whole-corpus kernel, a dead provider's ids
+              absent; then the phase-4 configuration on a pool of 144
+              blocks at shards 1, 2 and 4: the same dispatches, N times the
+              shards-1 mixed_prefill launches, tokens of 2 and 4 bitwise
+              equal to 1's, and 1's equal to phase 4's but at rounding ties;
+              the prefix cache with the spill tier on phase 8's tight pool
+              at 4 shards against 1 (hits equal, chains demoted and
+              readmitted, tokens equal but at rounding ties);
+              self-speculation at 4 shards bitwise equal to 1; at smoke
+              width in f32, shards 1, 2 and 4 on the card equal the CPU run.
 
 Each phase prints its seconds and peak memory.  Every kernel's launch
 counter is set to 0 just before each main-path run (the serves, phase 5's
 index build, phase 10's retrievals, the training runs and steps of
-13-16) and read just after; a kernel of that path left at 0 fails the
-run.
+13-16, the sharded serves of 17) and read just after; a kernel of that
+path left at 0 fails the run.
 
 The line before the last lines is ``{"kernels": [...]}``, then the card's
 nvidia-smi line, then ``{"ok": true, "device": {...}}``.
@@ -443,12 +464,14 @@ class Parent:
     def flash_decode(self, q, kc, vc, lengths):
         """The normalised output, through the entry point of the kernel with
         one block per (row, KV head) (22 arguments) or of the split kernel
-        (its o / m / l scratch besides)."""
+        (its o / m / l scratch besides; 26 arguments, or 27 with the
+        empty-row rule, passed as the mean rule)."""
         b, h, dh = q.shape
         s, kv = kc.shape[1], kc.shape[2]
         out = self.torch.empty_like(q)
         head = (q.data_ptr(), kc.data_ptr(), vc.data_ptr(), lengths.data_ptr(), out.data_ptr(), 0, 0, 0)
-        tail = (*kc.stride()[:3], *vc.stride()[:3], 0, int(q.dtype == self.torch.bfloat16))
+        rule = (0,) if len(self.fns["flash_decode"].argtypes) == 27 else ()
+        tail = (*kc.stride()[:3], *vc.stride()[:3], 0, *rule, int(q.dtype == self.torch.bfloat16))
         if len(self.fns["flash_decode"].argtypes) == 22:
             self._call("flash_decode", *head, b, h, kv, dh, s, *tail)
         else:
@@ -1499,15 +1522,18 @@ def mamba2_phase(torch, smi: str) -> dict:
 # --------------------------------------------------------------------- #
 
 
-def rounding_tie(torch, engine, prompt, prefix, contiguous: bool = False) -> tuple[bool, float, float]:
+def rounding_tie(torch, engine, prompt, prefix, contiguous: bool = False,
+                 sharded: bool = False) -> tuple[bool, float, float]:
     """Whether the token after ``prompt + prefix`` is decided by rounding on
     the card: its logits, computed the ways the engines compute a decode
     token (a lane of one mixed step over the whole sequence; a decode step
     after a mixed step over the rest; with ``contiguous``, also the
     contiguous engine's: a prefill over the prompt padded to
     ``max_prompt_len`` for the first token, a contiguous decode step after
-    a prefill of the rest for a later one), differ by at least half their
-    top-2 gap.  Returns (tie, gap, largest difference)."""
+    a prefill of the rest for a later one; with ``sharded``, also the two
+    paged ways over a one-shard pool, through the partials kernel and the
+    combine), differ by at least half their top-2 gap.  Returns (tie, gap,
+    largest difference)."""
     import numpy as np
 
     from repro_torch.models import lm as LM
@@ -1527,6 +1553,17 @@ def rounding_tie(torch, engine, prompt, prefix, contiguous: bool = False) -> tup
         b = LM.decode_step(cfg, params, cache, seq[:, n - 1 :], torch.tensor([n - 1], **i32),
                            block_tables=tables, block_size=bs)[0, -1].float()
         ways = [a, b]
+        if sharded:
+            from repro_torch.runtime.compat import make_mesh
+
+            mesh = make_mesh(["cuda:0"])
+            cache = LM.init_paged_cache(cfg, nb + 1, bs, dtype=torch.bfloat16, device="cuda", mesh=mesh)
+            ways.append(LM.mixed_step(cfg, params, seq, cache, tables, zero, torch.tensor([n], **i32), bs,
+                                      mesh)[0, n - 1].float())
+            cache = LM.init_paged_cache(cfg, nb + 1, bs, dtype=torch.bfloat16, device="cuda", mesh=mesh)
+            LM.mixed_step(cfg, params, seq[:, : n - 1], cache, tables, zero, torch.tensor([n - 1], **i32), bs, mesh)
+            ways.append(LM.decode_step(cfg, params, cache, seq[:, n - 1 :], torch.tensor([n - 1], **i32),
+                                       block_tables=tables, block_size=bs, mesh=mesh)[0, -1].float())
         if contiguous:
             width = engine.scfg.max_prompt_len
             m = n if len(prefix) == 0 else n - 1  # the prefilled positions
@@ -1543,7 +1580,8 @@ def rounding_tie(torch, engine, prompt, prefix, contiguous: bool = False) -> tup
     return gap <= 2 * diff, gap, diff
 
 
-def same_answers(want: list, got: list, what: str, engine=None, contiguous: bool = False) -> None:
+def same_answers(want: list, got: list, what: str, engine=None, contiguous: bool = False,
+                 sharded: bool = False) -> None:
     """Every query's answer tokens equal; prints, then fails on, the queries
     that differ, each with its first differing place.  With ``engine`` (runs
     whose engine steps were composed differently, so that a row's decode
@@ -1551,7 +1589,9 @@ def same_answers(want: list, got: list, what: str, engine=None, contiguous: bool
     other) a query may differ from a later place than its first token,
     where ``rounding_tie`` finds the token decided by rounding; with
     ``contiguous`` (one of the runs on the contiguous engine, whose first
-    token comes from a packed prefill) at its first token too."""
+    token comes from a packed prefill) or ``sharded`` (one of the runs on a
+    sharded pool, every token through the partials form) at its first token
+    too."""
     import numpy as np
     import torch
 
@@ -1563,10 +1603,11 @@ def same_answers(want: list, got: list, what: str, engine=None, contiguous: bool
     print(f"  {what}: {len(want) - len(diff)}/{len(want)} queries' tokens equal"
           + (f"; first differing place by query {diff}" if diff else ""), flush=True)
     for i, j in diff.items():
-        if engine is None or (j == 0 and not contiguous):
+        if engine is None or (j == 0 and not (contiguous or sharded)):
             fail(f"{what}: answer tokens differ")
         prompt = np.asarray(want[i]["prompt"]).reshape(-1)
-        tie, gap, d = rounding_tie(torch, engine, prompt, np.asarray(want[i]["answer_tokens"][:j]), contiguous)
+        tie, gap, d = rounding_tie(torch, engine, prompt, np.asarray(want[i]["answer_tokens"][:j]), contiguous,
+                                   sharded)
         print(f"    query {i}, place {j}: top-2 gap {gap:.4e}, the two step kinds' logits differ by up to "
               f"{d:.4e}: {'decided by rounding' if tie else 'NOT a rounding tie'}", flush=True)
         if not tie:
@@ -2418,6 +2459,301 @@ def fedembed_phase(torch, smi: str) -> list[dict]:
     return runs
 
 
+# --------------------------------------------------------------------- #
+# phase 17: sharded serving, every shard on the one card through mesh=
+# --------------------------------------------------------------------- #
+
+
+def partials_err(got, want) -> float:
+    """Largest of |m - m'|, |l - l'| / max(l', 1) and |o / l - o' / l'| over
+    the lanes that saw a key; the lanes that saw none must be exact zeros
+    with m = -1e30 in both."""
+    o, m, l = got
+    o_p, m_p, l_p = want
+    seen = l_p[..., 0] > 0
+    if not (bool((o[~seen] == 0).all()) and bool((l[~seen] == 0).all()) and bool((m[~seen] == -1e30).all())
+            and bool((m_p[~seen] == -1e30).all())):
+        fail("partials: a lane that saw no key is not o = 0, l = 0, m = -1e30 exactly")
+    return max((m - m_p).abs().max().item(), ((l - l_p).abs() / l_p.clamp(min=1)).max().item(),
+               (o / l.clamp(min=1e-30) - o_p / l_p.clamp(min=1e-30))[seen].abs().max().item())
+
+
+def sharded_kernels(torch, timer, rows: dict) -> None:
+    """[17a] the partials kernels of the sharded paths at the path shapes,
+    against their plain versions, the combine's bitwise pass-through, and
+    federated top-k over 4 providers against the whole-corpus kernel."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.retrieval import federated_topk
+    from repro_torch.kernels.chunked_prefill import ops as cp
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.retrieval_topk import ops as rt
+    from repro_torch.runtime.compat import make_mesh
+    from repro_torch.serving.dist_decode import combine_partials, dist_decode_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    # the phase-3 step's mix (R = 8 rows of W = 256 lanes, qwen3-0.6b's 16 / 8
+    # heads of 128, blocks of 32, 9 per row) over a pool split row-affine
+    # over 4 shards: row r's blocks on shard r % 4, n_local = 2 rows' blocks
+    R, W, H, KV, DH, BS, NT, N_SH = 8, 256, 16, 8, 128, 32, 9, 4
+    desc_h = [(0, 0, 180, 180), (1, 100, 76, 176)] + [(r, 120 + 25 * r, 1, 121 + 25 * r) for r in range(2, 7)] \
+        + [(7, 0, 0, 0)]
+    n_local = 2 * NT
+    tables_h = [[N_SH * n_local] * NT for _ in range(R)]  # the global trash
+    for r, (_, _, _, kl) in enumerate(desc_h):
+        s, slot = r % N_SH, r // N_SH
+        for e in range(-(-max(kl, 1) // BS)):
+            tables_h[r][e] = s * n_local + slot * NT + e
+    tables = torch.tensor(tables_h, dtype=torch.int32, device=dev)
+    desc = torch.tensor(desc_h, dtype=torch.int32, device=dev)
+    owned_1 = (tables // (N_SH * n_local)) == 0  # one shard: every block but the trash
+    n_q = sum(ql for _, _, ql, _ in desc_h)
+    n_kv = [min(kl, q0 + ql) if ql > 0 else 0 for _, q0, ql, kl in desc_h]
+    flops = sum(4 * H * DH * min(q0 + j + 1, kl) for _, q0, ql, kl in desc_h for j in range(ql))
+    s_pad, lane, kpos = NT * BS, torch.arange(W, device=dev), torch.arange(NT * BS, device=dev)
+    mask = (kpos[None, None, :] <= (desc[:, 1:2] + lane[None, :])[:, :, None]) & (kpos[None, None, :] < desc[:, 3, None, None])
+    mask = (mask | (kpos[None, None, :] == 0))[:, None]  # keeps dead lanes finite
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        es = torch.empty((), dtype=tdt).element_size()
+        q = torch.randn(R, W, H, DH, generator=gen, device=dev).to(tdt)
+        kp = torch.randn(N_SH * n_local + 1, BS, KV, DH, generator=gen, device=dev).to(tdt)
+        vp = torch.randn(N_SH * n_local + 1, BS, KV, DH, generator=gen, device=dev).to(tdt)
+        got = cp.mixed_prefill_partials(q, kp, vp, tables, desc, owned=owned_1)
+        err = partials_err(got, cp.mixed_prefill_partials_plain(q, kp, vp, tables, desc, owned=owned_1))
+        # each shard's own pool (its blocks, a trash block poisoned with NaN
+        # and 1e4), local table and mask
+        shard = []
+        for s in range(N_SH):
+            kl, vl = kp[s * n_local : (s + 1) * n_local + 1].clone(), vp[s * n_local : (s + 1) * n_local + 1].clone()
+            kl[-1], vl[-1] = float("nan"), 1e4
+            owned = (tables // n_local) == s
+            shard.append((kl, vl, torch.where(owned, tables % n_local, n_local), owned))
+        parts = [cp.mixed_prefill_partials(q, kl, vl, loc, desc, owned=own) for kl, vl, loc, own in shard]
+        for s, ((kl, vl, loc, own), part) in enumerate(zip(shard, parts)):
+            err = max(err, partials_err(part, cp.mixed_prefill_partials_plain(q, kl.nan_to_num(0.0), vl, loc, desc,
+                                                                              owned=own)))
+            rows_s = [r for r in range(R) if r % N_SH != s]
+            if not (bool((part[0][rows_s] == 0).all()) and bool((part[2][rows_s] == 0).all())
+                    and bool((part[1][rows_s] == -1e30).all())):
+                fail(f"mixed_prefill partials {dtype}: shard {s}'s rows of other shards are not exact zeros")
+        check(f"mixed_prefill partials, owned over {N_SH} shards (row-affine), m / l / o over l, {dtype}", err, dtype)
+        four = combine_partials(*map(list, zip(*parts)))
+        one = combine_partials(*[[t] for t in got])
+        if not (torch.equal(four, one) and bool(torch.isfinite(four).all())):
+            fail(f"mixed_prefill partials {dtype}: {N_SH} shards combined differ from 1 shard combined")
+        print(f"  mixed_prefill partials {dtype}: {N_SH} shards combined == 1 shard combined bitwise; the "
+              f"non-owner rows exact zeros with m = -1e30 (trash blocks poisoned with NaN and 1e4)", flush=True)
+        kv_k = kp[tables.long()].reshape(R, s_pad, KV, DH).permute(0, 2, 1, 3)
+        kv_v = vp[tables.long()].reshape(R, s_pad, KV, DH).permute(0, 2, 1, 3)
+        qt = q.permute(0, 2, 1, 3)
+        # q of live lanes in; o, m, l of every lane out (f32)
+        nbytes = (n_q * H * DH * es + R * W * H * (DH + 2) * 4 + 2 * sum(n_kv) * KV * DH * es + desc.numel() * 4
+                  + sum(-(-n // BS) for n in n_kv) * 5)
+        b_ms, b_by = bound(nbytes, (flops, dtype))
+        row = dict(
+            **timer.turns(dict(
+                ms=lambda: cp.mixed_prefill_partials(q, kp, vp, tables, desc, owned=owned_1),
+                plain_ms=lambda: cp.mixed_prefill_partials_plain(q, kp, vp, tables, desc, owned=owned_1),
+                library_ms=lambda: F.scaled_dot_product_attention(qt, kv_k, kv_v, attn_mask=mask, enable_gqa=True),
+                four_shards_ms=lambda: [cp.mixed_prefill_partials(q, kl, vl, loc, desc, owned=own)
+                                        for kl, vl, loc, own in shard],
+            )),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            shape=f"partials, owned: R={R} W={W} H={H} KV={KV} dh={DH} bs={BS} n_t={NT}, the phase-3 step's mix, "
+                  f"one shard owning every block (four_shards_ms: the {N_SH} row-affine shards' calls) {dtype}",
+        )
+        rows["mixed_prefill", dtype, "partials_owned"] = row
+        print_row("mixed_prefill", row)
+        print(f"  mixed_prefill partials {dtype}: the {N_SH} shards' calls in turn {row['four_shards_ms']:.4f} ms",
+              flush=True)
+        del q, kp, vp, shard, parts, kv_k, kv_v, qt
+
+    # flash-decode over a cache split in 4 along the sequence (the phase-6
+    # decode shape): one shard's exact-zero partials timed; dist_decode over 2
+    # and 4 shards against flash-decode on the whole cache
+    S = 272
+    lens_h = [272, 17, 0, 64, 250, 131, 99, 1]
+    lens = torch.tensor(lens_h, dtype=torch.int32, device=dev)
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        es = torch.empty((), dtype=tdt).element_size()
+        qd = torch.randn(R, H, DH, generator=gen, device=dev).to(tdt)
+        kc = torch.randn(R, S, KV, DH, generator=gen, device=dev).to(tdt)
+        vc = torch.randn(R, S, KV, DH, generator=gen, device=dev).to(tdt)
+        whole = da.decode_attention(qd, kc, vc, lens, empty_zero=True)
+        err = 0.0
+        for n in (2, 4):
+            got = dist_decode_attention(qd, kc, vc, lens, make_mesh(["cuda:0"] * n))
+            if not bool((got[2] == 0).all()):
+                fail(f"dist_decode {n} shards {dtype}: the row of length 0 is not 0")
+            err = max(err, (got.float() - whole.float()).abs().max().item())
+        check(f"dist_decode over 2 and 4 shards against flash_decode on the whole cache, lengths {lens_h}, {dtype}",
+              err, dtype)
+        step, sh = S // 4, 1  # shard 1: positions 68-135, rows 1, 2 and 3 hold none
+        ks, vs = kc[:, sh * step : (sh + 1) * step], vc[:, sh * step : (sh + 1) * step]
+        loc = torch.clamp(lens - sh * step, 0, step)
+        part = da.decode_attention(qd, ks, vs, loc, return_partials=True, empty_zero=True)
+        err_p = partials_err(part, da.decode_attention_plain(qd, ks, vs, loc, return_partials=True, empty_zero=True))
+        check(f"flash_decode partials, exact-zero empty rows, shard {sh} of 4 (local lengths {loc.tolist()}), {dtype}",
+              err_p, dtype)
+        loc_h = loc.tolist()
+        mask_s = (torch.arange(step, device=dev)[None, :] < loc[:, None]) | (torch.arange(step, device=dev) == 0)
+        b_ms, b_by = bound(es * (R * H * DH + 2 * sum(loc_h) * KV * DH) + 4 * R + R * H * (DH + 2) * 4,
+                           (4 * sum(loc_h) * H * DH, dtype))
+        row = dict(
+            **timer.turns(dict(
+                ms=lambda: da.decode_attention(qd, ks, vs, loc, return_partials=True, empty_zero=True),
+                plain_ms=lambda: da.decode_attention_plain(qd, ks, vs, loc, return_partials=True, empty_zero=True),
+                library_ms=lambda: F.scaled_dot_product_attention(
+                    qd[:, :, None], ks.transpose(1, 2), vs.transpose(1, 2), attn_mask=mask_s[:, None, None, :],
+                    enable_gqa=True),
+            )),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err_p,
+            shape=f"partials, exact-zero empty rows: B={R} H={H} KV={KV} dh={DH}, shard {sh} of a 4-way split of "
+                  f"S={S} (a strided view of {step} positions), local lengths {loc_h} {dtype}",
+        )
+        rows["flash_decode", dtype, "partials_empty_zero"] = row
+        print_row("flash_decode", row)
+        del qd, kc, vc, ks, vs
+
+    # federated top-k over 4 providers at provider scale (phase 3's N = 2^20 x
+    # D = 256, Q = 32, k = 8), every provider on the card
+    qs = F.normalize(torch.randn(32, 256, generator=gen, device=dev), dim=1)
+    cs = F.normalize(torch.randn(1 << 20, 256, generator=gen, device=dev), dim=1)
+    mesh = make_mesh(["cuda:0"] * 4)
+    s_f, i_f, p_f = federated_topk(qs, cs, m_local=8, n_global=8, mesh=mesh)
+    s_w, i_w = rt.retrieval_topk(qs, cs, 8)
+    if not (torch.equal(i_f, i_w) and torch.equal(s_f, s_w) and torch.equal(p_f, i_f // (1 << 18))):
+        fail("federated_topk over 4 providers differs from retrieval_topk over the whole corpus")
+    _, _, p_d = federated_topk(qs, cs, m_local=8, n_global=8, mesh=mesh, alive=torch.tensor([True, False, True, True]))
+    if bool((p_d == 1).any()):
+        fail("federated_topk: a dead provider's ids appear")
+    t = timer.turns(dict(federated=lambda: federated_topk(qs, cs, m_local=8, n_global=8, mesh=mesh),
+                         whole=lambda: rt.retrieval_topk(qs, cs, 8)))
+    print(f"  federated_topk, 4 providers of 262144 x 256 f32, Q=32, k=8: ids equal and scores bitwise equal to "
+          f"retrieval_topk over the whole corpus; a dead provider's ids never appear; {t['federated']:.4f} ms "
+          f"against {t['whole']:.4f} ms for the whole corpus in one call", flush=True)
+    del qs, cs
+
+
+def sharded_phase(torch, smi: str, cold: list, timer, rows: dict) -> list[dict]:
+    """[17] sharded serving with every shard on the one card (``mesh=``):
+    the kernels of [17a]; the phase-4 configuration at shards 1, 2 and 4;
+    the prefix cache with its spill tier and self-speculation at 4 shards
+    against 1; smoke width f32 against the CPU run."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.launch.serve import full_width_system
+    from repro_torch.runtime.compat import make_mesh
+    from repro_torch.serving.engine import ServeConfig, ServeEngine, engine_generator
+
+    sharded_kernels(torch, timer, rows)
+    need = ("retrieval_topk", "mixed_prefill")  # decode steps run the partials form too
+    runs, served = [], {}
+    POOL = 144  # divisible by 4; 36 blocks a shard >= a row's 9, so every arm admits in the same order
+
+    def on_card(n):
+        return make_mesh(["cuda:0"] * n)
+
+    sys_, engine, texts = full_width_system(16, "cuda", SEED, n_pool_blocks=POOL, shards=1, mesh=on_card(1))
+    engines = {1: engine}
+    for n in (1, 2, 4):
+        if n not in engines:
+            engines[n] = ServeEngine(engine.cfg, engine.params, dataclasses.replace(engine.scfg, shards=n),
+                                     device="cuda", mesh=on_card(n))
+        sys_.orchestrator.generator = engine_generator(engines[n])
+        t0 = time.perf_counter()
+        res, launches = serve_phase(torch, smi, sys_, engines[n], texts,
+                                    f"sharded pool, {n} shard(s) on cuda:0, qwen3-0.6b full width bf16, pool {POOL}", need)
+        st = sys_.last_serve_stats
+        served[n] = (res, launches, (st["mixed_dispatches"], st["decode_dispatches"]))
+        runs.append(launches)
+        print(f"  shards {n}: serve {(time.perf_counter() - t0) * 1e3:.1f} ms with its warm-up, mixed_prefill "
+              f"(partials) launches {launches['mixed_prefill']}, paged_decode launches {launches['paged_decode']}, "
+              f"dispatches (mixed, decode) {served[n][2]}, cache_nbytes {engines[n].cache_nbytes() / 2**20:.1f} MiB",
+              flush=True)
+    for n in (2, 4):
+        if served[n][2] != served[1][2] or served[n][1]["mixed_prefill"] != n * served[1][1]["mixed_prefill"]:
+            fail(f"shards {n}: dispatches {served[n][2]} / launches {served[n][1]['mixed_prefill']} against "
+                 f"{served[1][2]} / {n} x {served[1][1]['mixed_prefill']} at shards 1")
+        same_answers(served[1][0], served[n][0], f"shards {n} against shards 1 (bitwise)")
+    same_answers(cold, served[1][0], "shards 1 against phase 4 (unsharded)", engine, sharded=True)
+    del engines, served
+    free_device(torch)
+
+    # the prefix cache with the spill tier, two repeats, 4 shards against 1,
+    # on phase 8's pool of max_batch rows' blocks plus 8 (80, 20 a shard):
+    # the parked chains that later prompts need room for go to the host tier
+    # and come back by upload to their own shard, so the hits must equal the
+    # 1-shard run's
+    out, keep = {}, None
+    for n in (1, 4):
+        sys_, eng, texts = full_width_system(16, "cuda", SEED, n_pool_blocks=8 * 9 + 8, shards=n, mesh=on_card(n),
+                                             prefix_cache=True, spill_bytes=512 << 20)
+        sys_.serve(texts[:2], max_new_tokens=2)
+        eng.reset_cache()
+        reps = []
+        for rep in (1, 2):
+            res, launches = serve_phase(torch, smi, sys_, eng, texts, f"prefix cache + spill tier, {n} shard(s), "
+                                        f"repeat {rep}", need, warm_up=False)
+            st = sys_.last_serve_stats
+            reps.append((res, st["prefix_hits"], st["prefix_lookups"]))
+            runs.append(launches)
+        out[n] = (reps, eng._index.n_demotions, eng._index.n_readmits)
+        print(f"  prefix cache + spill, {n} shard(s): hits by repeat {[(h, lk) for _, h, lk in reps]}, "
+              f"{eng._index.n_demotions} demotions, {eng._index.n_readmits} readmits", flush=True)
+        keep = keep or eng  # the 1-shard engine, for the rounding-tie rule below
+        del sys_, eng
+        free_device(torch)
+    if not (out[4][1] > 0 and out[4][2] > 0):
+        fail(f"prefix cache + spill at 4 shards: {out[4][1]} demotions, {out[4][2]} readmits")
+    for rep in range(2):
+        (r1, h1, l1), (r4, h4, l4) = out[1][0][rep], out[4][0][rep]
+        if (h1, l1) != (h4, l4):
+            fail(f"prefix cache repeat {rep + 1}: hits {h4}/{l4} at 4 shards, {h1}/{l1} at 1")
+        # equal hits leave each row's work the same, but a readmission's wait
+        # may compose the engine steps differently: the tie rule applies
+        same_answers(r1, r4, f"prefix cache + spill repeat {rep + 1}, shards 4 against shards 1", keep, sharded=True)
+    del keep
+    free_device(torch)
+
+    # self-speculation, draft_k = 3, the drafter's pool sharded like the target's
+    spec = {}
+    for n in (1, 4):
+        sys_, eng, texts = full_width_system(16, "cuda", SEED, n_pool_blocks=POOL, shards=n, mesh=on_card(n),
+                                             draft_k=3)
+        res, launches = serve_phase(torch, smi, sys_, eng, texts, f"self-speculation draft_k 3, {n} shard(s)", need)
+        runs.append(launches)
+        st = sys_.last_serve_stats
+        spec[n] = res
+        print(f"  self-speculation, {n} shard(s): {st['spec_rounds']} rounds, accept rate "
+              f"{st.get('spec_accept_rate', 0.0):.4f}", flush=True)
+        if st["spec_rounds"] == 0:
+            fail("sharded self-speculation ran no rounds")
+        del sys_, eng
+        free_device(torch)
+    same_answers(spec[1], spec[4], "self-speculation, shards 4 against shards 1 (bitwise)")
+
+    # smoke width, f32: shards 1, 2 and 4 on the card and shards 1 on the CPU
+    small, p_cpu, p_gpu = small_model(torch, HashTokenizer().vocab_size)
+    prompts = [np.asarray(r["prompt"]).reshape(-1) for r in cold[:4]]
+    kw = dict(paged=True, max_batch=4, max_prompt_len=256, max_new_tokens=8, block_size=16, n_pool_blocks=68)
+    toks = {("cpu", 1): ServeEngine(small, p_cpu, ServeConfig(shards=1, **kw), device="cpu").serve_prompts(prompts)}
+    for n in (1, 2, 4):
+        toks["cuda", n] = ServeEngine(small, p_gpu, ServeConfig(shards=n, **kw), device="cuda",
+                                      mesh=on_card(n)).serve_prompts(prompts)
+    checks = {f"{d} x{n}": all(np.array_equal(a, b) for a, b in zip(toks["cpu", 1], t)) for (d, n), t in toks.items()}
+    print(f"  smoke width f32, tokens equal to the CPU run's (shards 1): {checks}", flush=True)
+    if not all(checks.values()):
+        fail(f"smoke-width sharded tokens differ: {checks}")
+    return runs
+
+
 def _sgd(params, grads, lr: float):
     from repro_torch.models.params import map_tree
 
@@ -2497,6 +2833,8 @@ def main() -> int:
     runs += phase("[14] hubert-xlarge at full width: masked prediction, head_dim 80", hubert_phase)
     runs += phase("[15] pixtral-12b at full width: the patch frontend", pixtral_phase)
     runs += phase("[16] federated F_emb (paper section 2.2): secure aggregation, contriever-110m", fedembed_phase)
+    runs += phase("[17] sharded serving: 1, 2 and 4 shards of the paged pool on one card, dist_decode, "
+                  "federated top-k", sharded_phase, cold, timer, rows)
 
     meta = {
         "retrieval_topk": ("src/repro_torch/kernels/csrc/retrieval_topk.cu", "src/repro/kernels/retrieval_topk/kernel.py:105"),
@@ -2510,7 +2848,7 @@ def main() -> int:
     # embeddings; bf16 activations, KV pool and encoders) and, for
     # flash_attention, its largest path shape (the rerank), with the
     # further path shapes beside it; launches are summed over the
-    # main-path runs of phases 4-16
+    # main-path runs of phases 4-17
     path_row = {
         "retrieval_topk": ("retrieval_topk", "float32"), "mixed_prefill": ("mixed_prefill", "bfloat16"),
         "paged_decode": ("paged_decode", "bfloat16"), "flash_attention": ("flash_attention", "bfloat16", "rerank"),
@@ -2532,12 +2870,13 @@ def main() -> int:
         # kernel at its shape), beside the path row
         for tag, key in (("warm_admission", "warm"), ("verify", "verify"), ("one_head_per_kv_head", "G=1"),
                          ("head_dim_80", "dh80"), ("backward_train", "backward train"),
-                         ("backward_hubert", "backward hubert"), ("backward_contriever", "backward contriever")):
+                         ("backward_hubert", "backward hubert"), ("backward_contriever", "backward contriever"),
+                         ("partials_owned", "partials_owned"), ("partials_empty_zero", "partials_empty_zero")):
             extra = rows.get((name, "bfloat16", key))
             if extra is not None:
                 kernels[-1][tag] = {k: extra[k] for k in (
-                    "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "fwd_ms")
-                    if k in extra}
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "fwd_ms",
+                    "four_shards_ms") if k in extra}
     if any(not math.isfinite(k["ms"]) for k in kernels):
         fail("a kernel time is not finite")
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)

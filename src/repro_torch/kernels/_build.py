@@ -46,6 +46,9 @@ SIGNATURES = {
         # q, k_pool, v_pool, tables, desc, out, r, w, h, kv, dh, bs, n_t,
         # is_bf16, stream
         "mixed_prefill_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+        # q, k_pool, v_pool, tables, desc, owned, o, m, l, r, w, h, kv, dh,
+        # bs, n_t, is_bf16, stream
+        "mixed_prefill_partials_launch": [P] * 9 + [I] * 8 + [P],
     },
     "paged_decode": {
         # q, k_pool, v_pool, tables, lengths, out, o_part, m_part, l_part,
@@ -60,8 +63,8 @@ SIGNATURES = {
     "flash_decode": {
         # q, k_cache, v_cache, lengths, out, o, m, l, o_part, m_part,
         # l_part, b, h, kv, dh, s, n_split, k strides (batch, seq, head),
-        # v strides, partials, is_bf16, stream
-        "flash_decode_launch": [P] * 11 + [I] * 6 + [L] * 6 + [I, I, P],
+        # v strides, partials, empty_zero, is_bf16, stream
+        "flash_decode_launch": [P] * 11 + [I] * 6 + [L] * 6 + [I, I, I, P],
     },
     "ssd_chunk": {
         # x, b, c, dt, a, scores scratch, y, state, decay, b, l, h, hd,

@@ -3,8 +3,11 @@
 ``mixed_prefill_attention`` launches the hand-written kernel
 (``kernels/csrc/mixed_prefill.cu``: bf16 on the tensor cores, f32 on the
 CUDA cores) for CUDA tensors and runs ``mixed_prefill_attention_plain``
-for CPU tensors; anything else raises.  ``launches`` counts kernel
-launches.
+for CPU tensors; anything else raises.  ``mixed_prefill_partials`` is the
+same walk stopped before the normalisation, the per-shard half of the
+sharded engine's dispatch: f32 ``(o, m, l)`` over the keys of the blocks
+an ``owned`` mask marks (``mixed_prefill_partials_plain`` on the CPU).
+``launches`` counts the launches of both forms.
 
 Descriptor contract (one row per ``desc[r] = (slot, q_start, q_len,
 kv_len)``): lane ``j`` of row ``r`` attends pool position ``kpos`` of
@@ -59,6 +62,106 @@ def mixed_prefill_attention_plain(q, k_pool, v_pool, block_tables, desc):
     return out.reshape(r, w, h, dh).to(q.dtype)
 
 
+def mixed_prefill_partials_plain(q, k_pool, v_pool, block_tables, desc, owned=None):
+    """Flash-softmax partials of ``mixed_prefill_attention_plain``: the
+    same mask (and, with ``owned`` (B, n_t) bool, only the positions of
+    the table entries it marks), stopped before the normalisation.
+    Returns f32 ``o`` (R, KV, G, W, dh), the un-normalised weighted
+    values, and ``m``, ``l`` (R, KV, G, W, 1), each row's max logit and
+    partition sum.  A row that sees no key gives exactly ``m = -1e30``,
+    ``l = 0``, ``o = 0``; ``owned=None`` means every entry is owned."""
+    r, w, h, dh = q.shape
+    bs, kv = k_pool.shape[1], k_pool.shape[2]
+    desc = desc.long()
+    tbl = block_tables.long()[desc[:, 0]]  # (R, n_t)
+    s_pad = tbl.shape[1] * bs
+    k_view = k_pool[tbl].reshape(r, s_pad, kv, dh).float()
+    v_view = v_pool[tbl].reshape(r, s_pad, kv, dh).float()
+    qr = q.float().reshape(r, w, kv, h // kv, dh)
+    logits = torch.einsum("rwkgd,rskd->rkgws", qr, k_view) / math.sqrt(dh)
+    lane = torch.arange(w, device=q.device)
+    kpos = torch.arange(s_pad, device=q.device)
+    qpos = desc[:, 1][:, None] + lane[None, :]  # (R, W)
+    valid = (
+        (kpos[None, None, :] <= qpos[:, :, None])
+        & (kpos[None, None, :] < desc[:, 3][:, None, None])
+        & (lane[None, :, None] < desc[:, 2][:, None, None])
+    )  # (R, W, S)
+    if owned is not None:
+        own_pos = torch.repeat_interleave(owned.bool()[desc[:, 0]], bs, dim=1)  # (R, s_pad)
+        valid = valid & own_pos[:, None, :]
+    vb = valid[:, None, None]  # (R, 1, 1, W, S)
+    logits = torch.where(vb, logits, torch.full_like(logits, -1e30))
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.where(vb, torch.exp(logits - m), torch.zeros_like(logits))  # all-masked rows: l and o exactly 0
+    return torch.einsum("rkgws,rskd->rkgwd", e, v_view), m, e.sum(dim=-1, keepdim=True)
+
+
+def _check_mixed(name, q, k_pool, v_pool, block_tables, desc) -> None:
+    """The shapes, dtypes and devices both forms of the kernel take; raises."""
+    r, w, h, dh = q.shape
+    n_pool, bs, kv, dh_k = k_pool.shape
+    if (
+        v_pool.shape != k_pool.shape or dh_k != dh or h % kv or dh not in _HEAD_DIMS
+        or desc.shape != (r, 4) or block_tables.dim() != 2
+    ):
+        raise ValueError(
+            f"{name}: q {tuple(q.shape)}, pools {tuple(k_pool.shape)}, "
+            f"tables {tuple(block_tables.shape)}, desc {tuple(desc.shape)}"
+        )
+    if not (q.dtype == k_pool.dtype == v_pool.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: dtypes {q.dtype} / {k_pool.dtype} / {v_pool.dtype}")
+    for t in (k_pool, v_pool, block_tables, desc):
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on {q.device} and {t.device}")
+
+
+def _aligned(*ts):
+    """bf16 is read with 16-byte copies: a fresh copy of a tensor at an
+    unaligned pointer (a contiguous view at an odd offset stays unaligned)."""
+    return tuple(
+        t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
+        for t in ts
+    )
+
+
+def mixed_prefill_partials(q, k_pool, v_pool, block_tables, desc, owned=None):
+    """The partials form of ``mixed_prefill_attention`` (see
+    ``mixed_prefill_partials_plain`` for the contract): the kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    _build.refuse_grad("mixed_prefill_partials", q, k_pool, v_pool)
+    if q.device.type == "cpu":
+        return mixed_prefill_partials_plain(q, k_pool, v_pool, block_tables, desc, owned)
+    if q.device.type != "cuda":
+        raise ValueError(f"mixed_prefill_partials: tensor on {q.device}")
+    _check_mixed("mixed_prefill_partials", q, k_pool, v_pool, block_tables, desc)
+    r, w, h, dh = q.shape
+    kv = k_pool.shape[2]
+    if owned is not None and (owned.shape != block_tables.shape or owned.device != q.device):
+        raise ValueError(f"mixed_prefill_partials: owned {tuple(owned.shape)} on {owned.device}, "
+                         f"tables {tuple(block_tables.shape)}")
+    q, k_pool, v_pool = _aligned(q, k_pool, v_pool)
+    tables = block_tables.to(torch.int32).contiguous()
+    desc = desc.to(torch.int32).contiguous()
+    own = None if owned is None else owned.to(torch.uint8).contiguous()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o = torch.empty((r, kv, h // kv, w, dh), **f32)
+    m, l = (torch.empty((r, kv, h // kv, w, 1), **f32) for _ in range(2))
+    if r == 0 or w == 0:
+        return o, m, l
+    lib = _build.load("mixed_prefill")
+    err = lib.mixed_prefill_partials_launch(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(), desc.data_ptr(),
+        0 if own is None else own.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
+        r, w, h, kv, dh, k_pool.shape[1], tables.shape[1], int(q.dtype == torch.bfloat16),
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+    )
+    _build.check(err, "mixed_prefill_partials")
+    global launches
+    launches += 1
+    return o, m, l
+
+
 def mixed_prefill_attention(q, k_pool, v_pool, block_tables, desc):
     """Ragged mixed prefill/decode attention through a block table (see
     the module docstring for the descriptor contract)."""
@@ -67,27 +170,10 @@ def mixed_prefill_attention(q, k_pool, v_pool, block_tables, desc):
         return mixed_prefill_attention_plain(q, k_pool, v_pool, block_tables, desc)
     if q.device.type != "cuda":
         raise ValueError(f"mixed_prefill_attention: tensor on {q.device}")
+    _check_mixed("mixed_prefill_attention", q, k_pool, v_pool, block_tables, desc)
     r, w, h, dh = q.shape
-    n_pool, bs, kv, dh_k = k_pool.shape
-    if (
-        v_pool.shape != k_pool.shape or dh_k != dh or h % kv or dh not in _HEAD_DIMS
-        or desc.shape != (r, 4) or block_tables.dim() != 2
-    ):
-        raise ValueError(
-            f"mixed_prefill_attention: q {tuple(q.shape)}, pools {tuple(k_pool.shape)}, "
-            f"tables {tuple(block_tables.shape)}, desc {tuple(desc.shape)}"
-        )
-    if not (q.dtype == k_pool.dtype == v_pool.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"mixed_prefill_attention: dtypes {q.dtype} / {k_pool.dtype} / {v_pool.dtype}")
-    for t in (k_pool, v_pool, block_tables, desc):
-        if t.device != q.device:
-            raise ValueError(f"mixed_prefill_attention: tensors on {q.device} and {t.device}")
-    # bf16 is read with 16-byte copies: a fresh copy of a tensor at an
-    # unaligned pointer (a contiguous view at an odd offset stays unaligned)
-    q, k_pool, v_pool = (
-        t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
-        for t in (q, k_pool, v_pool)
-    )
+    kv, bs = k_pool.shape[2], k_pool.shape[1]
+    q, k_pool, v_pool = _aligned(q, k_pool, v_pool)
     tables = block_tables.to(torch.int32).contiguous()
     desc = desc.to(torch.int32).contiguous()
     out = torch.empty_like(q)

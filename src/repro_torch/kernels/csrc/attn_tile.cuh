@@ -36,8 +36,17 @@
 //                               ok = false: zero-filled, nothing read
 //   const __nv_bfloat16* k_row(int pos), v_row(int pos)
 //   int row_limit(int row)      the row sees the keys pos < row_limit
+//   bool key_ok(int pos)        false masks key pos out of every row and
+//                               zero-fills its K/V copies (a key this
+//                               shard does not own); read only for
+//                               pos < n_kv + 63
 //   __nv_bfloat16* out_row(int row)   where the row's output goes, or
 //                               nullptr for a row that is not stored
+//   static constexpr bool kPartials   true: the tile stores the f32
+//                               partials instead, through
+//   int part_index(int row)     the row's index in o_part / m_part /
+//                               l_part (o_part rows of DH floats), or -1
+//                               for a row that is not stored
 #pragma once
 
 #include "common.cuh"
@@ -80,8 +89,11 @@ struct Tile {
 };
 
 // The whole tile: loads, the walk over ceil(n_kv / 64) key tiles and the
-// bf16 store of o / max(l, 1e-30).  smem_raw holds Tile<DH>::SMEM bytes.
-// Called by all 128 threads of the block.
+// bf16 store of o / max(l, 1e-30), or with Src::kPartials the f32
+// un-normalised o, m in natural units (m_log2 * ln 2; a row that saw no
+// key keeps m = NEG_INF exactly, so that a combine over shards never
+// meets -inf - -inf) and l.  smem_raw holds Tile<DH>::SMEM bytes.  Called
+// by all 128 threads of the block.
 template <int DH, class Src>
 __device__ __forceinline__ void attend_tile(const Src& src, uint8_t* smem_raw, int n_kv, float scale_log2) {
   using TL = Tile<DH>;
@@ -104,14 +116,14 @@ __device__ __forceinline__ void attend_tile(const Src& src, uint8_t* smem_raw, i
   auto load_k = [&](uint32_t dst, int t) {
     for (int e = tid; e < TK * TL::CHUNKS; e += kWgThreads) {
       const int r = e / TL::CHUNKS, c = e - r * TL::CHUNKS, pos = t * TK + r;
-      const bool ok = pos < n_kv;
+      const bool ok = pos < n_kv && src.key_ok(pos);
       repro::cp_async16(dst + TL::off(r, c), src.k_row(ok ? pos : 0) + c * 8, ok);
     }
   };
   auto load_v = [&](uint32_t dst, int t) {
     for (int e = tid; e < TK * TL::CHUNKS; e += kWgThreads) {
       const int r = e / TL::CHUNKS, c = e - r * TL::CHUNKS, pos = t * TK + r;
-      const bool ok = pos < n_kv;
+      const bool ok = pos < n_kv && src.key_ok(pos);
       repro::cp_async16(dst + TL::off(r, c), src.v_row(ok ? pos : 0) + c * 8, ok);
     }
   };
@@ -169,7 +181,7 @@ __device__ __forceinline__ void attend_tile(const Src& src, uint8_t* smem_raw, i
 #pragma unroll
     for (int x = 0; x < 32; ++x) {
       const int r = (x >> 1) & 1, pos = c0 + (x >> 2) * 8 + quad * 2 + (x & 1);
-      s[x] = pos < lim[r] ? s[x] * scale_log2 : NEG_INF;
+      s[x] = pos < lim[r] && src.key_ok(pos) ? s[x] * scale_log2 : NEG_INF;
       mx[r] = fmaxf(mx[r], s[x]);
     }
     float alpha[2], sum[2] = {0.f, 0.f};
@@ -227,15 +239,33 @@ __device__ __forceinline__ void attend_tile(const Src& src, uint8_t* smem_raw, i
   }
   repro::cp_async_wait<0>();
 
+  if constexpr (Src::kPartials) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    __nv_bfloat16* orow = src.out_row(row0 + 8 * r);
-    if (orow == nullptr) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    for (int r = 0; r < 2; ++r) {
+      const int pi = src.part_index(row0 + 8 * r);
+      if (pi < 0) continue;
+      float* orow = src.o_part + (size_t)pi * DH;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
-      const int x = 4 * j + 2 * r;
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * quad) = repro::pack_bf16(o[x] * inv, o[x + 1] * inv);
+      for (int j = 0; j < DH / 8; ++j) {
+        const int x = 4 * j + 2 * r;
+        *reinterpret_cast<float2*>(orow + 8 * j + 2 * quad) = make_float2(o[x], o[x + 1]);
+      }
+      if (quad == 0) {
+        src.m_part[pi] = m[r] == NEG_INF ? NEG_INF : m[r] * 0.6931471805599453f;
+        src.l_part[pi] = l[r];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      __nv_bfloat16* orow = src.out_row(row0 + 8 * r);
+      if (orow == nullptr) continue;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        const int x = 4 * j + 2 * r;
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * quad) = repro::pack_bf16(o[x] * inv, o[x + 1] * inv);
+      }
     }
   }
 }

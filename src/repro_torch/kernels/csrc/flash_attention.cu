@@ -87,9 +87,11 @@ struct DenseSrc {
   }
   __device__ __forceinline__ const __nv_bfloat16* k_row(int pos) const { return kb + (size_t)pos * ks.s; }
   __device__ __forceinline__ const __nv_bfloat16* v_row(int pos) const { return vb + (size_t)pos * vs.s; }
+  static constexpr bool kPartials = false;
   __device__ __forceinline__ int row_limit(int row) const {
     return causal ? min(n_kv, (i0 + row) / g + 1) : n_kv;
   }
+  __device__ __forceinline__ bool key_ok(int) const { return true; }
   __device__ __forceinline__ __nv_bfloat16* out_row(int row) const {
     const int i = i0 + row;
     if (i >= rows_total) return nullptr;

@@ -31,7 +31,13 @@
 //     asserts S % bs == 0); lengths above S clamp to S.
 //   * A row with lengths[b] <= 0 reproduces the TPU kernel: every one of
 //     its S logits is NEG_INF, each weighs exp(0) = 1, so m = NEG_INF,
-//     l = S, o = sum(V), and the normalised output is mean(V).
+//     l = S, o = sum(V), and the normalised output is mean(V).  With
+//     empty_zero it follows the paged kernel's rule instead: no split is
+//     live, so m = NEG_INF, l = 0, o = 0 exactly (and the normalised
+//     output 0).  That is what a cache shard holding none of a row's
+//     positions must contribute to a cross-shard combine
+//     (serving/dist_decode.py): exact zeros that leave the other shards'
+//     partials unchanged.
 #include "decode_split.cuh"
 
 namespace {
@@ -42,11 +48,14 @@ template <typename T>
 cudaError_t dispatch(int dh, const void* q, const void* kc, const void* vc, const int* lengths,
                      void* out, float* o, float* m, float* l, float* o_part, float* m_part,
                      float* l_part, int b, int h, int kv, int s, int n_split, repro::Strides ks,
-                     repro::Strides vs, cudaStream_t st) {
+                     repro::Strides vs, int empty_zero, cudaStream_t st) {
   const dec::StridedKV src{ks, vs, s};
   return repro::with_head_dim(dh, [&](auto d) {
-    return dec::launch_split<T, decltype(d)::value, true>(q, kc, vc, src, lengths, out, o, m, l, o_part, m_part,
-                                                         l_part, b, h, kv, n_split, st);
+    constexpr int DH = decltype(d)::value;
+    return empty_zero ? dec::launch_split<T, DH, false>(q, kc, vc, src, lengths, out, o, m, l, o_part, m_part,
+                                                       l_part, b, h, kv, n_split, st)
+                      : dec::launch_split<T, DH, true>(q, kc, vc, src, lengths, out, o, m, l, o_part, m_part,
+                                                      l_part, b, h, kv, n_split, st);
   });
 }
 
@@ -59,13 +68,15 @@ cudaError_t dispatch(int dh, const void* q, const void* kc, const void* vc, cons
 // (b, kv, h / kv, 1), all f32, and out unused.  Scratch o_part (b, kv,
 // n_split, h / kv, dh), m_part / l_part (b, kv, n_split, h / kv) f32 with
 // n_split = ceil(s / 64).  q and the caches share one dtype (f32 or
-// bf16).  dh in {16, 32, 64, 128}, h / kv <= 16, s >= 1.
+// bf16).  dh in {16, 32, 64, 128}, h / kv <= 16, s >= 1.  empty_zero: a
+// row with lengths[b] <= 0 gives exact zeros (m = NEG_INF, l = 0, o = 0)
+// instead of the mean rule.
 extern "C" int flash_decode_launch(const void* q, const void* kc, const void* vc,
                                    const void* lengths, void* out, void* o, void* m, void* l,
                                    void* o_part, void* m_part, void* l_part, int b, int h, int kv,
                                    int dh, int s, int n_split, long long ks_b, long long ks_s,
                                    long long ks_h, long long vs_b, long long vs_s, long long vs_h,
-                                   int partials, int is_bf16, void* stream) {
+                                   int partials, int empty_zero, int is_bf16, void* stream) {
   if (kv <= 0 || h % kv || h / kv > dec::GMAX || s < 1 || n_split != (s + dec::PS - 1) / dec::PS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -78,7 +89,9 @@ extern "C" int flash_decode_launch(const void* q, const void* kc, const void* vc
   float* mp = static_cast<float*>(m_part);
   float* lp = static_cast<float*>(l_part);
   const cudaError_t e =
-      is_bf16 ? dispatch<__nv_bfloat16>(dh, q, kc, vc, ln, out, o_p, m_p, l_p, op, mp, lp, b, h, kv, s, n_split, ks, vs, st)
-              : dispatch<float>(dh, q, kc, vc, ln, out, o_p, m_p, l_p, op, mp, lp, b, h, kv, s, n_split, ks, vs, st);
+      is_bf16 ? dispatch<__nv_bfloat16>(dh, q, kc, vc, ln, out, o_p, m_p, l_p, op, mp, lp, b, h, kv, s, n_split, ks, vs,
+                                        empty_zero, st)
+              : dispatch<float>(dh, q, kc, vc, ln, out, o_p, m_p, l_p, op, mp, lp, b, h, kv, s, n_split, ks, vs,
+                                empty_zero, st);
   return (int)e;
 }

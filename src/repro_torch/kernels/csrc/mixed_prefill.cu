@@ -46,6 +46,21 @@
 //   * Blocks are numbered last lane tile first, so that the tiles with
 //     the longest walks start first.
 //
+// Partials (mixed_prefill_partials_launch, the per-shard half of the
+// sharded engine's dispatch): the same walk, stopped before the
+// normalisation.  It stores f32 o (un-normalised), m (natural units) and
+// l at (r, kv head, group, lane), and takes an optional (B, n_t) uint8
+// `owned` table: a key in a block whose entry is 0 is masked like a key
+// past kv_len, and its K/V copies are zero-filled, so a block this shard
+// does not own (another shard's id mapped to the local trash) is never
+// read.  A row that sees no key (no owned entry, a dead lane, a free
+// slot's all-trash table) stores exactly m = NEG_INF, l = 0, o = 0, so
+// the cross-shard combine passes the owner's partials through bitwise.
+// A row's walk depends only on its own descriptor and table entries,
+// never on the pool's size or another row's ownership; it ends at the
+// row's last owned block, so a shard's call on the rows it does not own
+// (row affinity: all but its own) reads no K/V and does no products.
+//
 // f32 (the smoke-width checks and the tests): the first version's design
 // on the CUDA cores, 4 threads per query row, each scoring 8 of the 32
 // keys of a chunk staged in shared memory as f32 (one fmaf chain over
@@ -68,12 +83,15 @@ constexpr int TQ = 64;  // flattened (lane, group) rows per block
 using repro::attn::kWgThreads;
 
 // rows i0 + row = lane * g + group of (batch row r, KV head kvh); keys
-// through the block table entries staged in shared memory
-template <int DH>
+// through the block table entries staged in shared memory (with PART, a
+// block this shard does not own staged as -1)
+template <int DH, bool PART>
 struct PagedSrc {
+  static constexpr bool kPartials = PART;
   const __nv_bfloat16* q;  // at (r, 0, kvh * g) of the (R, W, H, dh) q
   const __nv_bfloat16 *kp, *vp;
   __nv_bfloat16* out;      // at (r, 0, kvh * g) of the output
+  float *o_part, *m_part, *l_part;  // at (r, kvh) of the (R, KV, G, W[, dh]) partials
   const int* tbl_s;        // tables[slot, :] in shared memory
   int i0, g, h, kv, kvh, rows_total, q_start, q_len, bs, n_kv;
 
@@ -83,7 +101,8 @@ struct PagedSrc {
     return ok ? q + ((size_t)lane * h + (i - lane * g)) * DH : q;
   }
   __device__ __forceinline__ size_t kv_off(int pos) const {
-    return (((size_t)tbl_s[pos / bs] * bs + pos % bs) * kv + kvh) * DH;
+    const int blk = tbl_s[pos / bs];  // a block not owned (-1) is never read: point at block 0
+    return (((size_t)(PART && blk < 0 ? 0 : blk) * bs + pos % bs) * kv + kvh) * DH;
   }
   __device__ __forceinline__ const __nv_bfloat16* k_row(int pos) const { return kp + kv_off(pos); }
   __device__ __forceinline__ const __nv_bfloat16* v_row(int pos) const { return vp + kv_off(pos); }
@@ -91,17 +110,28 @@ struct PagedSrc {
     const int i = i0 + row, lane = i / g;
     return i < rows_total && lane < q_len ? min(n_kv, q_start + lane + 1) : 0;
   }
+  __device__ __forceinline__ bool key_ok(int pos) const { return !PART || tbl_s[pos / bs] >= 0; }
   __device__ __forceinline__ __nv_bfloat16* out_row(int row) const {
     const int i = i0 + row, lane = i / g;
     return i < rows_total ? out + ((size_t)lane * h + (i - lane * g)) * DH : nullptr;
   }
+  __device__ __forceinline__ int part_index(int row) const {
+    const int i = i0 + row, lane = i / g;
+    return i < rows_total ? (i - lane * g) * (rows_total / g) + lane : -1;
+  }
 };
 
-template <int DH>
+// table entries staged beyond n_t with PART: key_ok may be read for a
+// position up to 63 past the walk, whose value is never used
+constexpr int kTblSlack = 64;
+
+template <int DH, bool PART>
 __global__ void __launch_bounds__(kWgThreads)
 mixed_prefill_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
                    const __nv_bfloat16* __restrict__ vp, const int* __restrict__ tables,
-                   const int* __restrict__ desc, __nv_bfloat16* __restrict__ out, int nr, int w, int h,
+                   const int* __restrict__ desc, const uint8_t* __restrict__ owned,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ o_part,
+                   float* __restrict__ m_part, float* __restrict__ l_part, int nr, int w, int h,
                    int kv, int bs, int n_t, int n_lt, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   int* tbl_s = reinterpret_cast<int*>(smem_raw + repro::attn::Tile<DH>::SMEM);  // [n_t]
@@ -115,31 +145,46 @@ mixed_prefill_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   const int q_len = desc[r * 4 + 2], kv_len = desc[r * 4 + 3];
   const int first_lane = i0 / g;
   const int last_lane = min((min(rows_total, i0 + TQ) - 1) / g, q_len - 1);
-  const int n_kv =
+  int n_kv =
       first_lane < q_len ? max(0, min(min(kv_len, n_t * bs), q_start + last_lane + 1)) : 0;
 
   const int n_e = (n_kv + bs - 1) / bs;  // table entries the walk reaches
-  for (int e = threadIdx.x; e < n_e; e += kWgThreads) tbl_s[e] = tables[(size_t)slot * n_t + e];
+  for (int e = threadIdx.x; e < n_e; e += kWgThreads) {
+    const size_t a = (size_t)slot * n_t + e;
+    tbl_s[e] = PART && owned != nullptr && owned[a] == 0 ? -1 : tables[a];
+  }
   __syncthreads();
+  if (PART) {
+    // the walk ends at the last owned block: the key tiles after it are
+    // wholly masked, and skipping them leaves m, l and o exact; a row this
+    // shard owns no block of walks nothing and stores exact zeros
+    int e = n_e - 1;
+    while (e >= 0 && tbl_s[e] < 0) --e;
+    n_kv = min(n_kv, (e + 1) * bs);
+  }
   const size_t row0 = ((size_t)r * w * h + (size_t)kvh * g) * DH;
-  const PagedSrc<DH> src{q + row0, kp, vp, out + row0, tbl_s, i0, g, h, kv, kvh,
-                         rows_total, q_start, q_len, bs, n_kv};
+  const size_t part0 = ((size_t)r * kv + kvh) * g * w;  // (r, kvh, 0, 0) of the partials
+  const PagedSrc<DH, PART> src{q + row0, kp, vp, PART ? out : out + row0,
+                               PART ? o_part + part0 * DH : o_part, PART ? m_part + part0 : m_part,
+                               PART ? l_part + part0 : l_part, tbl_s, i0, g, h, kv, kvh,
+                               rows_total, q_start, q_len, bs, n_kv};
   repro::attn::attend_tile<DH>(src, smem_raw, n_kv, scale_log2);
 }
 
-template <int DH>
+template <int DH, bool PART>
 cudaError_t launch_bf16(const void* q, const void* kp, const void* vp, const int* tables,
-                        const int* desc, void* out, int r, int w, int h, int kv, int bs, int n_t,
+                        const int* desc, const uint8_t* owned, void* out, float* o_part,
+                        float* m_part, float* l_part, int r, int w, int h, int kv, int bs, int n_t,
                         cudaStream_t st) {
-  const size_t smem = repro::attn::Tile<DH>::SMEM + sizeof(int) * (size_t)n_t;
+  const size_t smem = repro::attn::Tile<DH>::SMEM + sizeof(int) * ((size_t)n_t + (PART ? kTblSlack : 0));
   static size_t allowed = 0;
-  cudaError_t e = repro::allow_smem(mixed_prefill_bf16<DH>, smem, allowed);
+  cudaError_t e = repro::allow_smem(mixed_prefill_bf16<DH, PART>, smem, allowed);
   if (e != cudaSuccess) return e;
   const int n_lt = (w * (h / kv) + TQ - 1) / TQ;
-  mixed_prefill_bf16<DH><<<r * n_lt * kv, kWgThreads, smem, st>>>(
+  mixed_prefill_bf16<DH, PART><<<r * n_lt * kv, kWgThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), tables, desc, static_cast<__nv_bfloat16*>(out), r, w, h,
-      kv, bs, n_t, n_lt, 1.4426950408889634f / sqrtf((float)DH));
+      static_cast<const __nv_bfloat16*>(vp), tables, desc, owned, static_cast<__nv_bfloat16*>(out),
+      o_part, m_part, l_part, r, w, h, kv, bs, n_t, n_lt, 1.4426950408889634f / sqrtf((float)DH));
   return cudaGetLastError();
 }
 
@@ -152,14 +197,16 @@ constexpr int KC = 32;  // key positions per chunk
 
 template <int DH>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)TQ * (DH + 1) + 2 * KC * (DH + 1) + TQ * (KC + 1));
+  return sizeof(float) * ((size_t)TQ * (DH + 1) + 2 * KC * (DH + 1) + TQ * (KC + 1) + KC);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool PART>
 __global__ void __launch_bounds__(kThreads)
 mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
-              const int* __restrict__ tables, const int* __restrict__ desc, T* __restrict__ out,
-              int w, int h, int kv, int bs, int n_t, float scale) {
+              const int* __restrict__ tables, const int* __restrict__ desc,
+              const uint8_t* __restrict__ owned, T* __restrict__ out, float* __restrict__ o_part,
+              float* __restrict__ m_part, float* __restrict__ l_part, int w, int h, int kv, int bs,
+              int n_t, float scale) {
   constexpr int LD = DH + 1;  // padded rows: no shared-memory bank conflicts
   constexpr int PLD = KC + 1;
   constexpr int NC = DH / 4;  // output columns per thread
@@ -168,6 +215,7 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
   float* k_s = q_s + TQ * LD;   // [KC][LD]
   float* v_s = k_s + KC * LD;   // [KC][LD]
   float* p_s = v_s + KC * LD;   // [TQ][PLD]
+  int* own_s = reinterpret_cast<int*>(p_s + TQ * PLD);  // [KC]: the chunk's key is owned
 
   const int r = blockIdx.x, kvh = blockIdx.y;
   const int g = h / kv;
@@ -181,8 +229,13 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
   const int first_lane = i0 / g;
   const int last_lane = min((min(rows_total, i0 + TQ) - 1) / g, q_len - 1);
   // (never past the n_t * bs positions the block table addresses)
-  const int n_kv =
+  int n_kv =
       first_lane < q_len ? max(0, min(min(kv_len, n_t * bs), q_start + last_lane + 1)) : 0;
+  if (PART && owned != nullptr) {  // up to the last owned block, as in the bf16 body
+    int e = (n_kv + bs - 1) / bs - 1;
+    while (e >= 0 && owned[(size_t)slot * n_t + e] == 0) --e;
+    n_kv = min(n_kv, (e + 1) * bs);
+  }
 
   for (int e = tid; e < TQ * DH; e += kThreads) {
     const int rr = e / DH, col = e - rr * DH, i = i0 + rr;
@@ -208,7 +261,9 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
     for (int e = tid; e < KC * DH; e += kThreads) {
       const int kk = e / DH, col = e - kk * DH, pos = c0 + kk;
       float kx = 0.f, vx = 0.f;
-      if (pos < n_kv) {
+      bool own = pos < n_kv;
+      if (PART && own && owned != nullptr) own = owned[(size_t)slot * n_t + pos / bs] != 0;
+      if (own) {
         const int blk = tables[(size_t)slot * n_t + pos / bs];
         const size_t a = (((size_t)blk * bs + pos % bs) * kv + kvh) * DH + col;
         kx = to_f(kp[a]);
@@ -216,6 +271,7 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
       }
       k_s[kk * LD + col] = kx;
       v_s[kk * LD + col] = vx;
+      if (col == 0) own_s[kk] = own;
     }
     __syncthreads();
 
@@ -227,7 +283,7 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
       float dot = 0.f;
 #pragma unroll 8
       for (int col = 0; col < DH; ++col) dot = fmaf(q_s[row * LD + col], k_s[key * LD + col], dot);
-      const bool valid = live && pos < n_kv && pos <= qpos && pos < kv_len;
+      const bool valid = live && own_s[key] && pos <= qpos && pos < kv_len;
       s[j] = valid ? dot * scale : NEG_INF;
       mx = fmaxf(mx, s[j]);
     }
@@ -238,7 +294,7 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
 #pragma unroll
     for (int j = 0; j < KC / 4; ++j) {
       const int key = part + 4 * j, pos = c0 + key;
-      const bool valid = live && pos < n_kv && pos <= qpos && pos < kv_len;
+      const bool valid = live && own_s[key] && pos <= qpos && pos < kv_len;
       const float p = valid ? expf(s[j] - m_new) : 0.f;
       p_s[row * PLD + key] = p;
       psum += p;
@@ -258,27 +314,56 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
 
   if (i < rows_total) {
     const int gg = i - my_lane * g;
-    T* o = out + (((size_t)r * w + my_lane) * h + kvh * g + gg) * DH;
-    const float denom = fmaxf(l, 1e-30f);
+    if (PART) {  // f32 partials at (r, kvh, gg, lane); m already in natural units
+      const size_t pi = (((size_t)r * kv + kvh) * g + gg) * w + my_lane;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) o[c * 4 + part] = from_f<T>(acc[c] / denom);
+      for (int c = 0; c < NC; ++c) o_part[pi * DH + c * 4 + part] = acc[c];
+      if (part == 0) {
+        m_part[pi] = m;
+        l_part[pi] = l;
+      }
+    } else {
+      T* o = out + (((size_t)r * w + my_lane) * h + kvh * g + gg) * DH;
+      const float denom = fmaxf(l, 1e-30f);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) o[c * 4 + part] = from_f<T>(acc[c] / denom);
+    }
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool PART>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tables,
-                   const int* desc, void* out, int r, int w, int h, int kv, int bs, int n_t,
-                   cudaStream_t st) {
+                   const int* desc, const uint8_t* owned, void* out, float* o_part, float* m_part,
+                   float* l_part, int r, int w, int h, int kv, int bs, int n_t, cudaStream_t st) {
   const size_t smem = smem_bytes<DH>();
   static size_t allowed = 0;
-  cudaError_t e = repro::allow_smem(mixed_prefill<T, DH>, smem, allowed);
+  cudaError_t e = repro::allow_smem(mixed_prefill<T, DH, PART>, smem, allowed);
   if (e != cudaSuccess) return e;
   const int g = h / kv;
   dim3 grid(r, kv, (w * g + TQ - 1) / TQ);
-  mixed_prefill<T, DH><<<grid, kThreads, smem, st>>>(
+  mixed_prefill<T, DH, PART><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), tables,
-      desc, static_cast<T*>(out), w, h, kv, bs, n_t, 1.0f / sqrtf((float)DH));
+      desc, owned, static_cast<T*>(out), o_part, m_part, l_part, w, h, kv, bs, n_t,
+      1.0f / sqrtf((float)DH));
   return cudaGetLastError();
+}
+
+template <bool PART>
+cudaError_t dispatch(const void* q, const void* kp, const void* vp, const void* tables,
+                     const void* desc, const void* owned, void* out, void* o_part, void* m_part,
+                     void* l_part, int r, int w, int h, int kv, int dh, int bs, int n_t, int is_bf16,
+                     cudaStream_t st) {
+  const int* tb = static_cast<const int*>(tables);
+  const int* ds = static_cast<const int*>(desc);
+  const uint8_t* ow = static_cast<const uint8_t*>(owned);
+  float* op = static_cast<float*>(o_part);
+  float* mp = static_cast<float*>(m_part);
+  float* lp = static_cast<float*>(l_part);
+  return repro::with_head_dim(dh, [&](auto d) {
+    constexpr int DH = decltype(d)::value;
+    return is_bf16 ? launch_bf16<DH, PART>(q, kp, vp, tb, ds, ow, out, op, mp, lp, r, w, h, kv, bs, n_t, st)
+                   : launch<float, DH, PART>(q, kp, vp, tb, ds, ow, out, op, mp, lp, r, w, h, kv, bs, n_t, st);
+  });
 }
 
 }  // namespace
@@ -291,12 +376,18 @@ extern "C" int mixed_prefill_launch(const void* q, const void* kp, const void* v
                                     const void* tables, const void* desc, void* out, int r,
                                     int w, int h, int kv, int dh, int bs, int n_t, int is_bf16,
                                     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* tb = static_cast<const int*>(tables);
-  const int* ds = static_cast<const int*>(desc);
-  return (int)repro::with_head_dim(dh, [&](auto d) {
-    constexpr int DH = decltype(d)::value;
-    return is_bf16 ? launch_bf16<DH>(q, kp, vp, tb, ds, out, r, w, h, kv, bs, n_t, st)
-                   : launch<float, DH>(q, kp, vp, tb, ds, out, r, w, h, kv, bs, n_t, st);
-  });
+  return (int)dispatch<false>(q, kp, vp, tables, desc, nullptr, out, nullptr, nullptr, nullptr, r, w,
+                              h, kv, dh, bs, n_t, is_bf16, static_cast<cudaStream_t>(stream));
+}
+
+// The partials form: as mixed_prefill_launch, with owned (B, n_t) uint8
+// (0: the block is not this shard's; null: every block is) and, in place
+// of out, o (r, kv, h / kv, w, dh), m and l (r, kv, h / kv, w), all f32.
+extern "C" int mixed_prefill_partials_launch(const void* q, const void* kp, const void* vp,
+                                             const void* tables, const void* desc,
+                                             const void* owned, void* o, void* m, void* l, int r,
+                                             int w, int h, int kv, int dh, int bs, int n_t,
+                                             int is_bf16, void* stream) {
+  return (int)dispatch<true>(q, kp, vp, tables, desc, owned, nullptr, o, m, l, r, w, h, kv, dh, bs,
+                             n_t, is_bf16, static_cast<cudaStream_t>(stream));
 }

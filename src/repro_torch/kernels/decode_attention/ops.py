@@ -60,13 +60,17 @@ def _split_scratch(b, kv, g, dh, cap, device):
     return n_split, o, m, l
 
 
-def decode_attention_plain(q, k_cache, v_cache, lengths, return_partials: bool = False):
+def decode_attention_plain(q, k_cache, v_cache, lengths, return_partials: bool = False,
+                           empty_zero: bool = False):
     """Dense masked softmax in f32.  q (B, H, dh); caches (B, S, KV, dh);
     row ``b`` attends positions ``< lengths[b]``.  Returns (B, H, dh) in
     q's dtype, or with ``return_partials`` the un-normalised f32 partials
     ``(o (B, KV, G, dh), m (B, KV, G, 1), l (B, KV, G, 1))``.  A row with
     ``lengths[b] == 0`` has every logit at -1e30, so its weights are
-    uniform: mean(V), or ``m = -1e30, l = S, o = sum(V)``."""
+    uniform: mean(V), or ``m = -1e30, l = S, o = sum(V)``; with
+    ``empty_zero`` its weights are zeroed under the mask instead: 0, or
+    ``m = -1e30, l = 0, o = 0`` (what a cache shard holding none of the
+    row's positions contributes to a combine)."""
     b, h, dh = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
     qr = q.float().reshape(b, kv, h // kv, dh)
@@ -76,8 +80,12 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, return_partials: bool =
     if return_partials:
         m = logits.amax(dim=-1, keepdim=True)
         p = torch.exp(logits - m)
+        if empty_zero:
+            p = torch.where(valid, p, torch.zeros_like(p))
         return torch.einsum("bkgs,bskd->bkgd", p, v_cache.float()), m, p.sum(dim=-1, keepdim=True)
     p = torch.softmax(logits, dim=-1)
+    if empty_zero:
+        p = torch.where(valid, p, torch.zeros_like(p))
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return out.reshape(b, h, dh).to(q.dtype)
 
@@ -91,14 +99,17 @@ def combine_partials(o, m, l):
     return o_g / torch.clamp(l_g, min=1e-30)
 
 
-def decode_attention(q, k_cache, v_cache, lengths, return_partials: bool = False):
+def decode_attention(q, k_cache, v_cache, lengths, return_partials: bool = False,
+                     empty_zero: bool = False):
     """Single-token attention over a contiguous cache.  The caches are
     read in place through their batch / sequence / head strides when
     head_dim is contiguous and the pointer and strides are 16-byte
-    multiples, else from a contiguous copy."""
+    multiples, else from a contiguous copy.  An empty row follows the
+    mean rule, or with ``empty_zero`` the exact-zero rule (see
+    ``decode_attention_plain``)."""
     _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, lengths, return_partials)
+        return decode_attention_plain(q, k_cache, v_cache, lengths, return_partials, empty_zero)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: tensor on {q.device}")
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape[0] != q.shape[0] or k_cache.shape[1] == 0:
@@ -123,7 +134,7 @@ def decode_attention(q, k_cache, v_cache, lengths, return_partials: bool = False
         err = lib.flash_decode_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), *ptrs,
             *(t.data_ptr() for t in scratch), b, h, kv, dh, s, n_split,
-            *k_cache.stride()[:3], *v_cache.stride()[:3], int(return_partials),
+            *k_cache.stride()[:3], *v_cache.stride()[:3], int(return_partials), int(empty_zero),
             int(q.dtype == torch.bfloat16), ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
         )
         _build.check(err, "decode_attention")

@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--system paged] [--queries 16] [--trace out.json]
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --system paged --prefix-cache --repeat 2
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --system paged --shards 4
 
 Builds one of the configurations ``chip_smoke.py`` serves, random
 weights from ``--seed``: ``--system paged`` (default) or ``contiguous``
@@ -23,7 +24,10 @@ builds the engine with its prefix cache and serves the queries
 profiler: with ``--repeat 2`` that is the warm repeat, whose prompts
 find their prefixes cached.  Its pool then holds two waves of
 ``max_batch`` rows' blocks (144), so that every prompt's chain stays
-cached.  Needs a CUDA device.
+cached.  ``--shards N`` (paged only) splits a pool of 144 blocks over N
+shards, on the first N cards or, with fewer cards, all on the first one,
+so that the sharded dispatch's device time is filed by kernel beside the
+rest.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -78,14 +82,18 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     ap.add_argument("--prefix-cache", action="store_true", help="the paged engine with its prefix cache")
     ap.add_argument("--repeat", type=int, default=1, help="serves on the resident engine; the last is profiled")
+    ap.add_argument("--shards", type=int, default=None, help="the sharded paged pool over this many shards")
     args = ap.parse_args(argv)
     if args.prefix_cache and args.system != "paged":
         ap.error("--prefix-cache needs --system paged")
+    if args.shards is not None and args.system != "paged":
+        ap.error("--shards needs --system paged")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serve import full_width_system, paper_models_system
+    from repro_torch.runtime.compat import make_mesh
     from repro_torch.serving.kv_cache import blocks_for
 
     if not torch.cuda.is_available():
@@ -103,9 +111,15 @@ def main(argv=None) -> int:
     elif args.system == "moe":
         sys_, _, texts = full_width_system(args.queries, "cuda", args.seed, arch="qwen2-moe-a2.7b")
     else:
-        pool = 2 * 8 * blocks_for(256 + 16, 32) if args.prefix_cache else None
+        pool = 2 * 8 * blocks_for(256 + 16, 32) if args.prefix_cache or args.shards else None
+        mesh = None
+        if args.shards is not None:
+            n_dev = torch.cuda.device_count()
+            mesh = make_mesh([f"cuda:{i}" if n_dev >= args.shards else "cuda:0" for i in range(args.shards)])
+            print(f"{args.shards} shards on {[str(d) for d in mesh.devices]}, {pool} pool blocks")
         sys_, _, texts = full_width_system(args.queries, "cuda", args.seed, paged=args.system == "paged",
-                                           prefix_cache=args.prefix_cache, n_pool_blocks=pool)
+                                           prefix_cache=args.prefix_cache, n_pool_blocks=pool,
+                                           shards=args.shards, mesh=mesh)
     sys_.serve(texts[:2], max_new_tokens=2)  # warm-up
     if args.prefix_cache:  # the warm-up's prompts must not seed the cache
         sys_.orchestrator.generator.engine.reset_cache()
@@ -130,7 +144,8 @@ def main(argv=None) -> int:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     print(f"[{smi}] torch {torch.__version__}, system {args.system}"
-          + (f", prefix cache, repeat {args.repeat} of {args.repeat}" if args.prefix_cache else ""))
+          + (f", prefix cache, repeat {args.repeat} of {args.repeat}" if args.prefix_cache else "")
+          + (f", {args.shards} shards" if args.shards else ""))
     if args.prefix_cache:
         print(f"profiled repeat: {st['prefix_hits']}/{st['prefix_lookups']} prefix hits, "
               f"{st['prefill_tokens_saved']}/{st['prefill_tokens']} prefill tokens saved")

@@ -7,6 +7,7 @@ providers + enclave orchestrator, and answer queries.
   python -m repro_torch.launch.serve --queries 16 --prefix-cache --repeat 2 --spill-mb 8
   python -m repro_torch.launch.serve --queries 16 --stream --collect-batch 4 --tenants interactive=4:1,batch=1
   python -m repro_torch.launch.serve --queries 16 --generate --paged --draft-k 3
+  python -m repro_torch.launch.serve --queries 16 --shards 4 --block-size 8 --device cpu
 
 Uses the bag embedder + lexical-overlap reranker (training-free).
 ``--generate`` stands up a random-init, smoke-width LM ``ServeEngine``
@@ -18,12 +19,15 @@ p50/p95.  ``--prefix-cache`` shares prompt prefixes on the paged pool,
 and ``--spill-mb`` adds the host spill tier; ``--tenants`` tags queries
 with SLO classes; ``--draft-k K`` turns on speculative decoding with the
 demo model as its own drafter (self-speculation) and prints the drafter
-pool and the speculation gauges.  Everything runs on ``--device`` (default ``cuda``;
-``cpu`` runs the kernels' plain versions).
+pool and the speculation gauges; ``--shards N`` splits the paged pool over
+N devices (the first N cards, or N shards on the CPU with ``--device
+cpu``) and prints the blocks free on each shard.  Everything runs on
+``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions).
 
 ``full_width_system`` (qwen3-0.6b, qwen3-4b or qwen2-moe-a2.7b on the
 paged or contiguous engine, mamba2-1.3b on the contiguous engine; with
-``draft_k`` and a drafter for speculative decoding) and
+``draft_k`` and a drafter for speculative decoding, and with ``shards``
+(and a ``mesh`` placing them) for the sharded pool) and
 ``paper_models_system`` build the configurations measured on the card
 (``chip_smoke.py``, ``launch/profile_serve.py``).
 """
@@ -73,13 +77,15 @@ def make_demo_engine(max_new_tokens: int = 16, paged: bool = False, block_size: 
                      pool_blocks: int | None = None, max_batch: int = 4,
                      token_budget: int | None = None, vocab_size: int = 8192,
                      device: str = "cuda", seed: int = 0, prefix_cache: bool = False,
-                     spill_bytes: int | None = None, draft_k: int = 0):
+                     spill_bytes: int | None = None, draft_k: int = 0, shards: int | None = None):
     """Random-init smoke-width qwen3-0.6b ``ServeEngine`` + generator
     adapter, over contiguous stripes or (``paged``) the block pool.  The
     model's vocabulary is ``vocab_size``, which must cover the tokenizer
     the prompts come from (an id outside it raises).  ``draft_k > 0``
     speculates with the model as its own drafter (a real deployment passes
-    a small ``draft_config`` / ``draft_params`` pair to ``ServeConfig``)."""
+    a small ``draft_config`` / ``draft_params`` pair to ``ServeConfig``);
+    ``shards`` splits the block pool over that many devices, every step
+    one distributed dispatch, tokens bit-identical to ``shards=1``."""
     cfg = smoke_config(get_config("qwen3-0.6b")).with_overrides(
         dtype="float32", vocab_size=vocab_size
     )
@@ -91,7 +97,7 @@ def make_demo_engine(max_new_tokens: int = 16, paged: bool = False, block_size: 
             max_batch=max_batch, max_prompt_len=256, max_new_tokens=max_new_tokens,
             paged=paged, block_size=block_size, n_pool_blocks=pool_blocks,
             token_budget=token_budget, prefix_cache=prefix_cache, spill_bytes=spill_bytes,
-            draft_k=draft_k,
+            draft_k=draft_k, shards=shards,
         ),
         device=device,
     )
@@ -127,14 +133,14 @@ def _on(tree, device):
 
 
 def _full_width_engine(tok: HashTokenizer, device: str, seed: int, paged: bool, arch: str = "qwen3-0.6b",
-                       **serve_kw):
+                       mesh=None, **serve_kw):
     """``arch`` at full width (qwen3-0.6b: 28 layers, bf16 activations and
     KV cache; qwen3-4b: 36 layers; qwen2-moe-a2.7b: 24 layers of 60
     routed top-4 experts and 4 shared ones, 60.6 GB of f32 weights;
     mamba2-1.3b: 48 layers, bf16 activations, f32 SSM state, on the
     contiguous engine only), random weights from ``seed``, behind
     ``ServeConfig(max_batch=8, max_prompt_len=256, max_new_tokens=16,
-    **serve_kw)``."""
+    **serve_kw)`` (``mesh`` places a sharded pool's shards)."""
     cfg = get_config(arch)
     if tok.vocab_size > cfg.vocab_size:
         raise ValueError("tokenizer vocabulary exceeds the model's")
@@ -143,22 +149,24 @@ def _full_width_engine(tok: HashTokenizer, device: str, seed: int, paged: bool, 
     gen = torch.Generator(device=device).manual_seed(seed)
     params = ParamTree(init_params(LM.param_specs(cfg), gen, device=device))
     scfg = ServeConfig(paged=paged, max_batch=8, max_prompt_len=256, max_new_tokens=16, **serve_kw)
-    return ServeEngine(cfg, params, scfg, device=device)
+    return ServeEngine(cfg, params, scfg, device=device, mesh=mesh)
 
 
 def full_width_system(n_queries: int = 16, device: str = "cuda", seed: int = 0,
                       generate: bool = True, paged: bool = True, arch: str = "qwen3-0.6b",
                       prefix_cache: bool = False, spill_bytes: int | None = None,
                       n_pool_blocks: int | None = None, draft_k: int = 0,
-                      draft_config=None, draft_params=None):
+                      draft_config=None, draft_params=None, shards: int | None = None, mesh=None):
     """The bag-embedder configuration measured on the card: the full-width
     ``arch`` engine (``_full_width_engine``; qwen3-0.6b by default on the
     paged block pool, or contiguous stripes with ``paged=False``;
     ``arch="mamba2-1.3b"`` needs ``paged=False``) over a 128-fact +
     128-distractor federated corpus with the overlap reranker.
-    ``prefix_cache``, ``spill_bytes``, ``n_pool_blocks`` and the
+    ``prefix_cache``, ``spill_bytes``, ``n_pool_blocks``, the
     speculative ``draft_k``, ``draft_config`` and ``draft_params`` (None:
-    self-speculation) go to the engine's ``ServeConfig``.
+    self-speculation) and the sharded pool's ``shards`` go to the engine's
+    ``ServeConfig``; ``mesh`` places the shards (default: the first
+    ``shards`` cards).
 
     Returns ``(system, engine, texts)``, ``texts`` being the corpus's
     first ``n_queries`` questions.  ``generate=False`` builds the same
@@ -168,6 +176,7 @@ def full_width_system(n_queries: int = 16, device: str = "cuda", seed: int = 0,
     engine = _full_width_engine(
         tok, device, seed, paged, arch, prefix_cache=prefix_cache, spill_bytes=spill_bytes,
         n_pool_blocks=n_pool_blocks, draft_k=draft_k, draft_config=draft_config, draft_params=draft_params,
+        shards=shards, mesh=mesh,
     ) if generate else None
     system = CFedRAGSystem(
         corpus, CFedRAGConfig(device=device), tokenizer=tok, reranker=overlap_reranker(tok),
@@ -265,6 +274,13 @@ def main(argv=None):
         "(implies --paged --generate)",
     )
     ap.add_argument(
+        "--shards", type=int, default=None, metavar="N",
+        help="split the paged KV pool over N devices (the first N cards; N "
+        "shards on the CPU with --device cpu): row-affine blocks, one "
+        "distributed dispatch per step, tokens bit-identical to --shards 1 "
+        "(implies --paged --generate)",
+    )
+    ap.add_argument(
         "--repeat", type=int, default=1,
         help="serve the query set N times through one resident engine and "
         "prefix index (prints the per-repeat hit rate)",
@@ -307,7 +323,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.spill_mb is not None:
         args.prefix_cache = True
-    if args.prefix_cache or args.token_budget is not None or args.draft_k > 0:
+    if args.prefix_cache or args.token_budget is not None or args.draft_k > 0 or args.shards is not None:
         args.paged = args.generate = True
     if args.tenants is not None or args.stream:
         args.generate = True
@@ -339,7 +355,7 @@ def main(argv=None):
             token_budget=args.token_budget, vocab_size=tok.vocab_size, device=args.device,
             prefix_cache=args.prefix_cache,
             spill_bytes=int(args.spill_mb * 2**20) if args.spill_mb else None,
-            draft_k=args.draft_k,
+            draft_k=args.draft_k, shards=args.shards,
         ) if args.generate else None,
     )
     if args.kill_provider is not None:
@@ -431,6 +447,9 @@ def main(argv=None):
                     f"{st['min_free_blocks']} at peak ({args.block_size} tok/block)"
                 )
             print(line)
+            if args.shards is not None:
+                pool = sys_.orchestrator.generator.engine._pool
+                print(f"sharded pool: {args.shards} shards, blocks free by shard {pool.free_blocks_by_shard}")
             if args.draft_k > 0 and "draft_free_blocks" in st:
                 print(
                     f"drafter pool: {st['draft_free_blocks']} blocks free now / "

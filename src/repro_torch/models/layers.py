@@ -14,7 +14,10 @@ one): ``attn_decode`` writes each row's fresh K/V into its contiguous
 stripe, then attends through ``kernels/decode_attention``'s contiguous
 flash-decode; the paged functions scatter every live lane's K/V into its
 pool slot first, then attend through ``kernels/chunked_prefill`` (mixed
-steps) or ``kernels/decode_attention``'s paged kernel (decode steps).
+steps) or ``kernels/decode_attention``'s paged kernel (decode steps).  A
+sharded pool (a list of per-shard pools, one per device of a
+``runtime.compat.Mesh``) runs the distributed dispatch instead, decode as
+its one-lane case: ``_paged_attn_sharded``.
 On CUDA tensors the kernel ops launch the hand-written kernels; on CPU
 tensors they run their plain versions.
 """
@@ -25,10 +28,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.chunked_prefill.ops import mixed_prefill_attention
+from repro_torch.kernels.chunked_prefill.ops import mixed_prefill_attention, mixed_prefill_partials
 from repro_torch.kernels.decode_attention.ops import decode_attention, paged_decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.params import ParamSpec
+from repro_torch.serving.dist_decode import combine_partials
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -202,17 +206,74 @@ def attn_decode(cfg: ModelConfig, p, x, k_cache, v_cache, pos):
     return _out_proj(out, p["wo"])
 
 
+def _paged_attn_sharded(q, k_new, v_new, k_pools, v_pools, block_tables, q_start, q_len,
+                        block_size: int, mesh=None):
+    """Distributed write-then-attend over a sharded block pool.
+
+    ``k_pools`` / ``v_pools``: one pool per shard, ``(n_local + 1,
+    block_size, KV, hd)`` on that shard's device, its trash block at local
+    index ``n_local``.  ``block_tables`` (B, n_t) holds GLOBAL block ids:
+    block ``b`` is local block ``b % n_local`` of shard ``b // n_local``,
+    and the global trash id ``n_shards * n_local`` belongs to no shard.
+
+    Each shard scatters only the fresh lanes whose target block it owns
+    (every other lane lands in its local trash) and runs the
+    ``mixed_prefill`` partials over its own table entries, ``owned =
+    (tables // n_local) == s``, the others pointed at its trash and masked
+    to exact zeros.  The pool's row affinity puts all of a row's blocks on
+    one shard, so ``dist_decode.combine_partials`` on the lead device (q's)
+    passes the owner's partials through bitwise: an N-shard run equals the
+    1-shard run bit for bit.  Only q, the fresh lanes and the per-shard
+    tables go to a shard's device, and only ``(o, m, l)`` comes back.
+    ``mesh``, when given, must list the pools' devices.
+
+    Returns ``(B, W, H, hd)`` in q's dtype (the ``wo`` projection is the
+    caller's); the pools are updated in place."""
+    devices = [t.device for t in k_pools]
+    if mesh is not None and list(mesh.devices) != devices:
+        raise ValueError(f"sharded pool on {devices}, mesh over {list(mesh.devices)}")
+    b, w, h, dh = q.shape
+    kv = k_pools[0].shape[2]
+    n_local = k_pools[0].shape[0] - 1
+    s_pad = block_tables.shape[1] * block_size
+    rows = torch.arange(b, device=q.device)
+    lane = torch.arange(w, device=q.device)
+    live = lane[None, :] < q_len[:, None]  # (B, W)
+    pos_c = torch.clamp(q_start[:, None] + lane[None, :], max=s_pad - 1).long()
+    tables = block_tables.long()
+    bid_g = tables[rows[:, None], pos_c // block_size]  # (B, W) global target blocks
+    off = pos_c % block_size
+    desc = torch.stack([rows, q_start, q_len, q_start + q_len], dim=1).to(torch.int32)
+    parts = []
+    for s, (dev, kp, vp) in enumerate(zip(devices, k_pools, v_pools)):
+        mine = live & ((bid_g // n_local) == s)
+        bid = torch.where(mine, bid_g % n_local, n_local).to(dev)
+        owned = (tables // n_local) == s
+        loc_tbl = torch.where(owned, tables % n_local, n_local).to(dev)
+        kp[bid, off.to(dev)] = k_new.to(dev, kp.dtype)
+        vp[bid, off.to(dev)] = v_new.to(dev, vp.dtype)
+        parts.append(mixed_prefill_partials(q.to(dev), kp, vp, loc_tbl, desc.to(dev), owned=owned.to(dev)))
+    out = combine_partials(*map(list, zip(*parts)))  # (B, KV, G, W, hd) f32 on q's device
+    return out.permute(0, 3, 1, 2, 4).reshape(b, w, kv * (h // kv), dh).to(q.dtype)
+
+
 def attn_mixed_paged(cfg: ModelConfig, p, x, k_pool, v_pool, positions, block_tables,
-                     block_size: int, q_len):
+                     block_size: int, q_len, mesh=None):
     """Unified mixed prefill + decode attention against the paged pool.
 
     ``x`` (B, W, d): row ``b`` carries ``q_len[b]`` live lanes at absolute
     positions ``positions[b] = q_start[b] + lane``.  Live lanes' K/V land
     in ``pool[table[pos // bs], pos % bs]`` first (dead lanes write the
     trash block, the pool's last index); then every lane attends through
-    the pool.  Returns ``(B, W, d)``; the pools are updated in place."""
+    the pool.  A sharded pool (lists of per-shard pools, over ``mesh``)
+    runs ``_paged_attn_sharded``.  Returns ``(B, W, d)``; the pools are
+    updated in place."""
     b, w = x.shape[0], x.shape[1]
     q, k_new, v_new = attn_qkv(cfg, p, x, positions)
+    if isinstance(k_pool, list):
+        out = _paged_attn_sharded(q, k_new, v_new, k_pool, v_pool, block_tables, positions[:, 0], q_len,
+                                  block_size, mesh)
+        return _out_proj(out, p["wo"])
     s_pad = block_tables.shape[1] * block_size
     lane = torch.arange(w, device=x.device)
     live = lane[None, :] < q_len[:, None]  # (B, W)
@@ -230,12 +291,20 @@ def attn_mixed_paged(cfg: ModelConfig, p, x, k_pool, v_pool, positions, block_ta
     return _out_proj(out, p["wo"])
 
 
-def attn_decode_paged(cfg: ModelConfig, p, x, k_pool, v_pool, pos, block_tables, block_size: int):
+def attn_decode_paged(cfg: ModelConfig, p, x, k_pool, v_pool, pos, block_tables, block_size: int,
+                      mesh=None):
     """One-token decode against the paged pool.  ``x`` (B, 1, d); ``pos``
     (B,) per-row write positions; row ``b`` then attends ``[0, pos[b]]``.
-    Returns ``(B, 1, d)``; the pools are updated in place."""
+    On a sharded pool decode is the one-lane case of the distributed mixed
+    dispatch (a free slot's all-trash table matches no shard, so its
+    discarded lane gives exact zeros).  Returns ``(B, 1, d)``; the pools
+    are updated in place."""
     b = x.shape[0]
     q, k_new, v_new = attn_qkv(cfg, p, x, pos[:, None])
+    if isinstance(k_pool, list):
+        one = torch.ones((b,), dtype=torch.int32, device=x.device)
+        out = _paged_attn_sharded(q, k_new, v_new, k_pool, v_pool, block_tables, pos, one, block_size, mesh)
+        return _out_proj(out, p["wo"])
     s_pad = block_tables.shape[1] * block_size
     pos_c = torch.clamp(pos, max=s_pad - 1).long()
     rows = torch.arange(b, device=x.device)

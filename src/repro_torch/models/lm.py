@@ -10,7 +10,9 @@ chunks and decode rows, one pass over the layer stack), and
 ``decode_step`` with block tables decodes one token per row through the
 pool that ``init_paged_cache`` builds; ``paged_copy_block`` copies one
 pool block, the copy-on-write half of the engine's prefix cache;
-``verify_step`` is ``mixed_step`` over speculative verify rows; ``generate``
+``verify_step`` is ``mixed_step`` over speculative verify rows (all three
+paged steps take a sharded pool, ``init_paged_cache(n_shards=, mesh=)``,
+and carry its mesh); ``generate``
 decodes greedily (or samples) from a prompt batch.  Whole-sequence attention runs
 through ``kernels/flash_attention``, contiguous decode attention through
 ``kernels/decode_attention``, and the Mamba2 mixer (``models/mamba2``)
@@ -145,21 +147,32 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat1
 
 
 def init_paged_cache(cfg: ModelConfig, n_pool_blocks: int, block_size: int,
-                     dtype=torch.bfloat16, device="cuda") -> dict:
+                     dtype=torch.bfloat16, device="cuda", n_shards: int | None = None,
+                     mesh=None) -> dict:
     """Paged K/V: per period position ``{"k", "v"}`` leaves of shape
     ``(n_blocks, n_pool_blocks, block_size, kv, hd)``.  The caller keeps
     one pool index (the last) as the trash block that unallocated table
-    entries and dead lanes point at.  Attention models only."""
+    entries and dead lanes point at.  Attention models only.
+
+    Sharded (``n_shards``, or a ``runtime.compat.Mesh`` whose size it is):
+    each leaf is the list of the shards' pools, shard ``s``'s of the shape
+    above on ``mesh.devices[s]`` (all on ``device`` without a mesh), with
+    ``n_pool_blocks`` the PER-SHARD count including its own trash block at
+    local index ``n_pool_blocks - 1``."""
     _check_ported(cfg)
     _check_attention(cfg, "the paged KV cache")
     shape = (cfg.n_blocks, n_pool_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {
-        f"pos{j}": {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-        }
-        for j in range(cfg.scan_period)
-    }
+    if mesh is not None and n_shards not in (None, mesh.size):
+        raise ValueError(f"init_paged_cache: n_shards={n_shards} on a mesh of {mesh.size}")
+    if mesh is None and n_shards is None:
+        def leaf():
+            return torch.zeros(shape, dtype=dtype, device=device)
+    else:
+        devices = mesh.devices if mesh is not None else [device] * n_shards
+
+        def leaf():
+            return [torch.zeros(shape, dtype=dtype, device=d) for d in devices]
+    return {f"pos{j}": {"k": leaf(), "v": leaf()} for j in range(cfg.scan_period)}
 
 
 def paged_copy_block(cfg: ModelConfig, cache, src: int, dst: int):
@@ -168,14 +181,27 @@ def paged_copy_block(cfg: ModelConfig, cache, src: int, dst: int):
     ``src`` holds a cached chunk that a new request's last prompt token
     would overwrite (a full-prefix hit ending on a block boundary); the
     engine copies it into the request's private ``dst`` before the row's
-    first mixed-step write.  Leaves without a block axis (none in this
-    port's paged cache, which takes attention models only) pass through
-    untouched.  Returns ``cache``."""
+    first mixed-step write.  On a sharded pool the GLOBAL ids resolve to
+    (shard ``b // n_local``, local ``b % n_local``); prefix chains are
+    row-affine, so both lie on one shard, but any pair is copied right.
+    Leaves without a block axis (none in this port's paged cache, which
+    takes attention models only) pass through untouched.  Returns
+    ``cache``."""
     for sub in cache.values():
         if "k" in sub:
             for leaf in (sub["k"], sub["v"]):
-                leaf[:, dst].copy_(leaf[:, src])
+                if isinstance(leaf, list):
+                    n_local = leaf[0].shape[1] - 1
+                    leaf[dst // n_local][:, dst % n_local].copy_(leaf[src // n_local][:, src % n_local])
+                else:
+                    leaf[:, dst].copy_(leaf[:, src])
     return cache
+
+
+def _layer_pool(leaf, i: int):
+    """Layer ``i``'s pool of a paged leaf: a tensor, or the list of its
+    shards' pools."""
+    return [t[i] for t in leaf] if isinstance(leaf, list) else leaf[i]
 
 
 def _layer_params(params, i: int, j: int):
@@ -330,13 +356,15 @@ def encoder_stack(cfg: ModelConfig, params, h):
 
 
 def mixed_step(cfg: ModelConfig, params, tokens, cache, block_tables, q_start, q_len,
-               block_size: int):
+               block_size: int, mesh=None):
     """Unified engine step.  ``tokens`` (B, W): row ``b`` carries
     ``q_len[b]`` live tokens from absolute position ``q_start[b]`` (a
     decode row has ``q_len == 1``, an idle slot ``q_len == 0``).  Earlier
-    positions must already be in the pool blocks of ``block_tables``.
-    Returns logits (B, W, V); ``cache`` is updated in place.  Attention
-    models only."""
+    positions must already be in the pool blocks of ``block_tables``.  On
+    a sharded cache (over ``mesh``) each attention layer is the
+    distributed dispatch and everything else runs once, on the tokens'
+    device.  Returns logits (B, W, V); ``cache`` is updated in place.
+    Attention models only."""
     _check_attention(cfg, "the unified mixed step")
     b, w = tokens.shape
     h = L.embed_apply(cfg, params["embed"], tokens)
@@ -349,7 +377,8 @@ def mixed_step(cfg: ModelConfig, params, tokens, cache, block_tables, q_start, q
             c = cache[f"pos{j}"]
             x = L.rmsnorm(h, pp["mixer_norm"], cfg.norm_eps)
             h = h + L.attn_mixed_paged(
-                cfg, pp["attn"], x, c["k"][i], c["v"][i], positions, block_tables, block_size, q_len
+                cfg, pp["attn"], x, _layer_pool(c["k"], i), _layer_pool(c["v"], i), positions, block_tables,
+                block_size, q_len, mesh,
             )
             h, _ = _ffn(cfg, pp, h)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
@@ -357,7 +386,7 @@ def mixed_step(cfg: ModelConfig, params, tokens, cache, block_tables, q_start, q
 
 
 def verify_step(cfg: ModelConfig, params, tokens, cache, block_tables, q_start, q_len,
-                block_size: int):
+                block_size: int, mesh=None):
     """The speculative target pass: ``mixed_step`` over verify rows.  A
     speculating row ``b`` carries ``q_len[b] <= k + 1`` lanes from its last
     committed position ``q_start[b]``: lane 0 its last committed token,
@@ -368,15 +397,16 @@ def verify_step(cfg: ModelConfig, params, tokens, cache, block_tables, q_start, 
     Rejected lanes need no rollback: the next round's window starts at the
     new committed position and rewrites every stale position before any
     lane reads it.  Returns logits (B, W, V)."""
-    return mixed_step(cfg, params, tokens, cache, block_tables, q_start, q_len, block_size)
+    return mixed_step(cfg, params, tokens, cache, block_tables, q_start, q_len, block_size, mesh)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos, block_tables=None,
-                block_size: int = 0):
+                block_size: int = 0, mesh=None):
     """One decode token per row.  ``tokens`` (B, 1); ``pos`` a scalar write
     position or (B,) per-row positions (row ``b`` attends ``[0, pos[b]]``).
     Without ``block_tables`` the cache is ``init_cache``'s contiguous
-    stripes; with them (per-row ``pos``) it is ``init_paged_cache``'s pool.
+    stripes; with them (per-row ``pos``) it is ``init_paged_cache``'s pool,
+    sharded or not (over ``mesh``).
     A Mamba2 layer takes its recurrent step from its ``conv`` / ``ssm``
     leaves (``pos`` does not apply; paged Mamba2 decode raises).
     Returns logits (B, 1, V); ``cache`` is updated in place."""
@@ -397,7 +427,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, block_tables=None,
             elif block_tables is None:
                 o = L.attn_decode(cfg, pp["attn"], x, c["k"][i], c["v"][i], pos)
             else:
-                o = L.attn_decode_paged(cfg, pp["attn"], x, c["k"][i], c["v"][i], pos, block_tables, block_size)
+                o = L.attn_decode_paged(cfg, pp["attn"], x, _layer_pool(c["k"], i), _layer_pool(c["v"], i), pos,
+                                        block_tables, block_size, mesh)
             h, _ = _ffn(cfg, pp, h + o)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return L.head_apply(cfg, params, h)

@@ -71,9 +71,23 @@ rate, tokens per round and dispatches per round.
 Both layouts give the same tokens for the same admission order.  An
 all-Mamba2 model (``ssm`` family) serves on the contiguous path and the
 lock-step baseline, whose admit prefills carry its conv and SSM state into
-the slot; the paged path refuses it, as the reference's does.  The
-sharded pool of the JAX package's engine is not ported yet and raises
-``NotImplementedError``.
+the slot; the paged path refuses it, as the reference's does.
+
+Sharded paged serving (``shards=N``, paged only): the block pool splits
+over the N devices of a ``runtime.compat.Mesh``, ``n_pool_blocks / N``
+blocks and a trash block on each, and every engine step's attention is
+the distributed dispatch (``models/layers._paged_attn_sharded``): each
+shard scatters and attends over the blocks it owns, and
+``dist_decode.combine_partials`` merges the partials on the engine's
+device, where everything outside attention runs once.  One process and
+one scheduler drive all shards, as in the reference.  The ``BlockPool``
+allocates row-affine (a request's whole chain, its cached prefixes and
+its drafter chain on one shard), which makes ``shards=N`` bit-identical
+to ``shards=1`` for the same admission order; ``shards=1`` runs the
+sharded machinery too and differs from the unsharded engine only by the
+partials' rounding.  The mesh defaults to the first N cards of the
+engine's device type (N shards on the CPU for ``device="cpu"``); an
+explicit ``mesh`` places them by hand, several on one card if need be.
 """
 from __future__ import annotations
 
@@ -87,6 +101,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import EOS, PAD
 from repro_torch.models import lm as LM
 from repro_torch.models.layers import torch_dtype
+from repro_torch.runtime.compat import Mesh, make_mesh
 from repro_torch.serving.kv_cache import BlockPool, BlockTable, HostBlockStore, PrefixIndex, blocks_for
 from repro_torch.serving.scheduler import Request, Scheduler
 
@@ -170,18 +185,14 @@ class ServeConfig:
     # vocabulary, and must be all-attention
     draft_config: ModelConfig | None = None
     draft_params: object | None = None
-    shards: int | None = None  # sharded pool: not ported yet
-
-
-def _not_ported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch engine yet; it comes with the "
-        f"{slice_name} slice of the port"
-    )
+    # sharded paged serving (paged only): the block pool splits over
+    # ``shards`` devices, row-affine, and every step's attention is the
+    # distributed dispatch; None keeps the single-device pool
+    shards: int | None = None
 
 
 class ServeEngine:
-    def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig, device="cuda", mesh: Mesh | None = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServeEngine: device='cuda' asked for but no CUDA device is present")
@@ -198,8 +209,6 @@ class ServeEngine:
                 )
             if scfg.spill_bytes < 1:
                 raise ValueError(f"spill_bytes={scfg.spill_bytes} must be >= 1")
-        if scfg.shards is not None:
-            raise _not_ported("the sharded KV pool (shards)", "multi-device")
         if scfg.paged and any(cfg.mixer_kind(i) != "attn" for i in range(cfg.n_layers)):
             raise ValueError(
                 "paged serving runs the unified chunked-prefill path, which "
@@ -233,6 +242,13 @@ class ServeEngine:
                 )
             self._n_pool_blocks = n_pool
             self._trash_block = n_pool  # extra pool index for masked writes
+        self._shards, self._mesh = scfg.shards, None
+        if scfg.shards is not None:
+            self._mesh = self._shard_mesh(scfg, mesh)
+        elif mesh is not None:
+            raise ValueError("mesh places the shards of a sharded pool: it needs shards")
+        # the paged steps take the mesh only on a sharded pool
+        self._mesh_kw = {} if self._mesh is None else {"mesh": self._mesh}
         self._token_budget = (
             scfg.token_budget if scfg.token_budget is not None else scfg.max_prompt_len
         )
@@ -306,6 +322,43 @@ class ServeEngine:
         self._draft_cache = None
         self._serving = False
 
+    def _shard_mesh(self, scfg: ServeConfig, mesh: Mesh | None) -> Mesh:
+        """The sharded pool's geometry checks (the reference's) and its
+        mesh: ``mesh`` as given, else the first ``shards`` devices of the
+        engine's device type (all on the CPU for a CPU engine)."""
+        shards = scfg.shards
+        if not scfg.paged:
+            raise ValueError(
+                "shards (sharded paged serving) requires paged=True: only "
+                "the block pool partitions over the mesh"
+            )
+        if shards < 1:
+            raise ValueError(f"shards={shards} must be >= 1")
+        if self._n_pool_blocks % shards:
+            raise ValueError(
+                f"n_pool_blocks={self._n_pool_blocks} must divide evenly over shards={shards}"
+            )
+        self._n_local = self._n_pool_blocks // shards
+        if self._n_local < self._blocks_per_slot:
+            raise ValueError(
+                f"per-shard pool ({self._n_local} blocks) cannot hold one "
+                f"max-size request ({self._blocks_per_slot} blocks): "
+                "allocation is row-affine, a request never spans shards"
+            )
+        if mesh is not None:
+            if mesh.size != shards:
+                raise ValueError(f"shards={shards} on a mesh of {mesh.size} devices")
+            return mesh
+        if self.device.type == "cpu":
+            return make_mesh(["cpu"] * shards)
+        have = torch.cuda.device_count()
+        if have < shards:
+            raise ValueError(
+                f"shards={shards} needs that many devices, have {have} (pass "
+                "mesh= to place several shards on one card)"
+            )
+        return make_mesh([f"cuda:{i}" for i in range(shards)])
+
     # ------------------------------------------------------------------ #
     # device steps
     # ------------------------------------------------------------------ #
@@ -326,7 +379,7 @@ class ServeEngine:
         q_start = torch.where(is_decode, lengths + emitted - 1, q_start_h)
         tok[:, 0] = torch.where(is_decode, cur, tok[:, 0])
         logits = LM.mixed_step(
-            self.cfg, self.params, tok, self._cache, tables, q_start, q_len, self.scfg.block_size
+            self.cfg, self.params, tok, self._cache, tables, q_start, q_len, self.scfg.block_size, **self._mesh_kw
         )
         last = logits[rows, torch.clamp(q_len - 1, min=0).long()]
         nxt = torch.argmax(last, -1).to(torch.int32)
@@ -364,7 +417,7 @@ class ServeEngine:
         tok[:, 0] = torch.where(is_spec, cur, tok[:, 0])
         tok[:, 1 : kd + 1] = torch.where(is_spec[:, None], drafts, tok[:, 1 : kd + 1])
         logits = LM.verify_step(
-            self.cfg, self.params, tok, self._cache, tables, q_start, q_len, self.scfg.block_size
+            self.cfg, self.params, tok, self._cache, tables, q_start, q_len, self.scfg.block_size, **self._mesh_kw
         )
         # fill rows: the next token off the chunk's last live lane
         nxt = torch.argmax(logits[rows, torch.clamp(q_len - 1, min=0).long()], -1).to(torch.int32)
@@ -409,10 +462,11 @@ class ServeEngine:
         drafts = torch.zeros((b, max(kd, 1)), dtype=torch.int32, device=self.device)
         tok = cur
         for t in range(kd):
-            logits = LM.mixed_step(dcfg, dparams, tok[:, None], dcache, d_dec_tables, dec_pos + t, one, bs)
+            logits = LM.mixed_step(dcfg, dparams, tok[:, None], dcache, d_dec_tables, dec_pos + t, one, bs,
+                                   **self._mesh_kw)
             tok = torch.argmax(logits[:, -1, :], -1).to(torch.int32)
             drafts[:, t] = tok
-        LM.mixed_step(dcfg, dparams, tok[:, None], dcache, d_dec_tables, dec_pos + kd, one, bs)
+        LM.mixed_step(dcfg, dparams, tok[:, None], dcache, d_dec_tables, dec_pos + kd, one, bs, **self._mesh_kw)
         return drafts
 
     def _draft_rows(self, d_tok, d_q_start, d_q_len, cur, dec_pos, d_tables, d_dec_tables):
@@ -420,7 +474,7 @@ class ServeEngine:
         the drafter pool; q_len == 0 rows are inert), then ``_draft_tokens``:
         one drafter dispatch."""
         LM.mixed_step(self._draft_cfg, self._draft_params, d_tok, self._draft_cache, d_tables,
-                      d_q_start, d_q_len, self.scfg.block_size)
+                      d_q_start, d_q_len, self.scfg.block_size, **self._mesh_kw)
         return self._draft_tokens(cur, dec_pos, d_dec_tables)
 
     def _decode_chunk(self, st, n_steps: int, cache, tables=None):
@@ -439,7 +493,7 @@ class ServeEngine:
                 break
             logits = LM.decode_step(
                 self.cfg, self.params, cache, cur[:, None], lengths + emitted - 1,
-                block_tables=tables, block_size=self.scfg.block_size,
+                block_tables=tables, block_size=self.scfg.block_size, **self._mesh_kw,
             )
             nxt = torch.argmax(logits[:, -1, :], -1).to(torch.int32)
             nxt = torch.where(done, torch.full_like(nxt, PAD), nxt)
@@ -529,33 +583,53 @@ class ServeEngine:
     # ------------------------------------------------------------------ #
     # resident paged state
     # ------------------------------------------------------------------ #
+    def _paged_cache(self, cfg: ModelConfig, device):
+        """An empty paged cache for ``cfg`` in the configured layout: one pool
+        of ``n_pool_blocks`` + trash, or with ``shards`` the per-shard pools
+        of ``n_local`` + trash on the mesh's devices (all on ``device`` when
+        that is the meta device)."""
+        dtype, bs = torch_dtype(cfg.dtype), self.scfg.block_size
+        if self._shards is None:
+            return LM.init_paged_cache(cfg, self._n_pool_blocks + 1, bs, dtype=dtype, device=device)
+        mesh = None if torch.device(device).type == "meta" else self._mesh
+        return LM.init_paged_cache(cfg, self._n_local + 1, bs, dtype=dtype, device=device,
+                                   n_shards=self._shards, mesh=mesh)
+
     def _init_serve_cache(self, device):
         """The continuous path's device cache in the configured layout."""
-        dtype = torch_dtype(self.cfg.dtype)
         if self.scfg.paged:
-            return LM.init_paged_cache(
-                self.cfg, self._n_pool_blocks + 1, self.scfg.block_size, dtype=dtype, device=device
-            )
+            return self._paged_cache(self.cfg, device)
+        dtype = torch_dtype(self.cfg.dtype)
         return LM.init_cache(self.cfg, self.scfg.max_batch, self._cache_len, dtype=dtype, device=device)
 
     def cache_nbytes(self) -> int:
-        """Device bytes of the continuous path's cache (either layout),
-        from its shapes alone (built on the meta device)."""
+        """Device bytes of the continuous path's cache (either layout, every
+        shard's pool), from its shapes alone (built on the meta device)."""
         leaves, todo = [], [self._init_serve_cache("meta")]
         while todo:
             x = todo.pop()
             if isinstance(x, dict):
                 todo.extend(x.values())
-            elif isinstance(x, tuple):
+            elif isinstance(x, (tuple, list)):
                 todo.extend(x)
             else:
                 leaves.append(x)
         return sum(t.numel() * t.element_size() for t in leaves)
 
-    def _pool_leaves(self) -> list[torch.Tensor]:
-        """The pool's K/V tensors, ``(n_blocks, n_pool + 1, bs, kv, hd)``
-        each, in the cache's key order."""
+    def _pool_leaves(self) -> list:
+        """The pool's K/V leaves in the cache's key order: tensors
+        ``(n_blocks, n_pool + 1, bs, kv, hd)``, or on a sharded pool the
+        lists of the shards' pools."""
         return [leaf for sub in self._cache.values() for leaf in (sub["k"], sub["v"])]
+
+    def _block_views(self, b: int) -> list[torch.Tensor]:
+        """Pool block ``b``'s K/V in every pool leaf, ``(n_blocks, bs, kv,
+        hd)`` each: on a sharded pool in its owning shard's pool (shard
+        ``b // n_local``, local block ``b % n_local``)."""
+        if self._shards is None:
+            return [leaf[:, b] for leaf in self._pool_leaves()]
+        s, loc = divmod(b, self._n_local)
+        return [leaf[s][:, loc] for leaf in self._pool_leaves()]
 
     def _fetch_block(self, b: int):
         """Demotion callback of the spill tier: pool block ``b``'s K/V as
@@ -565,19 +639,20 @@ class ServeEngine:
         card it blocks until done and is ordered after every kernel already
         queued on the stream, so the payload holds what the last step wrote
         and the block may be overwritten once this returns."""
-        payload = [leaf[:, b].to("cpu", copy=True) for leaf in self._pool_leaves()]
+        payload = [v.to("cpu", copy=True) for v in self._block_views(b)]
         return payload, int(sum(p.numel() * p.element_size() for p in payload))
 
     def _upload_block(self, payload, b: int) -> None:
         """Re-admission: a host payload from ``_fetch_block`` lands in pool
-        block ``b``, bit for bit.  A ``copy_`` from host memory without
-        ``non_blocking`` synchronizes its stream, so the block is written
-        before any later dispatch reads it and the payload may be dropped
-        on return."""
-        for leaf, p in zip(self._pool_leaves(), payload, strict=True):
-            if p.dtype != leaf.dtype:
-                raise ValueError(f"spill payload of {p.dtype} for a {leaf.dtype} pool")
-            leaf[:, b].copy_(p)
+        block ``b``, bit for bit, on a sharded pool in its owning shard's
+        pool (the prefix index re-admits a chain on its recorded shard).  A
+        ``copy_`` from host memory without ``non_blocking`` synchronizes
+        its stream, so the block is written before any later dispatch reads
+        it and the payload may be dropped on return."""
+        for view, p in zip(self._block_views(b), payload, strict=True):
+            if p.dtype != view.dtype:
+                raise ValueError(f"spill payload of {p.dtype} for a {view.dtype} pool")
+            view.copy_(p)
 
     def _ensure_paged_state(self):
         """Create the resident pool, tables, device cache and (with
@@ -586,23 +661,24 @@ class ServeEngine:
         if self._pool is not None:
             return
         scfg = self.scfg
-        self._pool = BlockPool(self._n_pool_blocks, scfg.block_size)
+        n_shards = self._shards if self._shards is not None else 1
+        self._pool = BlockPool(self._n_pool_blocks, scfg.block_size, n_shards=n_shards)
         self._row_tables = [BlockTable(self._pool) for _ in range(scfg.max_batch)]
         # every unallocated (or free-slot) table entry points at the trash
-        # block, so masked writes never land in live blocks
+        # block, so masked writes never land in live blocks (on a sharded
+        # pool the global trash id belongs to no shard: each shard's own
+        # trash takes its writes)
         self._tables_h = np.full(
             (scfg.max_batch, self._blocks_per_slot), self._trash_block, np.int32
         )
         self._cache = self._init_serve_cache(self.device)
         if scfg.draft_k > 0:
-            # the drafter's pool: the target's block geometry, no prefix index
-            self._draft_pool = BlockPool(self._n_pool_blocks, scfg.block_size)
+            # the drafter's pool: the target's block geometry and shards, no
+            # prefix index
+            self._draft_pool = BlockPool(self._n_pool_blocks, scfg.block_size, n_shards=n_shards)
             self._draft_row_tables = [BlockTable(self._draft_pool) for _ in range(scfg.max_batch)]
             self._draft_tables_h = np.full_like(self._tables_h, self._trash_block)
-            self._draft_cache = LM.init_paged_cache(
-                self._draft_cfg, self._n_pool_blocks + 1, scfg.block_size,
-                dtype=torch_dtype(self._draft_cfg.dtype), device=self.device,
-            )
+            self._draft_cache = self._paged_cache(self._draft_cfg, self.device)
         if scfg.prefix_cache:
             store = HostBlockStore(scfg.spill_bytes) if scfg.spill_bytes is not None else None
             self._spill_store = store

@@ -1072,3 +1072,201 @@ def test_every_leaf_gets_the_cpu_gradient_on_the_card(cuda_device, arch):
         g = g.cpu()
         assert bool(torch.isfinite(g).all()) and bool((g != 0).any()), path
         assert float((g - want[path]).abs().max()) <= 1e-4 * float(want[path].abs().max()), path
+
+
+# --------------------------------------------------------------------- #
+# sharded serving: the partials forms, the combine, the sharded engine
+# --------------------------------------------------------------------- #
+
+
+def _sharded_case(rng, device, dtype, g, dh, n_shards=4, b=8, w=70, kv=2, bs=16, n_t=6):
+    """A global pool of ``n_shards * n_local`` blocks plus the global trash,
+    row-affine tables (row r's blocks all on shard r % n_shards, entries
+    past its keys at the trash), and rows of every kind: cold and warm
+    prefills, decode rows, a dead row, one past a 64-key tile."""
+    n_local = (b // n_shards + 1) * n_t
+    n_pool = n_shards * n_local
+    trash = n_pool
+    cap = n_t * bs
+    desc = [(0, 0, w, w), (1, 40, 30, 70), (2, 63, 1, 64), (3, 0, 0, 0), (4, cap - 1, 1, cap),
+            (5, cap - w, w, cap), (6, 10, 5, 15), (7, 80, 1, 81)]
+    tables = np.full((b, n_t), trash, np.int32)
+    nxt = [0] * n_shards
+    for r, (_, q0, ql, kl) in enumerate(desc):
+        s = r % n_shards
+        for e in range(-(-max(kl, 1) // bs)):
+            tables[r, e] = s * n_local + nxt[s]
+            nxt[s] += 1
+    q = torch.as_tensor(rng.standard_normal((b, w, kv * g, dh)), dtype=torch.float32).to(dtype).to(device)
+    kp = torch.as_tensor(rng.standard_normal((n_pool + 1, bs, kv, dh)), dtype=torch.float32).to(dtype).to(device)
+    vp = torch.as_tensor(rng.standard_normal((n_pool + 1, bs, kv, dh)), dtype=torch.float32).to(dtype).to(device)
+    return (q, kp, vp, torch.as_tensor(tables, device=device), torch.as_tensor(desc, dtype=torch.int32, device=device),
+            n_local)
+
+
+def _partials_close(got, want, tol):
+    o_k, m_k, l_k = (t.cpu() for t in got)
+    o_p, m_p, l_p = (t.cpu() for t in want)
+    np.testing.assert_allclose(m_k.numpy(), m_p.numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(l_k.numpy(), l_p.numpy(), rtol=tol, atol=0)
+    ok = l_p[..., 0] > 0
+    np.testing.assert_allclose((o_k / l_k)[ok].numpy(), (o_p / l_p)[ok].numpy(), rtol=tol, atol=tol)
+    assert bool((o_k[~ok] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("g", [1, 2])
+def test_mixed_prefill_partials_match_plain(cuda_device, g, dh, dtype):
+    """The partials kernel against its plain version: no mask, a random
+    block-level mask, and each shard's row-affine mask; rows that see no
+    key give exactly o = 0, l = 0, m = -1e30 (never -inf or -1e30 ln 2)."""
+    q, kp, vp, tables, desc, n_local = _sharded_case(np.random.default_rng(g * dh), cuda_device, dtype, g, dh)
+    rng = np.random.default_rng(3)
+    masks = [None, torch.as_tensor(rng.random(tuple(tables.shape)) < 0.5, device=cuda_device)]
+    masks += [(tables // n_local) == s for s in range(4)]
+    for owned in masks:
+        got = cp_ops.mixed_prefill_partials(q, kp, vp, tables, desc, owned=owned)
+        want = cp_ops.mixed_prefill_partials_plain(q, kp, vp, tables, desc, owned=owned)
+        torch.cuda.synchronize()
+        assert all(t.dtype == torch.float32 and t.shape == u.shape for t, u in zip(got, want))
+        _partials_close(got, want, _tol(dtype))
+        o, m, l = got
+        empty = (want[2] == 0)[..., 0]
+        assert bool((m[empty] == -1e30).all()) and bool((l[empty] == 0).all()) and bool((o[empty] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixed_prefill_partials_no_owned_entry_is_exact_zero(cuda_device, dtype):
+    """A shard that owns none of the rows' blocks (their entries pointing at
+    its trash, poisoned with NaN and 1e4): every lane gives exact zeros
+    and m = -1e30, so the combine never meets -inf - -inf."""
+    q, kp, vp, tables, desc, n_local = _sharded_case(np.random.default_rng(9), cuda_device, dtype, 2, 128)
+    kp[-1], vp[-1] = float("nan"), 1e4
+    loc = torch.full_like(tables, kp.shape[0] - 1)
+    o, m, l = cp_ops.mixed_prefill_partials(q, kp, vp, loc, desc, owned=torch.zeros_like(tables, dtype=torch.bool))
+    torch.cuda.synchronize()
+    assert bool((o == 0).all()) and bool((l == 0).all()) and bool((m == -1e30).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("g", [1, 2])
+def test_mixed_prefill_partials_4_shard_combine_equals_1_shard_bitwise(cuda_device, g, dh, dtype):
+    """Each shard's own pool (its blocks and a trash block, poisoned), its
+    local table and ``owned`` mask: the 4 shards' partials combined equal
+    the 1-shard partials combined, bit for bit."""
+    from repro_torch.serving.dist_decode import combine_partials
+
+    q, kp, vp, tables, desc, n_local = _sharded_case(np.random.default_rng(g + dh), cuda_device, dtype, g, dh)
+    one = combine_partials(*[[t] for t in cp_ops.mixed_prefill_partials(
+        q, kp, vp, tables, desc, owned=(tables // (4 * n_local)) == 0)])
+    none = combine_partials(*[[t] for t in cp_ops.mixed_prefill_partials(q, kp, vp, tables, desc)])
+    parts = []
+    for s in range(4):
+        kl, vl = kp[s * n_local : (s + 1) * n_local + 1].clone(), vp[s * n_local : (s + 1) * n_local + 1].clone()
+        kl[-1], vl[-1] = 1e4, float("nan")  # the shard's trash
+        owned = (tables // n_local) == s
+        loc = torch.where(owned, tables % n_local, n_local)
+        parts.append(cp_ops.mixed_prefill_partials(q, kl, vl, loc, desc, owned=owned))
+    four = combine_partials(*map(list, zip(*parts)))
+    torch.cuda.synchronize()
+    assert torch.equal(four, one) and torch.equal(none, one)
+    assert bool(torch.isfinite(four).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_empty_zero_partials(cuda_device, dtype):
+    """``empty_zero``: a row of length 0 gives o = 0, l = 0, m = -1e30
+    exactly (and 0 normalised); every other row is bitwise the mean rule's."""
+    b, s, h, kv, dh = 4, 130, 8, 4, 128
+    q, k, v, _ = _decode_case(np.random.default_rng(21), cuda_device, b, s, h, kv, dh, dtype)
+    lens = torch.as_tensor([0, 9, 130, 0], dtype=torch.int32, device=cuda_device)
+    o_z, m_z, l_z = da_ops.decode_attention(q, k, v, lens, return_partials=True, empty_zero=True)
+    o_m, m_m, l_m = da_ops.decode_attention(q, k, v, lens, return_partials=True)
+    out = da_ops.decode_attention(q, k, v, lens, empty_zero=True)
+    plain = da_ops.decode_attention_plain(q, k, v, lens, return_partials=True, empty_zero=True)
+    torch.cuda.synchronize()
+    for r in (0, 3):
+        assert bool((o_z[r] == 0).all()) and bool((l_z[r] == 0).all()) and bool((m_z[r] == -1e30).all())
+        assert bool((out[r] == 0).all())
+    for r in (1, 2):
+        assert torch.equal(o_z[r], o_m[r]) and torch.equal(m_z[r], m_m[r]) and torch.equal(l_z[r], l_m[r])
+    _partials_close((o_z, m_z, l_z), plain, _tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_dist_decode_on_one_card_matches_flash_decode(cuda_device, n_shards, dtype):
+    """``dist_decode_attention`` over shards all on one card equals
+    flash-decode on the whole cache (f32 tolerance on the f32 combine),
+    a row of length 0 giving 0."""
+    from repro_torch.runtime.compat import make_mesh
+    from repro_torch.serving.dist_decode import dist_decode_attention
+
+    b, s, h, kv, dh = 8, 272, 16, 8, 128
+    q, k, v, _ = _decode_case(np.random.default_rng(4), cuda_device, b, s, h, kv, dh, dtype)
+    lens = torch.as_tensor([272, 17, 0, 64, 250, 131, 99, 1], dtype=torch.int32, device=cuda_device)
+    n0 = da_ops.flash_decode_launches
+    got = dist_decode_attention(q, k, v, lens, make_mesh(["cuda:0"] * n_shards))
+    want = da_ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert da_ops.flash_decode_launches - n0 == n_shards + 1
+    live = lens > 0
+    tol = _tol(dtype)
+    np.testing.assert_allclose(got[live].float().cpu().numpy(), want[live].float().cpu().numpy(), rtol=tol, atol=tol)
+    assert bool((got[~live] == 0).all())
+
+
+def test_federated_topk_on_one_card_matches_the_whole_corpus_bitwise(cuda_device):
+    """4 providers on one card: the merged scores are bitwise the
+    whole-corpus kernel's (each score the same in-order chain), the ids
+    equal; a dead provider's ids never appear."""
+    from repro_torch.core.retrieval import federated_topk
+    from repro_torch.runtime.compat import make_mesh
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    q = torch.nn.functional.normalize(torch.randn(16, 256, generator=g), dim=1).to(cuda_device)
+    c = torch.nn.functional.normalize(torch.randn(4 * 2048, 256, generator=g), dim=1).to(cuda_device)
+    mesh = make_mesh(["cuda:0"] * 4)
+    n0 = rt_ops.launches
+    s, i, p = federated_topk(q, c, m_local=8, n_global=8, mesh=mesh)
+    s_w, i_w = rt_ops.retrieval_topk(q, c, 8)
+    torch.cuda.synchronize()
+    assert rt_ops.launches - n0 == 5
+    assert torch.equal(s, s_w) and torch.equal(i, i_w) and torch.equal(p, i // 2048)
+    alive = torch.tensor([True, False, True, True])
+    _, _, p_d = federated_topk(q, c, m_local=8, n_global=8, mesh=mesh, alive=alive)
+    assert not bool((p_d == 1).any())
+
+
+def test_sharded_serving_smoke_width_matches_cpu(cuda_device):
+    """Smoke width, f32: shards=4 and 2 on one card give shards=1's tokens
+    bit for bit and the CPU run's, through the partials kernel (one launch
+    per shard per layer and step)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import lm as LM
+    from repro_torch.models.params import init_params, map_tree
+    from repro_torch.runtime.compat import make_mesh
+    from repro_torch.serving.engine import ServeConfig, ServeEngine
+
+    cfg = smoke_config(get_config("qwen3-0.6b")).with_overrides(dtype="float32")
+    p_cpu = init_params(LM.param_specs(cfg), torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = map_tree(lambda t: t.to(cuda_device), p_cpu)
+    rng = np.random.default_rng(42)
+    prompts = [rng.integers(8, cfg.vocab_size, size=n).astype(np.int32) for n in (9, 11, 6, 3, 11, 7)]
+    kw = dict(max_batch=2, max_prompt_len=11, max_new_tokens=5, sched_chunk=2, paged=True, n_pool_blocks=16,
+              block_size=4)
+    outs, launches = {}, {}
+    for dev, p, shards in (("cpu", p_cpu, 1), ("cuda", p_gpu, 1), ("cuda", p_gpu, 2), ("cuda", p_gpu, 4)):
+        mesh = make_mesh([f"{dev}:0" if dev == "cuda" else dev] * shards)
+        eng = ServeEngine(cfg, p, ServeConfig(shards=shards, **kw), device=dev, mesh=mesh)
+        n0 = cp_ops.launches
+        outs[dev, shards] = eng.serve_prompts(prompts, max_new_tokens=[5, 1, 4, 5, 2, 5])
+        launches[dev, shards] = (cp_ops.launches - n0, (eng.mixed_dispatches, eng.decode_dispatches))
+    want = outs["cpu", 1]
+    for key, got in outs.items():
+        assert all(np.array_equal(a, b) for a, b in zip(want, got)), key
+    assert launches["cuda", 1][0] > 0 and launches["cpu", 1][0] == 0
+    for shards in (2, 4):  # the same steps, one launch per shard per layer
+        assert launches["cuda", shards] == (shards * launches["cuda", 1][0], launches["cuda", 1][1])

@@ -362,7 +362,10 @@ def test_prefix_cache_config_validation(bridged):
     ssm = t_smoke(t_get("mamba2-1.3b")).with_overrides(dtype="float32", vocab_size=VOCAB)
     with pytest.raises(ValueError, match="all-attention"):
         TE.ServeEngine(ssm, {}, TE.ServeConfig(prefix_cache=True, paged=True), device="cpu")
-    # speculation composes with the prefix cache; the sharded pool is not ported
+    # speculation and the sharded pool compose with the prefix cache, and the
+    # sharded pool refuses what the reference's refuses
     assert _engine(tcfg, tparams, paged=True, prefix_cache=True, draft_k=2)._draft_pool is None  # made at first serve
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _engine(tcfg, tparams, paged=True, prefix_cache=True, shards=2)
+    assert _engine(tcfg, tparams, paged=True, prefix_cache=True, shards=2)._mesh.size == 2
+    with pytest.raises(ValueError, match="must divide evenly"):
+        _engine(tcfg, tparams, paged=True, prefix_cache=True, shards=3, n_pool_blocks=16, max_prompt_len=8,
+                max_new_tokens=8, block_size=4)

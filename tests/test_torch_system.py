@@ -228,15 +228,15 @@ def test_contiguous_refuses_paged_only_options(bridged):
         (dict(prefix_cache=True, paged=False), ValueError, "requires paged"),
         (dict(spill_bytes=1 << 20), ValueError, "requires prefix_cache"),
         (dict(draft_k=2, paged=False), ValueError, "requires paged"),
-        (dict(shards=2), NotImplementedError, "not ported"),
+        (dict(shards=2, paged=False), ValueError, "requires paged=True"),
     ],
     ids=["prefix_cache", "spill", "draft_k", "shards"],
 )
 def test_unported_engine_options_raise(bridged, override, exc, match):
-    """The sharded pool is not ported and raises; the prefix cache, its
-    spill tier and speculative decoding are, and refuse what the reference
-    refuses (tests/test_torch_prefix.py and tests/test_torch_spec_decode.py
-    run them)."""
+    """The prefix cache, its spill tier, speculative decoding and the
+    sharded pool are ported, and refuse what the reference refuses
+    (tests/test_torch_prefix.py, tests/test_torch_spec_decode.py and
+    tests/test_torch_sharded.py run them)."""
     _, tcfg, _, tparams = bridged
     scfg = TE.ServeConfig(**{"paged": True, **override})
     with pytest.raises(exc, match=match):
