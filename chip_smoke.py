@@ -46,7 +46,11 @@ only when every phase passed):
               flash-decode, checked and timed the same way; and verify rows
               (q_len 4 from the committed position) bitwise equal, lane by
               lane, to q_len = 1 rows at the same positions (f32 and bf16,
-              G = 2 and G = 1).  Training: flash_attention's output and
+              G = 2 and G = 1); at jamba-1.5-large-398b's shapes (G = 8),
+              the causal admit prefill (B=8, S=256, 64/8 heads of 128) and
+              flash-decode (S=272), and ssd_chunk at B=8, L=256, 256 heads
+              of 64, state 16, with B and C of 8 groups repeated per head,
+              checked and timed the same way.  Training: flash_attention's output and
               gradient (the autograd Function: kernel forward, plain
               recompute backward) against the plain version's autograd at
               the train (B=8, S=256, 16/8 heads of 128, causal), HuBERT
@@ -170,13 +174,24 @@ only when every phase passed):
               at 4 shards against 1 (hits equal, chains demoted and
               readmitted, tokens equal but at rounding ties);
               self-speculation at 4 shards bitwise equal to 1; at smoke
-              width in f32, shards 1, 2 and 4 on the card equal the CPU run.
+              width in f32, shards 1, 2 and 4 on the card equal the CPU run;
+18. hybrid    the phase-4 federation serving jamba-1.5-large-398b on the
+              contiguous engine, after the earlier phases' models are freed:
+              one scan period of 8 layers (attention, then 7 Mamba2 layers,
+              MoE on the odd ones) with the routed experts' hidden width cut
+              from 24,576 to 4,096 (12.93 B parameters, 51.7 GB of f32
+              weights), every other width as published, bf16: statuses done,
+              contexts == phase 4's, one prompt's full-width logits finite,
+              flash_attention, flash_decode and ssd_chunk launched during the
+              serve, a paged ServeConfig refused with a ValueError; at smoke
+              width in f32, contiguous == lock-step tokens and the card's
+              tokens == the CPU run's; resident and peak memory printed.
 
 Each phase prints its seconds and peak memory.  Every kernel's launch
 counter is set to 0 just before each main-path run (the serves, phase 5's
 index build, phase 10's retrievals, the training runs and steps of
-13-16, the sharded serves of 17) and read just after; a kernel of that
-path left at 0 fails the run.
+13-16, the sharded serves of 17 and the serve of 18) and read just
+after; a kernel of that path left at 0 fails the run.
 
 The line before the last lines is ``{"kernels": [...]}``, then the card's
 nvidia-smi line, then ``{"ok": true, "device": {...}}``.
@@ -313,9 +328,11 @@ KERNELS = (*ATTENTION, "retrieval_topk", "ssd_chunk")
 
 def on_path(name: str, fn: str) -> bool:
     """Whether a kernel instantiation is one the path runs: head_dim 128
-    for attention, hd 64 / ds 128 for the SSD chunk, every top-k one."""
+    for attention, hd 64 / ds 128 (mamba2) or 16 (jamba) for the SSD
+    chunk, every top-k one."""
     if name == "ssd_chunk":
-        return ("ssd_scores" in fn and fn.endswith(", 128>")) or re.search(r"ssd_chunk<\w+, 64, 128\b", fn) is not None
+        return ("ssd_scores" in fn and fn.endswith((", 128>", ", 16>"))) or \
+            re.search(r"ssd_chunk<\w+, 64, (128|16)>", fn) is not None
     return name == "retrieval_topk" or "128" in fn
 
 
@@ -609,6 +626,110 @@ def verify_lanes_check(torch, gen, h: int, kv: int, dtype: str) -> None:
             fail(f"mixed_prefill H={h} KV={kv} {dtype}: verify lane {j} differs from a q_len=1 row at its position")
     print(f"  mixed_prefill H={h} KV={kv} {dtype}: every lane of 8 verify rows (q_len 4, q_start {q0}) bitwise "
           f"equal to a q_len=1 row at its position", flush=True)
+
+
+def jamba_kernels(torch, timer, gen, rows: dict) -> None:
+    """The three kernels of the hybrid path at jamba-1.5-large-398b's own
+    shapes (phase 18's contiguous engine, max_batch 8, prompts padded to
+    256): the attention layer's admit prefill through flash_attention and
+    its decode through flash_decode, 64 query heads over 8 KV heads of 128
+    (G = 8: a 64-row tile holds 8 positions); the Mamba2 layers' prefill
+    chunk through ssd_chunk, 256 heads of 64 at state 16, B and C of 8
+    groups repeated per head (``repeat_interleave``, so the kernel computes
+    C . B^T once per head).  Each checked against its plain version and
+    timed beside it, SDPA for the attention rows, and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ss
+
+    dev = torch.device("cuda")
+    B, S, H, KV, DH = 8, 256, 64, 8, 128
+    SC = 272  # the contiguous stripe: max_prompt_len + max_new_tokens
+    lens_c = [272, 17, 200, 64, 250, 131, 99, 1]
+    lens_t = torch.tensor(lens_c, dtype=torch.int32, device=dev)
+    mask_c = (torch.arange(SC, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
+    SH, SHD, SDS, SG = 256, 64, 16, 8
+    tri = S * (S + 1) // 2
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        es = torch.empty((), dtype=tdt).element_size()
+        q = torch.randn(B, S, H, DH, generator=gen, device=dev).to(tdt)
+        k = torch.randn(B, S, KV, DH, generator=gen, device=dev).to(tdt)
+        v = torch.randn(B, S, KV, DH, generator=gen, device=dev).to(tdt)
+        o = fa.flash_attention(q, k, v, causal=True)
+        err = (o.float() - fa.flash_attention_plain(q, k, v, causal=True).float()).abs().max().item()
+        shape = f"jamba admit prefill: B={B} S={S} H={H} KV={KV} (G={H // KV}) dh={DH} causal {dtype}"
+        check(f"flash_attention {shape}", err, dtype)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        b_ms, b_by = bound(es * (2 * B * S * H * DH + 2 * B * S * KV * DH), (4 * B * H * DH * tri, dtype))
+        rows["flash_attention", dtype, "jamba"] = dict(
+            **timer.turns(dict(
+                ms=lambda: fa.flash_attention(q, k, v, causal=True),
+                plain_ms=lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                library_ms=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+            )),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err, shape=shape,
+        )
+        del q, k, v, qt, kt, vt, o
+
+        qd = torch.randn(B, H, DH, generator=gen, device=dev).to(tdt)
+        kc = torch.randn(B, SC, KV, DH, generator=gen, device=dev).to(tdt)
+        vc = torch.randn(B, SC, KV, DH, generator=gen, device=dev).to(tdt)
+        o = da.decode_attention(qd, kc, vc, lens_t)
+        err = (o.float() - da.decode_attention_plain(qd, kc, vc, lens_t).float()).abs().max().item()
+        shape = (f"jamba decode: B={B} H={H} KV={KV} (G={H // KV}) dh={DH} S={SC} lengths "
+                 f"{min(lens_c)}-{max(lens_c)} (sum {sum(lens_c)}) {dtype}")
+        check(f"flash_decode {shape}", err, dtype)
+        b_ms, b_by = bound(es * (2 * B * H * DH + 2 * sum(lens_c) * KV * DH) + 4 * B,
+                           (4 * sum(lens_c) * H * DH, dtype))
+        rows["flash_decode", dtype, "jamba"] = dict(
+            **timer.turns(dict(
+                ms=lambda: da.decode_attention(qd, kc, vc, lens_t),
+                plain_ms=lambda: da.decode_attention_plain(qd, kc, vc, lens_t),
+                library_ms=lambda: F.scaled_dot_product_attention(
+                    qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask_c, enable_gqa=True),
+            )),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err, shape=shape,
+        )
+        del qd, kc, vc, o
+
+        # as the mixer hands them over: silu'd x, B, C (8 groups, each
+        # repeated over its 32 heads), softplus'd dt, a = -exp(A_log)
+        x = F.silu(torch.randn(B, S, SH, SHD, generator=gen, device=dev)).to(tdt)
+        bh = F.silu(torch.randn(B, S, SG, SDS, generator=gen, device=dev)).to(tdt).repeat_interleave(SH // SG, 2)
+        ch = F.silu(torch.randn(B, S, SG, SDS, generator=gen, device=dev)).to(tdt).repeat_interleave(SH // SG, 2)
+        dt = F.softplus(torch.randn(B, S, SH, generator=gen, device=dev))
+        a = -torch.exp(0.5 * torch.randn(SH, generator=gen, device=dev))
+        groups, cbt = ss._scores_scratch(bh, ch, B, S, SH)
+        if groups != SH:
+            fail(f"ssd_chunk at jamba's shape: {groups} groups for per-head B and C, not {SH}")
+        outs, plain = ss.ssd_chunk(x, bh, ch, dt, a), ss.ssd_chunk_plain(x, bh, ch, dt, a)
+        err = max((o - p).abs().max().item() for o, p in zip(outs, plain))
+        rel = max((o - p).abs().max().item() / p.abs().max().item() for o, p in zip(outs, plain))
+        shape = f"jamba Mamba2 prefill chunk: B={B} L={S} H={SH} hd={SHD} ds={SDS}, {SG} groups repeated per head"
+        print(f"  ssd_chunk {shape} {dtype}: max |kernel - plain| = {err:.3e} at max |y| = "
+              f"{plain[0].abs().max().item():.3e}; the per-head C.B^T scratch {cbt.numel() * 4 / 1e6:.1f} MB "
+              f"({groups} groups)", flush=True)
+        check(f"ssd_chunk {shape} {dtype}, error / max |output|", rel, "float32")
+        # bytes: x and the per-head B and C as handed over, dt, a in; y,
+        # state, decay out.  FLOPs over the causal half: C.B^T once per
+        # (batch, head), since every head holds its own rows, on the inputs'
+        # type; the score-weighted x and the state product f32
+        nbytes = es * (B * S * SH * SHD + 2 * B * S * SH * SDS) + 4 * (B * S * SH + SH) \
+            + 4 * (B * S * SH * SHD + B * SH * SHD * SDS + B * SH)
+        b_ms, b_by = bound(nbytes, (B * SH * tri * 2 * SDS, dtype),
+                           (B * SH * (tri * 2 * SHD + 2 * S * SHD * SDS), "float32"))
+        rows["ssd_chunk", dtype, "jamba"] = dict(
+            **timer.turns(dict(
+                ms=lambda: ss.ssd_chunk(x, bh, ch, dt, a),
+                plain_ms=lambda: ss.ssd_chunk_plain(x, bh, ch, dt, a),
+                library_ms=None,  # no single PyTorch call computes the chunk terms
+            )),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err, max_rel_err=rel, shape=f"{shape} {dtype}",
+        )
+        del x, bh, ch, dt, a, cbt, outs, plain
 
 
 def kernel_phase(torch, timer, parent: Parent | None) -> dict:
@@ -1087,6 +1208,7 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         for h, kv in ((H, KV), (HM, HM)):
             verify_lanes_check(torch, gen, h, kv, dtype)
 
+    jamba_kernels(torch, timer, gen, rows)
     training_checks(torch, timer, gen, parent, rows)
 
     for key, row in rows.items():
@@ -2754,6 +2876,86 @@ def sharded_phase(torch, smi: str, cold: list, timer, rows: dict) -> list[dict]:
     return runs
 
 
+# --------------------------------------------------------------------- #
+# phase 18: the hybrid family
+# --------------------------------------------------------------------- #
+
+
+def hybrid_phase(torch, smi: str, cold: list) -> list[dict]:
+    """[18] jamba-1.5-large-398b on the contiguous engine: one scan period
+    (8 layers: attention, then 7 Mamba2 layers, MoE on the odd ones) with
+    the routed experts' hidden width cut to 4,096, every other width as
+    published (``launch.serve.FULL_WIDTH_CUTS``), bf16 activations, random
+    weights from SEED; then at smoke width in f32."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import FULL_WIDTH_CUTS, full_width_system
+    from repro_torch.models import lm as LM
+    from repro_torch.models.params import param_bytes
+    from repro_torch.serving.engine import ServeConfig, ServeEngine, engine_generator
+
+    arch = "jamba-1.5-large-398b"
+    free_device(torch)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    sys_, engine, texts = full_width_system(16, "cuda", SEED, paged=False, arch=arch)
+    torch.cuda.synchronize()
+    cfg, pub = engine.cfg, get_config(arch)
+    print(f"  built {arch} cut to {FULL_WIDTH_CUTS[arch]} (published: {pub.n_layers} layers, moe_d_ff "
+          f"{pub.moe_d_ff}): mixers {[cfg.mixer_kind(i) for i in range(cfg.n_layers)]}, FFNs "
+          f"{[cfg.ffn_kind(i) for i in range(cfg.n_layers)]}; d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, d_inner {cfg.d_inner} ({cfg.ssm_heads} SSM heads of "
+          f"{cfg.ssm_head_dim}, {cfg.ssm_groups} groups, state {cfg.ssm_state}), {cfg.n_experts} experts top-"
+          f"{cfg.moe_top_k}, vocab {cfg.vocab_size}; in {time.perf_counter() - t0:.1f} s: "
+          f"{param_bytes(LM.param_specs(cfg)) / 1e9:.2f} GB of f32 weights; resident "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (was {before / 2**30:.2f}), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} [{smi}]", flush=True)
+    results, launches = serve_phase(torch, smi, sys_, engine, texts, f"contiguous {arch} one period bf16",
+                                    ("retrieval_topk", "flash_attention", "flash_decode", "ssd_chunk"))
+    for r, c in zip(results, cold, strict=True):
+        if list(r["context"]["chunk_ids"]) != list(c["context"]["chunk_ids"]):
+            fail("jamba contexts differ from phase 4's")
+    print("  jamba contexts equal to phase 4's", flush=True)
+    prompt = torch.as_tensor(np.asarray(results[0]["prompt"]).reshape(1, -1), device="cuda")
+    with torch.no_grad():
+        logits, _ = LM.forward(cfg, engine.params, {"tokens": prompt})
+    if tuple(logits.shape) != (1, prompt.shape[1], cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        fail(f"jamba full-width logits: shape {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    print(f"  jamba full-width logits {tuple(logits.shape)} all finite", flush=True)
+    try:
+        ServeEngine(cfg, engine.params, ServeConfig(paged=True, max_batch=8, max_prompt_len=256, max_new_tokens=16))
+    except ValueError as e:
+        print(f"  the paged engine refuses jamba: {e}", flush=True)
+    else:
+        fail("the paged engine took jamba")
+    prompts = [np.asarray(r["prompt"]).reshape(-1) for r in results[:4]]
+    vocab = sys_.tok.vocab_size
+    del sys_, engine, logits, results
+    free_device(torch)
+
+    # smoke width (16 layers, 8 groups, chunk 16: a 256-wide prefill runs 16
+    # chunks), f32: contiguous == lock-step on the card, and the card's
+    # tokens == the CPU run's
+    small, p_cpu, p_gpu = small_model(torch, vocab, arch)
+    kw = dict(max_batch=4, max_prompt_len=256, max_new_tokens=8)
+    cont = ServeEngine(small, p_gpu, ServeConfig(**kw), device="cuda").serve_prompts(prompts)
+    lock = engine_generator(ServeEngine(small, p_gpu, ServeConfig(**kw), device="cuda"), mode="lockstep")
+    lock = lock.generate_batch(prompts)
+    cpu = ServeEngine(small, p_cpu, ServeConfig(**kw), device="cpu").serve_prompts(prompts)
+    checks = {
+        "lock-step": all(np.array_equal(a, b[: len(a)]) for a, b in zip(cont, lock)),
+        "CPU": all(np.array_equal(a, b) for a, b in zip(cont, cpu)),
+    }
+    print(f"  smoke-width jamba tokens on the card equal: {checks}", flush=True)
+    if not all(checks.values()):
+        fail(f"smoke-width jamba tokens differ: {checks}; card {[list(t) for t in cont]}, "
+             f"CPU {[list(t) for t in cpu]}")
+    return [launches]
+
+
 def _sgd(params, grads, lr: float):
     from repro_torch.models.params import map_tree
 
@@ -2835,6 +3037,8 @@ def main() -> int:
     runs += phase("[16] federated F_emb (paper section 2.2): secure aggregation, contriever-110m", fedembed_phase)
     runs += phase("[17] sharded serving: 1, 2 and 4 shards of the paged pool on one card, dist_decode, "
                   "federated top-k", sharded_phase, cold, timer, rows)
+    runs += phase("[18] the hybrid family: jamba-1.5-large-398b, one scan period, contiguous engine", hybrid_phase,
+                  cold)
 
     meta = {
         "retrieval_topk": ("src/repro_torch/kernels/csrc/retrieval_topk.cu", "src/repro/kernels/retrieval_topk/kernel.py:105"),
@@ -2848,7 +3052,7 @@ def main() -> int:
     # embeddings; bf16 activations, KV pool and encoders) and, for
     # flash_attention, its largest path shape (the rerank), with the
     # further path shapes beside it; launches are summed over the
-    # main-path runs of phases 4-17
+    # main-path runs of phases 4-18
     path_row = {
         "retrieval_topk": ("retrieval_topk", "float32"), "mixed_prefill": ("mixed_prefill", "bfloat16"),
         "paged_decode": ("paged_decode", "bfloat16"), "flash_attention": ("flash_attention", "bfloat16", "rerank"),
@@ -2871,7 +3075,8 @@ def main() -> int:
         for tag, key in (("warm_admission", "warm"), ("verify", "verify"), ("one_head_per_kv_head", "G=1"),
                          ("head_dim_80", "dh80"), ("backward_train", "backward train"),
                          ("backward_hubert", "backward hubert"), ("backward_contriever", "backward contriever"),
-                         ("partials_owned", "partials_owned"), ("partials_empty_zero", "partials_empty_zero")):
+                         ("partials_owned", "partials_owned"), ("partials_empty_zero", "partials_empty_zero"),
+                         ("jamba", "jamba")):
             extra = rows.get((name, "bfloat16", key))
             if extra is not None:
                 kernels[-1][tag] = {k: extra[k] for k in (

@@ -10,12 +10,14 @@ is ``launch.serve.full_width_system`` with that engine layout, ``paper``
 is ``launch.serve.paper_models_system``, ``mamba2`` is
 ``full_width_system`` with mamba2-1.3b on the contiguous engine, ``spec``
 the paged qwen3-0.6b engine with ``draft_k=3`` (self-speculation), ``moe``
-qwen2-moe-a2.7b at full width on the paged engine.  It warms the system up,
+qwen2-moe-a2.7b at full width on the paged engine, ``hybrid``
+jamba-1.5-large-398b (one scan period, ``launch.serve.FULL_WIDTH_CUTS``)
+on the contiguous engine.  It warms the system up,
 then runs ``CFedRAGSystem.serve`` on ``--queries`` queries under
 ``torch.profiler`` and prints the wall time, the device's busy share
 (summed kernel time over wall time; one stream, so kernels never
 overlap), the number of kernel launches, and the kernels that take the
-most device time, grouped by kind; for ``moe`` also the device time of
+most device time, grouped by kind; for ``moe`` and ``hybrid`` also the device time of
 the kernels launched inside ``models/moe``'s expert loop (its
 ``moe_expert_loop`` profiler range) and its share, for ``spec`` the
 drafter dispatches and the speculation gauges.  ``--prefix-cache`` (paged only)
@@ -75,7 +77,8 @@ def _kind(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--system", default="paged", choices=["paged", "contiguous", "paper", "mamba2", "spec", "moe"])
+    ap.add_argument("--system", default="paged", choices=["paged", "contiguous", "paper", "mamba2", "spec", "moe",
+                                                             "hybrid"])
     ap.add_argument("--queries", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
@@ -106,6 +109,8 @@ def main(argv=None) -> int:
         sys_, _, texts = paper_models_system(args.queries, "cuda", args.seed)
     elif args.system == "mamba2":
         sys_, _, texts = full_width_system(args.queries, "cuda", args.seed, paged=False, arch="mamba2-1.3b")
+    elif args.system == "hybrid":
+        sys_, _, texts = full_width_system(args.queries, "cuda", args.seed, paged=False, arch="jamba-1.5-large-398b")
     elif args.system == "spec":
         sys_, _, texts = full_width_system(args.queries, "cuda", args.seed, draft_k=3)
     elif args.system == "moe":

@@ -25,7 +25,8 @@ cpu``) and prints the blocks free on each shard.  Everything runs on
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions).
 
 ``full_width_system`` (qwen3-0.6b, qwen3-4b or qwen2-moe-a2.7b on the
-paged or contiguous engine, mamba2-1.3b on the contiguous engine; with
+paged or contiguous engine, mamba2-1.3b and jamba-1.5-large-398b, the
+latter cut to one scan period, on the contiguous engine; with
 ``draft_k`` and a drafter for speculative decoding, and with ``shards``
 (and a ``mesh`` placing them) for the sharded pool) and
 ``paper_models_system`` build the configurations measured on the card
@@ -132,19 +133,40 @@ def _on(tree, device):
     return map_tree(lambda t: t.to(device), tree)
 
 
+# jamba-1.5-large-398b (397.7 B parameters) is held by no card whole.
+# Its smallest legal depth is one scan period, lcm(attn_every 8, moe_every
+# 2) = 8 layers (attention at 0, Mamba2 at 1-7, MoE at 1, 3, 5, 7), still
+# 45.1 B parameters (180.6 GB in f32), 38.7 B of them the four layers of 16
+# routed experts of 3 x 8192 x 24576; fewer experts would not help, since
+# the tree pads them back to 16.  So the routed experts' hidden width is
+# cut from 24,576 to 4,096 too: 12.93 B parameters, 51.7 GB of f32
+# weights.  Every other width is the published one, so every shape that
+# reaches a kernel is jamba's own; the cut touches only the expert loop's
+# matmuls.
+FULL_WIDTH_CUTS = {"jamba-1.5-large-398b": dict(n_layers=8, moe_d_ff=4096)}
+
+
+def full_width_config(arch: str):
+    """``arch``'s published config with the cuts of ``FULL_WIDTH_CUTS``
+    that one card forces (none for the other architectures)."""
+    return get_config(arch).with_overrides(**FULL_WIDTH_CUTS.get(arch, {}))
+
+
 def _full_width_engine(tok: HashTokenizer, device: str, seed: int, paged: bool, arch: str = "qwen3-0.6b",
                        mesh=None, **serve_kw):
     """``arch`` at full width (qwen3-0.6b: 28 layers, bf16 activations and
     KV cache; qwen3-4b: 36 layers; qwen2-moe-a2.7b: 24 layers of 60
     routed top-4 experts and 4 shared ones, 60.6 GB of f32 weights;
-    mamba2-1.3b: 48 layers, bf16 activations, f32 SSM state, on the
-    contiguous engine only), random weights from ``seed``, behind
+    mamba2-1.3b: 48 layers, bf16 activations, f32 SSM state;
+    jamba-1.5-large-398b: one scan period of 8 layers with the routed
+    experts' hidden width 4,096, see ``FULL_WIDTH_CUTS``; the last two on
+    the contiguous engine only), random weights from ``seed``, behind
     ``ServeConfig(max_batch=8, max_prompt_len=256, max_new_tokens=16,
     **serve_kw)`` (``mesh`` places a sharded pool's shards)."""
-    cfg = get_config(arch)
+    cfg = full_width_config(arch)
     if tok.vocab_size > cfg.vocab_size:
         raise ValueError("tokenizer vocabulary exceeds the model's")
-    if paged and cfg.family == "ssm":
+    if paged and not LM.attention_only(cfg):
         raise ValueError(f"{arch} serves on the contiguous engine only: pass paged=False")
     gen = torch.Generator(device=device).manual_seed(seed)
     params = ParamTree(init_params(LM.param_specs(cfg), gen, device=device))
@@ -160,7 +182,8 @@ def full_width_system(n_queries: int = 16, device: str = "cuda", seed: int = 0,
     """The bag-embedder configuration measured on the card: the full-width
     ``arch`` engine (``_full_width_engine``; qwen3-0.6b by default on the
     paged block pool, or contiguous stripes with ``paged=False``;
-    ``arch="mamba2-1.3b"`` needs ``paged=False``) over a 128-fact +
+    ``arch="mamba2-1.3b"`` and ``"jamba-1.5-large-398b"`` need
+    ``paged=False``) over a 128-fact +
     128-distractor federated corpus with the overlap reranker.
     ``prefix_cache``, ``spill_bytes``, ``n_pool_blocks``, the
     speculative ``draft_k``, ``draft_config`` and ``draft_params`` (None:

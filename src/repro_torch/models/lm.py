@@ -1,5 +1,7 @@
 """Causal LM: full forward, prefill and the serving steps, for the dense,
-``moe`` (all-attention, MoE FFNs) and ``ssm`` (all-Mamba2) families.
+``moe`` (all-attention, MoE FFNs), ``ssm`` (all-Mamba2) and ``hybrid``
+(jamba: attention every ``attn_every``-th layer, Mamba2 elsewhere, MoE
+every ``moe_every``-th) families.
 
 ``forward`` is the whole-sequence pass; ``prefill`` runs it over a prompt
 batch and fills the contiguous cache ``init_cache`` builds, and
@@ -24,11 +26,13 @@ Parameters keep the JAX package's tree: ``blocks`` holds one scan
 period's ``pos{j}`` subtrees stacked on a leading ``n_blocks`` axis, so
 ``params.from_reference`` maps the reference's tree one to one.  The
 layer loop is a Python loop over that axis; the cache keeps the same
-stacked layout and each layer updates its slice in place.  An attention
-layer caches ``{"k", "v"}``; a Mamba2 layer caches ``{"conv": (x, B, C)
-conv histories, "ssm": state}``, which has no sequence axis to page, so
-the paged steps (``mixed_step``, ``init_paged_cache``) take attention
-models only, as the reference's unified path does.
+stacked layout and each layer updates its slice in place.  Each period
+position ``pos{j}`` runs the mixer ``cfg.mixer_kind(j)`` names: an
+attention layer caches ``{"k", "v"}``; a Mamba2 layer caches ``{"conv":
+(x, B, C) conv histories, "ssm": state}``, which has no sequence axis to
+page, so the paged steps (``mixed_step``, ``init_paged_cache``, paged
+``decode_step``) take all-attention models only, as the reference's
+unified path does.
 
 The ``vlm`` family is a dense backbone whose batch may carry
 ``patch_embeds`` (B, n_patches, d): precomputed patch embeddings that
@@ -38,8 +42,7 @@ next-token cross-entropy (``sharded_ce``) plus the weighted MoE loss.
 With ``cfg.remat == "block"`` and grad mode on, ``forward`` runs each
 scan block under ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint``): its activations are recomputed in the backward,
-through the same kernels.  The hybrid family is not ported yet and
-raises ``NotImplementedError``.  The encoders (``dual_encoder``,
+through the same kernels.  The encoders (``dual_encoder``,
 ``cross_encoder``, ``encoder``) declare their own trees with
 ``_stack_specs`` and run their layers through ``encoder_stack``.
 """
@@ -57,20 +60,13 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.params import ParamSpec, map_tree
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    """Dense (and ``vlm``) and MoE all-attention models and all-Mamba2
-    (``ssm``) models are ported."""
-    attn = all(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
-    dense = cfg.family in ("dense", "vlm") and not cfg.n_experts
-    if not ((attn and (dense or cfg.family == "moe")) or cfg.family == "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: only dense and MoE all-attention and all-Mamba2 models are ported so far "
-            "(the hybrid family comes with a later model-families slice)"
-        )
+def attention_only(cfg: ModelConfig) -> bool:
+    """Whether every layer's mixer is attention: what the paged steps take."""
+    return all(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
 
 
 def _check_attention(cfg: ModelConfig, what: str) -> None:
-    if cfg.family == "ssm":
+    if not attention_only(cfg):
         raise NotImplementedError(
             f"{cfg.name}: {what} needs every mixer to be attention: SSM/conv state "
             "folds the whole sequence and cannot restart mid-prompt"
@@ -80,10 +76,10 @@ def _check_attention(cfg: ModelConfig, what: str) -> None:
 def _position_specs(cfg: ModelConfig, j: int) -> dict:
     d = cfg.d_model
     s: dict[str, Any] = {"mixer_norm": ParamSpec((d,), ("norm",), "ones")}
-    if cfg.family == "ssm":
-        s["mamba"] = M.mamba_specs(cfg)
-    else:
+    if cfg.mixer_kind(j) == "attn":
         s["attn"] = L.attn_specs(cfg)
+    else:
+        s["mamba"] = M.mamba_specs(cfg)
     if cfg.ffn_kind(j) == "moe":
         s["ffn_norm"] = ParamSpec((d,), ("norm",), "ones")
         s["moe"] = MOE.moe_specs(cfg)
@@ -104,7 +100,6 @@ def _stack_specs(tree, n: int):
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    _check_ported(cfg)
     block = {f"pos{j}": _position_specs(cfg, j) for j in range(cfg.scan_period)}
     specs = {
         "embed": L.embed_specs(cfg),
@@ -117,33 +112,31 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16, device="cuda") -> dict:
-    """Contiguous decode cache per period position.  Attention: ``{"k",
-    "v"}`` leaves of shape ``(n_blocks, batch, cache_len, kv, hd)``, one
-    stripe per row.  Mamba2: ``{"conv": three (n_blocks, batch, W - 1, C)
-    leaves in ``dtype`` (C = d_inner, G * ds, G * ds), "ssm": (n_blocks,
-    batch, H, hd, ds) f32}``; ``cache_len`` does not apply."""
-    _check_ported(cfg)
-    if cfg.family == "ssm":
-        n, w, gds = cfg.n_blocks, cfg.conv_width, cfg.ssm_groups * cfg.ssm_state
-        return {
-            f"pos{j}": {
-                "conv": tuple(
-                    torch.zeros((n, batch, w - 1, c), dtype=dtype, device=device) for c in (cfg.d_inner, gds, gds)
-                ),
-                "ssm": torch.zeros(
-                    (n, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), dtype=torch.float32, device=device
-                ),
+    """Contiguous decode cache per period position, by its mixer.
+    Attention: ``{"k", "v"}`` leaves of shape ``(n_blocks, batch,
+    cache_len, kv, hd)``, one stripe per row.  Mamba2: ``{"conv": three
+    (n_blocks, batch, W - 1, C) leaves in ``dtype`` (C = d_inner, G * ds,
+    G * ds), "ssm": (n_blocks, batch, H, hd, ds) f32}``; ``cache_len`` does
+    not apply."""
+    n, w, gds = cfg.n_blocks, cfg.conv_width, cfg.ssm_groups * cfg.ssm_state
+    kv_shape = (n, batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+
+    def position(j: int) -> dict:
+        if cfg.mixer_kind(j) == "attn":
+            return {
+                "k": torch.zeros(kv_shape, dtype=dtype, device=device),
+                "v": torch.zeros(kv_shape, dtype=dtype, device=device),
             }
-            for j in range(cfg.scan_period)
+        return {
+            "conv": tuple(
+                torch.zeros((n, batch, w - 1, c), dtype=dtype, device=device) for c in (cfg.d_inner, gds, gds)
+            ),
+            "ssm": torch.zeros(
+                (n, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), dtype=torch.float32, device=device
+            ),
         }
-    shape = (cfg.n_blocks, batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {
-        f"pos{j}": {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-        }
-        for j in range(cfg.scan_period)
-    }
+
+    return {f"pos{j}": position(j) for j in range(cfg.scan_period)}
 
 
 def init_paged_cache(cfg: ModelConfig, n_pool_blocks: int, block_size: int,
@@ -159,7 +152,6 @@ def init_paged_cache(cfg: ModelConfig, n_pool_blocks: int, block_size: int,
     above on ``mesh.devices[s]`` (all on ``device`` without a mesh), with
     ``n_pool_blocks`` the PER-SHARD count including its own trash block at
     local index ``n_pool_blocks - 1``."""
-    _check_ported(cfg)
     _check_attention(cfg, "the paged KV cache")
     shape = (cfg.n_blocks, n_pool_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
     if mesh is not None and n_shards not in (None, mesh.size):
@@ -224,7 +216,6 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
     """Token embeddings of ``batch["tokens"]``; with the patch frontend and
     ``batch["patch_embeds"]`` (B, P, d), those P rows replace the first P
     positions."""
-    _check_ported(cfg)
     h = L.embed_apply(cfg, params["embed"], batch["tokens"])
     if cfg.frontend == "patches" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(h.dtype)
@@ -243,7 +234,7 @@ def _block(cfg: ModelConfig, params, i: int, h, positions, aux):
     for j in range(cfg.scan_period):
         pp = _layer_params(params, i, j)
         x = L.rmsnorm(h, pp["mixer_norm"], cfg.norm_eps)
-        if cfg.family == "ssm":
+        if cfg.mixer_kind(j) == "mamba":
             o, _ = M.mamba_apply(cfg, pp["mamba"], x)
         else:
             o = L.attn_apply(cfg, pp["attn"], x, positions)
@@ -317,7 +308,7 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int | None = None):
             pp = _layer_params(params, i, j)
             c = cache[f"pos{j}"]
             x = L.rmsnorm(h, pp["mixer_norm"], cfg.norm_eps)
-            if cfg.family == "ssm":
+            if cfg.mixer_kind(j) == "mamba":
                 o, (conv, ssm) = M.mamba_apply(cfg, pp["mamba"], x)
                 for leaf, new in zip(c["conv"], conv):
                     leaf[i] = new
@@ -419,7 +410,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, block_tables=None,
             pp = _layer_params(params, i, j)
             c = cache[f"pos{j}"]
             x = L.rmsnorm(h, pp["mixer_norm"], cfg.norm_eps)
-            if cfg.family == "ssm":
+            if cfg.mixer_kind(j) == "mamba":
                 o, conv, ssm = M.mamba_decode(cfg, pp["mamba"], x, tuple(t[i] for t in c["conv"]), c["ssm"][i])
                 for leaf, new in zip(c["conv"], conv):
                     leaf[i] = new

@@ -68,10 +68,12 @@ A drafter-pool OOM drops the row's drafter chain; the row keeps verifying
 ``spec_tokens_{proposed,accepted,emitted}`` feed the scheduler's accept
 rate, tokens per round and dispatches per round.
 
-Both layouts give the same tokens for the same admission order.  An
-all-Mamba2 model (``ssm`` family) serves on the contiguous path and the
-lock-step baseline, whose admit prefills carry its conv and SSM state into
-the slot; the paged path refuses it, as the reference's does.
+Both layouts give the same tokens for the same admission order.  A model
+with Mamba2 layers (the ``ssm`` family, and the ``hybrid`` family's jamba,
+whose cache holds K/V stripes and conv / SSM state side by side) serves on
+the contiguous path and the lock-step baseline, whose admit prefills carry
+its conv and SSM state into the slot; the paged path refuses it, as the
+reference's does.
 
 Sharded paged serving (``shards=N``, paged only): the block pool splits
 over the N devices of a ``runtime.compat.Mesh``, ``n_pool_blocks / N``

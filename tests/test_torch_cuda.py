@@ -259,11 +259,13 @@ def test_flash_attention_reads_strided_views(cuda_device):
 
 @pytest.mark.parametrize(
     "b,s,h,kv,dh,causal",
-    [(256, 64, 12, 12, 64, False), (147, 40, 12, 12, 64, False), (8, 256, 16, 8, 128, True)],
-    ids=["rerank", "chunk-index", "admit-prefill"],
+    [(256, 64, 12, 12, 64, False), (147, 40, 12, 12, 64, False), (8, 256, 16, 8, 128, True),
+     (8, 256, 64, 8, 128, True)],
+    ids=["rerank", "chunk-index", "admit-prefill", "jamba-admit-prefill"],
 )
 def test_flash_attention_bf16_path_shapes(cuda_device, b, s, h, kv, dh, causal):
-    """The three shapes the path gives the tensor-core kernel."""
+    """The four shapes the path gives the tensor-core kernel (jamba's: 8
+    query heads per KV head, so a 64-row tile holds 8 positions)."""
     rng = np.random.default_rng(b + s + dh)
     q, k, v = (
         torch.as_tensor(rng.standard_normal((b, s, n, dh)), dtype=torch.bfloat16, device=cuda_device)
@@ -277,8 +279,8 @@ def test_flash_attention_bf16_path_shapes(cuda_device, b, s, h, kv, dh, causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dh", [16, 32, 64, 128])
-@pytest.mark.parametrize("g", [1, 2])
-@pytest.mark.parametrize("s", [1, 40, 63, 64, 65, 100])
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("s", [1, 7, 8, 9, 40, 63, 64, 65, 100])
 def test_flash_attention_bf16_tile_edges(cuda_device, s, g, dh, causal):
     """Sequence lengths around the 64-row and 64-key tiles, every head dim
     and group size: ragged rows are not stored and ragged keys not scored."""
@@ -391,7 +393,8 @@ def _decode_case(rng, device, b, s, h, kv, dh, dtype):
 @pytest.mark.parametrize(
     "b,s,h,kv,dh",
     [(2, 64, 8, 4, 32), (4, 128, 4, 4, 16), (1, 256, 16, 2, 64),  # the reference sweep
-     (8, 272, 16, 8, 128), (3, 100, 16, 8, 128), (2, 33, 32, 2, 64)],  # serving shape, S off 64
+     (8, 272, 16, 8, 128), (3, 100, 16, 8, 128), (2, 33, 32, 2, 64),  # serving shape, S off 64
+     (8, 272, 64, 8, 128)],  # jamba's decode: 8 query heads per KV head
 )
 def test_flash_decode_matches_plain(cuda_device, b, s, h, kv, dh, dtype):
     q, k, v, lens = _decode_case(np.random.default_rng(b * s + h + dh), cuda_device, b, s, h, kv, dh, dtype)
@@ -460,7 +463,7 @@ def test_flash_decode_empty_row_is_mean_of_v(cuda_device, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [16, 32, 64, 128])
-@pytest.mark.parametrize("g", [1, 2, 16])
+@pytest.mark.parametrize("g", [1, 2, 8, 16])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 272])
 def test_flash_decode_split_edges(cuda_device, s, g, dh, dtype):
     """Cache lengths and row lengths on either side of the 64-position
@@ -649,6 +652,32 @@ def test_ssd_chunk_one_group_over_heads_equals_materialised(cuda_device, l, dtyp
     for g, w, p in zip(got, want, plain):
         assert torch.equal(g, w)
         np.testing.assert_allclose(g.cpu().numpy(), p.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [1, 100, 256])
+def test_ssd_chunk_groups_repeated_per_head(cuda_device, l, dtype):
+    """jamba's mixer: 8 groups of B and C at state 16, each repeated over
+    the 8 heads that read it (``repeat_interleave``, so head stride != 0
+    and the kernel takes one group per head), hd 64: against the plain
+    version, and against the same rows handed over as one group expanded
+    over the heads where all 8 groups are equal."""
+    rng = np.random.default_rng(l + 17)
+    b, h, hd, ds, g = 2, 64, 64, 16, 8
+    x, _, _, dt, a = _ssd_case(rng, cuda_device, b, l, h, hd, ds, dtype)
+    bg = torch.as_tensor(rng.standard_normal((b, l, g, ds)), dtype=dtype, device=cuda_device)
+    cg = torch.as_tensor(rng.standard_normal((b, l, g, ds)), dtype=dtype, device=cuda_device)
+    bh, ch = bg.repeat_interleave(h // g, dim=2), cg.repeat_interleave(h // g, dim=2)
+    assert ss_ops._scores_scratch(bh, ch, b, l, h)[0] == h
+    outs = ss_ops.ssd_chunk(x, bh, ch, dt, a)
+    plain = ss_ops.ssd_chunk_plain(x, bh, ch, dt, a)
+    torch.cuda.synchronize()
+    for got, want in zip(outs, plain):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    one, per_head = bg[:, :, :1].expand(b, l, h, ds), bg[:, :, :1].repeat_interleave(h, dim=2)
+    c_one, c_per_head = cg[:, :, :1].expand(b, l, h, ds), cg[:, :, :1].repeat_interleave(h, dim=2)
+    for p, q in zip(ss_ops.ssd_chunk(x, one, c_one, dt, a), ss_ops.ssd_chunk(x, per_head, c_per_head, dt, a)):
+        assert torch.equal(p, q)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

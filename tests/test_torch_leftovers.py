@@ -2,8 +2,8 @@
 the parameter helpers ``param_count``, ``param_bytes`` and ``cast_tree``.
 
 Greedy ``generate`` gives the reference's tokens, or first differs where
-the reference's top-2 margin is under 1e-4 (smoke-width dense, MoE and
-Mamba2 models on the reference's weights).  A sampled ``generate`` draws
+the reference's top-2 margin is under 1e-4 (smoke-width dense, MoE,
+Mamba2 and hybrid models on the reference's weights).  A sampled ``generate`` draws
 from an explicit ``torch.Generator``, which cannot reproduce JAX's keys:
 it is held to its own determinism under one seed, to the vocabulary, and
 to the greedy tokens as the temperature goes to 0.  ``param_count`` and
@@ -47,7 +47,7 @@ def _margin(cfg, params, prompt, answer_prefix):
     return float(top2[1] - top2[0])
 
 
-@pytest.mark.parametrize("name", ["qwen3-0.6b", "llama3-8b", "qwen2-moe-a2.7b", "mamba2-1.3b"])
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "llama3-8b", "qwen2-moe-a2.7b", "mamba2-1.3b", "jamba-1.5-large-398b"])
 def test_greedy_generate_matches_reference(name):
     cfg, tcfg, params, tparams = _bridged(name)
     tok = np.random.default_rng(4).integers(8, cfg.vocab_size, size=(3, 12)).astype(np.int32)
@@ -80,7 +80,7 @@ def test_sampled_generate_is_deterministic_under_one_seed():
 
 def _buildable():
     """(name, the port's `param_specs`, the reference's) of every model the
-    port builds: every LM family it takes, and the two encoders."""
+    port builds: every decoder LM, and the two encoders."""
     out = []
     for name, cfg in all_configs().items():
         if cfg.family == "encoder":
@@ -89,23 +89,21 @@ def _buildable():
             elif name == "bge-reranker-base":
                 out.append((name, TCE.param_specs, RCE.param_specs))
             continue
-        try:
-            TLM.param_specs(cfg)
-        except NotImplementedError:
-            continue
         out.append((name, TLM.param_specs, RLM.param_specs))
     return out
 
 
 def test_param_count_and_bytes_match_reference():
     built = _buildable()
-    assert {"qwen2-moe-a2.7b", "qwen3-4b", "qwen3-0.6b", "mamba2-1.3b", "contriever-110m"} <= {n for n, _, _ in built}
+    assert {"qwen2-moe-a2.7b", "qwen3-4b", "qwen3-0.6b", "mamba2-1.3b", "jamba-1.5-large-398b", "dbrx-132b",
+            "command-r-plus-104b", "contriever-110m"} <= {n for n, _, _ in built}
     for name, t_specs, r_specs in built:
         ts, rs = t_specs(t_get(name)), r_specs(r_get(name))
         assert TP.param_count(ts) == RP.param_count(rs), name
         assert TP.param_bytes(ts) == RP.param_bytes(rs), name
         assert TP.param_bytes(ts, torch.bfloat16) == RP.param_bytes(rs, jnp.bfloat16), name
     assert TP.param_count(TLM.param_specs(t_get("qwen2-moe-a2.7b"))) == 15_146_305_536
+    assert TP.param_count(TLM.param_specs(t_get("jamba-1.5-large-398b"))) == 397_710_891_264
 
 
 def test_cast_tree():

@@ -39,6 +39,7 @@ from repro_torch.runtime import steps as TS  # noqa: E402
 
 POL = ShardingPolicy(rules=base_rules(False), mesh=None)
 ARCHS = ["qwen3-0.6b", "qwen2-moe-a2.7b", "mamba2-1.3b", "pixtral-12b"]
+HYBRID = "jamba-1.5-large-398b"
 
 
 @functools.lru_cache(maxsize=None)
@@ -78,7 +79,7 @@ def _reference_grads(name):
     return float(loss), {k: float(v) for k, v in metrics.items()}, jax.tree.map(np.asarray, grads)
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + [HYBRID])
 def test_loss_fn_matches_reference(name):
     cfg, tcfg, _, _ = _bridged(name)
     loss, metrics = TLM.loss_fn(tcfg, _tparams(name), _t(_batch(cfg)))
@@ -98,6 +99,32 @@ def test_per_leaf_gradients_match_jax_grad(name):
         g = got[path].numpy()
         scale = max(float(np.abs(w).max()), 1e-12)
         assert np.abs(g - w).max() <= 1e-4 * scale, path
+
+
+def test_hybrid_gradients_within_the_references_own_spread():
+    """jamba's whole-model gradients.  At this model the reference
+    disagrees with itself: its ``naive`` and ``flash_jnp`` attention, which
+    differ only in the order of their sums, give per-leaf gradients up to
+    about 1e-2 of a leaf's largest entry apart (qwen2-moe's two differ by
+    under 1e-6; here 16 layers amplify the sums' rounding, and the router's
+    second and third probabilities of a token come within 6e-5 of each
+    other), so the 1e-4 of the other models cannot hold.  The port is held to twice that spread, measured here, and each
+    layer's backward to 1e-4 in tests/test_torch_hybrid.py."""
+    cfg, tcfg, params, _ = _bridged(HYBRID)
+    _, _, want = _reference_grads(HYBRID)
+    batch = {k: jnp.asarray(v) for k, v in _batch(cfg).items()}
+    other = cfg.with_overrides(attn_impl="flash_jnp", attn_chunk=8)
+    spread_grads = jax.grad(lambda p: RLM.loss_fn(other, POL, p, batch)[0])(params)
+    _, _, grads = TS.value_and_grad(lambda p: TLM.loss_fn(tcfg, p, _t(_batch(cfg))), _tparams(HYBRID))
+    got = dict(TP.leaves(grads))
+
+    def rel(a, w):
+        return float(np.abs(a - w).max()) / max(float(np.abs(w).max()), 1e-12)
+
+    spread = max(rel(np.asarray(s), w) for (_, s), (_, w) in zip(TP.leaves(spread_grads), TP.leaves(want)))
+    assert 1e-4 < spread < 5e-2, spread
+    for path, w in TP.leaves(want):
+        assert rel(got[path].numpy(), w) <= 2 * spread, path
 
 
 def test_sharded_ce_matches_reference():
@@ -172,7 +199,7 @@ def test_serving_kernels_refuse_inputs_that_require_grad():
     assert rt_ops.retrieval_topk(torch.randn(3, 8), torch.randn(20, 8), 4)[0].shape == (3, 4)
 
 
-@pytest.mark.parametrize("name", ["qwen3-0.6b", "mamba2-1.3b"])
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "mamba2-1.3b", "jamba-1.5-large-398b"])
 def test_remat_block_equals_none_bitwise(name):
     cfg, tcfg, _, _ = _bridged(name)
     params, batch = _tparams(name), _t(_batch(cfg))
@@ -210,7 +237,7 @@ def test_two_adamw_train_steps_match_reference():
             assert np.abs(b.numpy() - a).max() <= 1e-5 * max(float(np.abs(a).max()), 1e-30), (moment, path)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-moe-a2.7b", "mamba2-1.3b", "pixtral-12b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-moe-a2.7b", "mamba2-1.3b", "pixtral-12b", "jamba-1.5-large-398b"])
 def test_arch_train_step_decreases_loss(arch):
     """The port's version of tests/test_models.py's: four AdamW steps at lr
     1e-2 on one repeated batch, in the config's own dtype (bf16)."""
