@@ -185,12 +185,36 @@ only when every phase passed):
               flash_attention, flash_decode and ssd_chunk launched during the
               serve, a paged ServeConfig refused with a ValueError; at smoke
               width in f32, contiguous == lock-step tokens and the card's
-              tokens == the CPU run's; resident and peak memory printed.
+              tokens == the CPU run's; resident and peak memory printed;
+19. multidev  multi-device training with every mesh coordinate on the one
+              card (one card stands in for several: the machinery's cost
+              shows, not several cards' memory): qwen3-0.6b at full width
+              (phase 13's settings) data-parallel through the Trainer on
+              (2, 1) and (4, 1) ("data", "model") meshes of cuda:0, 3 steps
+              each: step 0's loss within 1e-3 relative of the unsharded
+              step's, the loss falling over 3 steps on one repeated batch,
+              every gradient leaf finite and non-zero, the grad_pspecs (reduce-scatter) form bitwise the
+              all-reduce form, each step split into forward + backward per
+              shard, the rest (the reduction, the batch's placement) and
+              the update; the elastic restore: a crash at step 2 on (2, 1)
+              resumed through restore(shardings=) onto (4, 1) (each leaf
+              bitwise the saved one, each block on its coordinate), its
+              losses equal at rel 1e-5 to a run that changes mesh at step 2
+              without a crash; mamba2-1.3b 2 steps on (2, 1) through
+              ssd_chunk; qwen2-moe-a2.7b's expert parallelism on (2, 4),
+              psum and a2a: one MoE layer at the published widths (60
+              experts as 64, top-4, moe_d_ff 1408, 4 shared) against
+              moe_reference at slack 8 (3e-5 of the largest output) and the
+              CPU run at the config's slack (1e-5), its backward finite;
+              a train step cut in depth from 24 to 2 layers, 2 AdamW
+              steps per form; the expert loop's host syncs; at smoke width
+              in f32, the DP and EP gradients on the card equal the CPU
+              run's.
 
 Each phase prints its seconds and peak memory.  Every kernel's launch
 counter is set to 0 just before each main-path run (the serves, phase 5's
 index build, phase 10's retrievals, the training runs and steps of
-13-16, the sharded serves of 17 and the serve of 18) and read just
+13-16 and 19, the sharded serves of 17 and the serve of 18) and read just
 after; a kernel of that path left at 0 fails the run.
 
 The line before the last lines is ``{"kernels": [...]}``, then the card's
@@ -1210,6 +1234,7 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
 
     jamba_kernels(torch, timer, gen, rows)
     training_checks(torch, timer, gen, parent, rows)
+    per_shard_kernels(torch, timer, gen, rows)
 
     for key, row in rows.items():
         print_row(key[0], row)
@@ -1381,6 +1406,84 @@ def training_checks(torch, timer, gen, parent: Parent | None, rows: dict) -> Non
         else:
             fail(f"{name}: an input that requires grad did not raise")
     print(f"  {', '.join(calls)}: an input that requires grad raises", flush=True)
+
+
+def per_shard_kernels(torch, timer, gen, rows: dict) -> None:
+    """Phase 3's rows at phase 19's per-data-shard batches, bf16: the
+    train forward's attention for one of 4 data shards (qwen3-0.6b, B = 8
+    / 4 = 2) and the SSD chunk for one of 2 (mamba2-1.3b, B = 8 / 2 = 4),
+    each held to its plain version (output and gradient) and timed beside
+    SDPA (attention) and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ss
+
+    dev, dtype, tdt = torch.device("cuda"), "bfloat16", torch.bfloat16
+    b, sl, h, kv, dh = 2, 256, 16, 8, 128
+    q = torch.randn(b, sl, h, dh, generator=gen, device=dev).to(tdt)
+    k = torch.randn(b, sl, kv, dh, generator=gen, device=dev).to(tdt)
+    v = torch.randn(b, sl, kv, dh, generator=gen, device=dev).to(tdt)
+    up = (torch.randn(b, sl, h, dh, generator=gen, device=dev),)
+    (o,), g = grads_through(torch, lambda *t: fa.flash_attention(*t, causal=True), (q, k, v), up)
+    (o_p,), g_p = grads_through(torch, lambda *t: fa.flash_attention_plain(*t, causal=True), (q, k, v), up)
+    shape = f"B={b} S={sl} H={h} KV={kv} dh={dh} causal {dtype}"
+    err = rel_err([o], [o_p])
+    check(f"flash_attention per-shard (dp 4) {shape} forward, error / max |out|", err, dtype)
+    check(f"flash_attention per-shard (dp 4) {shape} dq, dk, dv, error / max |grad|", rel_err(g, g_p), dtype)
+    pairs = sl * (sl + 1) // 2
+    b_ms, b_by = bound(2 * (2 * b * sl * h * dh + 2 * b * sl * kv * dh), (4 * b * h * dh * pairs, dtype))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rows["flash_attention", dtype, "per-shard B=2"] = dict(
+        **timer.turns(dict(
+            ms=lambda: fa.flash_attention(q, k, v, causal=True),
+            plain_ms=lambda: fa.flash_attention_plain(q, k, v, causal=True),
+            library_ms=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+        )),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+        shape=f"the train forward of one of 4 data shards (qwen3-0.6b 8 x 256 over dp 4): {shape}",
+    )
+    del q, k, v, qt, kt, vt, o, o_p, g, g_p
+
+    SB, SL, SH, SHD, SDS = 4, 256, 64, 64, 128
+    x = F.silu(torch.randn(SB, SL, SH, SHD, generator=gen, device=dev)).to(tdt)
+    bg = F.silu(torch.randn(SB, SL, 1, SDS, generator=gen, device=dev)).to(tdt)
+    cg = F.silu(torch.randn(SB, SL, 1, SDS, generator=gen, device=dev)).to(tdt)
+    dt = F.softplus(torch.randn(SB, SL, SH, generator=gen, device=dev))
+    a = -torch.exp(0.5 * torch.randn(SH, generator=gen, device=dev))
+    ups = (torch.randn(SB, SL, SH, SHD, generator=gen, device=dev),
+           torch.randn(SB, SH, SHD, SDS, generator=gen, device=dev), torch.randn(SB, SH, generator=gen, device=dev))
+
+    def run(fn):
+        return lambda x_, b_, c_, dt_, a_: fn(x_, b_.expand(SB, SL, SH, SDS), c_.expand(SB, SL, SH, SDS), dt_, a_)
+
+    outs, g = grads_through(torch, run(ss.ssd_chunk), (x, bg, cg, dt, a), ups)
+    outs_p, g_p = grads_through(torch, run(ss.ssd_chunk_plain), (x, bg, cg, dt, a), ups)
+    shape = f"B={SB} L={SL} H={SH} hd={SHD} ds={SDS} G=1 {dtype}"
+    err = rel_err(outs, outs_p)
+    # bf16 inputs are upcast exactly and every product is f32: the f32
+    # tolerance for the outputs, 1e-4 of the largest for the gradients
+    check(f"ssd_chunk per-shard (dp 2) {shape}, error / max |output|", err, "float32")
+    err_g = rel_err(g, g_p)
+    print(f"  ssd_chunk per-shard (dp 2) {shape}: dx, dB, dC, ddt, da error / max |grad| {err_g:.3e} (tol 1e-4) "
+          f"{'ok' if err_g <= 1e-4 else 'FAIL'}", flush=True)
+    if err_g > 1e-4:
+        fail("ssd_chunk per-shard: the gradient disagrees with the plain version's autograd")
+    bx, cx = bg.expand(SB, SL, SH, SDS), cg.expand(SB, SL, SH, SDS)
+    tri = SL * (SL + 1) // 2
+    nbytes = 2 * (SB * SL * SH * SHD + 2 * SB * SL * SDS) + 4 * (SB * SL * SH + SH) \
+        + 4 * (SB * SL * SH * SHD + SB * SH * SHD * SDS + SB * SH)
+    b_ms, b_by = bound(nbytes, (SB * tri * 2 * SDS, dtype), (SB * SH * (tri * 2 * SHD + 2 * SL * SHD * SDS), "float32"))
+    rows["ssd_chunk", dtype, "per-shard B=4"] = dict(
+        **timer.turns(dict(
+            ms=lambda: ss.ssd_chunk(x, bx, cx, dt, a),
+            plain_ms=lambda: ss.ssd_chunk_plain(x, bx, cx, dt, a),
+            library_ms=None,  # no single PyTorch call computes the chunk terms
+        )),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+        shape=f"the train chunk of one of 2 data shards (mamba2-1.3b 8 x 256 over dp 2): {shape} x/B/C, f32 dt/a",
+    )
+    del x, bg, cg, bx, cx, dt, a, outs, g, outs_p, g_p
 
 
 def print_row(name: str, row: dict) -> None:
@@ -2956,6 +3059,393 @@ def hybrid_phase(torch, smi: str, cold: list) -> list[dict]:
     return [launches]
 
 
+# --------------------------------------------------------------------- #
+# phase 19: multi-device training, every coordinate on the one card
+# --------------------------------------------------------------------- #
+
+
+class StepParts:
+    """Inside ``with``: the data-parallel step's parts on the host clock,
+    each synchronised: every data shard's forward + backward
+    (``steps.value_and_grad``, which ``data_parallel_grads`` calls once a
+    shard) and, through ``opt()``, the optimizer's update.  The rest of a
+    step (the batch's placement, the global token count, the gradient
+    reduction in shard order, the metrics) is its time less those."""
+
+    def __init__(self, torch):
+        from repro_torch.runtime import steps
+
+        self.torch, self.steps, self.orig = torch, steps, steps.value_and_grad
+        self.shard: list[float] = []
+        self.update: list[float] = []
+
+    def _timed(self, fn, into: list):
+        def call(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return out
+
+        return call
+
+    def __enter__(self):
+        self.steps.value_and_grad = self._timed(self.orig, self.shard)
+        return self
+
+    def __exit__(self, *exc):
+        self.steps.value_and_grad = self.orig
+
+    def opt(self, opt):
+        from repro_torch.optim.optimizers import Optimizer
+
+        return Optimizer(init=opt.init, update=self._timed(opt.update, self.update), name=opt.name)
+
+    def summary(self, step_times: list, dp: int) -> str:
+        """Medians over the steps after the first."""
+        n = len(step_times)
+        per = [sum(self.shard[i * dp:(i + 1) * dp]) for i in range(n)]
+        rest = [t - s - u for t, s, u in zip(step_times, per, self.update)]
+        med = {k: statistics.median(v[1:] if n > 1 else v) for k, v in
+               (("step", step_times), ("shards", per), ("rest", rest), ("update", self.update))}
+        each = statistics.median(self.shard[dp:] if n > 1 else self.shard)
+        return (f"step {med['step']:.3f} s (median of steps 2-{n}): forward + backward {med['shards']:.3f} s over "
+                f"{dp} shards ({each:.3f} s a shard), reduction and the rest {med['rest']:.3f} s, update "
+                f"{med['update']:.3f} s")
+
+
+def mesh_of(dp: int, tp: int = 1, device: str = "cuda:0"):
+    from repro_torch.runtime.compat import make_mesh
+
+    return make_mesh([device] * (dp * tp), ("data", "model"), shape=(dp, tp))
+
+
+def placed_right(torch, full, st) -> bool:
+    """Whether the placement ``st`` holds ``full``: each coordinate's block
+    bitwise its slice, on that coordinate's device."""
+    sh = st.sharding
+    counts = sh.blocks_along(full.ndim)
+    for coord, blk in zip(sh.mesh.coords(), st.blocks):
+        want = full
+        for d, (i, n) in enumerate(zip(sh.block_index(coord, full.ndim), counts)):
+            step = full.shape[d] // n
+            want = want.narrow(d, i * step, step)
+        if blk.device != sh.mesh.device(coord) or not torch.equal(blk, want):
+            return False
+    return torch.equal(st.full(), full)
+
+
+def smoke_dp_matches_cpu(torch, arch: str, shape, impl: str = "psum") -> None:
+    """Smoke width, f32: the data-parallel gradients on a mesh of cuda:0
+    against the same step on a mesh of cpu (loss 1e-5 relative, each leaf
+    1e-4 of its largest entry)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.models import lm as LM
+    from repro_torch.models.params import init_params, leaves, map_tree
+    from repro_torch.runtime.sharding import make_policy
+    from repro_torch.runtime.steps import data_parallel_grads
+
+    cfg = smoke_config(get_config(arch)).with_overrides(dtype="float32", remat="block", vocab_size=512,
+                                                        moe_impl=impl)
+    p_cpu = init_params(LM.param_specs(cfg), torch.Generator().manual_seed(SEED), device="cpu")
+    rng = np.random.default_rng(SEED)
+    tok = rng.integers(0, 512, size=(8, 64)).astype(np.int32)
+    tgt = tok.copy()
+    tgt[0, 3:] = -1
+    tgt[5, ::2] = -1
+    batch = {"tokens": tok, "targets": tgt}
+    out = {}
+    for dev in ("cpu", "cuda:0"):
+        mesh = mesh_of(*shape, device=dev)
+        pol = make_policy(mesh, global_batch=8)
+        params = p_cpu if dev == "cpu" else map_tree(lambda t: t.to(dev), p_cpu)
+        out[dev] = data_parallel_grads(cfg, pol, params, shard_batch(batch, mesh, pol.spec("act_batch", shape=(8,))))
+    torch.cuda.synchronize()
+    loss_err = abs(float(out["cuda:0"][0]) - float(out["cpu"][0])) / abs(float(out["cpu"][0]))
+    want = dict(leaves(out["cpu"][2]))
+    err = max(float((g.cpu() - want[path]).abs().max()) / max(float(want[path].abs().max()), 1e-30)
+              for path, g in leaves(out["cuda:0"][2]))
+    ok = loss_err <= 1e-5 and err <= 1e-4
+    print(f"  smoke width f32, {arch} on {shape} ({impl}): card against CPU, loss {loss_err:.2e} relative (tol "
+          f"1e-5), gradients {err:.2e} of the leaf's largest (tol 1e-4) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"smoke-width {arch} {shape} {impl}: the card's data-parallel step differs from the CPU's")
+
+
+def multidevice_phase(torch, smi: str) -> list[dict]:
+    """[19] multi-device training on one card: the data-parallel step, the
+    elastic restore and expert parallelism over meshes of cuda:0."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LMBatchStream, shard_batch
+    from repro_torch.models import lm as LM
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import mlp_apply
+    from repro_torch.models.params import init_params, leaves, make_pspecs, make_shardings, map_tree, param_count
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.runtime.sharding import ShardedTensor, ShardingPolicy, base_rules, make_policy
+    from repro_torch.runtime.steps import data_parallel_grads, make_train_step
+    from repro_torch.runtime.train_loop import SimulatedFailure, Trainer, TrainerConfig
+
+    free_device(torch)
+    runs = []
+    cfg = get_config("qwen3-0.6b")  # phase 13's: bf16 activations, f32 weights and AdamW moments, remat per block
+    lr, batch, seq = 3e-4, 8, 256
+    specs = LM.param_specs(cfg)
+    first = LMBatchStream(batch, seq, cfg.vocab_size, seed=SEED).next()
+    params = init_params(specs, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    with torch.no_grad():
+        want0 = float(LM.loss_fn(cfg, params, {k: torch.as_tensor(v, device="cuda") for k, v in first.items()})[0])
+    print(f"  qwen3-0.6b full width ({param_count(specs) / 1e9:.3f} B parameters), batch {batch} x {seq}: the "
+          f"unsharded step 0's loss {want0:.6f}", flush=True)
+    for dp in (2, 4):  # every leaf's gradient; the reduce-scatter form bitwise the all-reduce form
+        mesh = mesh_of(dp)
+        pol = make_policy(mesh, global_batch=batch, seq_len=seq)
+        placed = shard_batch(first, mesh, pol.spec("act_batch", shape=(batch,)))
+        _, _, grads = data_parallel_grads(cfg, pol, params, placed)
+        check_grads(torch, f"qwen3-0.6b dp {dp}", grads)
+        pspecs = make_pspecs(specs, pol.rules, dict(mesh.shape))
+        _, _, rs = data_parallel_grads(cfg, pol, params, placed, grad_pspecs=pspecs)
+        bad = [path for (path, a), (_, b) in zip(leaves(grads), leaves(rs)) if not torch.equal(a, b)]
+        n_rs = sum(any(e == "data" for e in spec) for _, spec in leaves(pspecs))
+        print(f"  dp {dp}: every leaf's gradient finite and non-zero; grad_pspecs reduce-scatters {n_rs} of "
+              f"{len(leaves(pspecs))} leaves over data, bitwise equal to the all-reduce form: {not bad}", flush=True)
+        if bad:
+            fail(f"dp {dp}: the reduce-scatter form differs from the all-reduce form at {bad[:5]}")
+        del grads, rs
+        # the loss falls over 3 steps on one repeated batch (the stream's own
+        # losses need not: phase 13's rise over its first 3 fresh batches)
+        opt = get_optimizer("adamw")
+        step = make_train_step(cfg, opt, lambda s: lr, pol=pol)
+        p, st, rep = params, opt.init(params), []
+        for i in range(3):
+            p, st, m = step(p, st, placed, i)
+            rep.append(float(m["loss"]))
+        print(f"  dp {dp}, one repeated batch: losses {[round(x, 4) for x in rep]}", flush=True)
+        if not rep[-1] < rep[0] or not all(np.isfinite(rep)):
+            fail(f"dp {dp}: the loss does not fall over 3 steps on one batch: {rep}")
+        del p, st, m, step, placed
+    del params
+    free_device(torch)
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    try:
+        def trainer(tag, dp, steps, clock=None, **kw):
+            mesh = mesh_of(dp)
+            pol = make_policy(mesh, global_batch=batch, seq_len=seq)
+            opt = get_optimizer("adamw")
+            return Trainer(cfg, clock.opt(opt) if clock else opt, LMBatchStream(batch, seq, cfg.vocab_size, seed=SEED),
+                           TrainerConfig(total_steps=steps, ckpt_dir=str(root / tag), **kw), lr_fn=lambda s: lr,
+                           pol=pol, shardings=make_shardings(specs, mesh, pol.rules))
+
+        losses = {}
+        for dp in (2, 4):
+            with StepParts(torch) as clock:
+                t = trainer(f"dp{dp}", dp, 3, clock, ckpt_every=2 if dp == 2 else 3)  # dp 2's step 1: the mesh change
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                t.run(resume="never", seed=SEED)
+                runs.append(read_launches(f"the dp-{dp} training run", ("flash_attention",)))
+            if runs[-1]["flash_attention"] < 2 * cfg.n_blocks * dp * 3:
+                fail(f"dp {dp}: flash_attention launched {runs[-1]['flash_attention']} times, fewer than forward + "
+                     f"remat recompute of {cfg.n_blocks} layers x {dp} shards x 3 steps")
+            losses[dp] = [m["loss"] for m in t.metrics_log]
+            rel0 = abs(losses[dp][0] - want0) / abs(want0)
+            print(f"  dp {dp} on {[str(d) for d in t.mesh.devices]}: losses {[round(x, 4) for x in losses[dp]]}, "
+                  f"step 0 {rel0:.2e} relative to the unsharded (tol 1e-3); {clock.summary(t.step_times, dp)}; "
+                  f"{peak_line(torch, smi)}", flush=True)
+            if rel0 > 1e-3 or not all(np.isfinite(losses[dp])):
+                fail(f"dp {dp}: losses {losses[dp]} (step 0 within 1e-3 of {want0}, finite)")
+            del t
+            if dp == 4:
+                shutil.rmtree(root / "dp4", ignore_errors=True)
+            free_device(torch)
+
+        # the elastic restore: a crash at step 2 on (2, 1), resumed onto (4, 1)
+        crashed = trainer("crash", 2, 3, ckpt_every=2, fail_at_step=2)
+        try:
+            crashed.run(resume="never", seed=SEED)
+            fail("the run with fail_at_step=2 did not fail")
+        except SimulatedFailure as e:
+            print(f"  killed: {e} (the last checkpoint at step {crashed.ckpt.latest_step()})", flush=True)
+        same = [m["loss"] for m in crashed.metrics_log] == losses[2][:2]
+        print(f"  the crashed run's losses equal the dp-2 run's before the crash, bitwise: {same}", flush=True)
+        if not same:
+            fail(f"the crashed run's losses {[m['loss'] for m in crashed.metrics_log]} != {losses[2][:2]}")
+        mesh4 = mesh_of(4)
+        pol4 = make_policy(mesh4, global_batch=batch, seq_len=seq)
+        resumer = trainer("crash", 4, 3)
+        like = resumer.init_state(SEED)
+        t0 = time.perf_counter()
+        saved, extra, at = crashed.ckpt.restore(like, device="cuda")
+        placed, _, _ = crashed.ckpt.restore(like, shardings=(resumer.shardings, resumer.state_shardings(like[1])))
+        t_restore = time.perf_counter() - t0
+        flat_saved = leaves(saved[0]) + leaves(saved[1])
+        flat_placed = leaves(placed[0]) + leaves(placed[1])
+        bad = [path for (path, a), (_, b) in zip(flat_saved, flat_placed)
+               if not (isinstance(b, ShardedTensor) and placed_right(torch, a, b))]
+        n_split = sum(any(e is not None for e in b.sharding.spec) for _, b in flat_placed)
+        print(f"  restored step {at} onto (4, 1) in {t_restore:.1f} s (two restores, hashes checked): "
+              f"{len(flat_placed)} leaves, {n_split} of them split over data, each bitwise the saved one with "
+              f"every block on its coordinate: {not bad}", flush=True)
+        if bad:
+            fail(f"the elastic restore differs from the saved tree at {bad[:5]}")
+        del like, placed
+        # the run that changes mesh at step 2 without a crash: the dp-2 run's
+        # checkpoint of step 1, its next batch, one step on (4, 1)
+        plain = CheckpointManager(str(root / "dp2"))
+        state, extra2, _ = plain.restore(saved, step=1, device="cuda")
+        stream = LMBatchStream(batch, seq, cfg.vocab_size, seed=SEED)
+        stream.load_state_dict(extra2["stream"])
+        step4 = make_train_step(cfg, get_optimizer("adamw"), lambda s: lr, pol=pol4)
+        _, _, m = step4(state[0], state[1], shard_batch(stream.next(), mesh4, pol4.spec("act_batch", shape=(batch,))), 2)
+        switch = float(m["loss"])
+        del state, saved, m
+        shutil.rmtree(root / "dp2", ignore_errors=True)
+        free_device(torch)
+        reset_launches()
+        t0 = time.perf_counter()
+        resumer.run(resume="auto", seed=SEED)
+        runs.append(read_launches("the resumed run on (4, 1)", ("flash_attention",)))
+        got = resumer.metrics_log[0]["loss"]
+        print(f"  resumed on (4, 1) at step {resumer.metrics_log[0]['step']} in {time.perf_counter() - t0:.1f} s "
+              f"(restore included): loss {got:.6f}; the mesh changed at step 2 without a crash: {switch:.6f}; the "
+              f"dp-2 run's step 2: {losses[2][2]:.6f}", flush=True)
+        if not math.isclose(got, switch, rel_tol=1e-5):
+            fail(f"resumed loss {got} != the uncrashed mesh change's {switch} (rel 1e-5)")
+        del crashed, resumer
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_device(torch)
+
+    # mamba2-1.3b: 2 steps on (2, 1) through ssd_chunk
+    mcfg = get_config("mamba2-1.3b")
+    mesh = mesh_of(2)
+    pol = make_policy(mesh, global_batch=batch, seq_len=seq)
+    opt = get_optimizer("adamw")
+    params = init_params(LM.param_specs(mcfg), torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    stream = LMBatchStream(batch, seq, mcfg.vocab_size, seed=SEED)
+    raw = stream.next()
+    with torch.no_grad():
+        want0 = float(LM.loss_fn(mcfg, params, {k: torch.as_tensor(v, device="cuda") for k, v in raw.items()})[0])
+    state = opt.init(params)
+    step = make_train_step(mcfg, opt, lambda s: lr, pol=pol)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    mlosses, times = [], []
+    for i in range(2):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, shard_batch(raw, mesh, pol.spec("act_batch", shape=(batch,))), i)
+        mlosses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        raw = stream.next()
+    runs.append(read_launches("two mamba2-1.3b steps on (2, 1)", ("ssd_chunk",)))
+    rel0 = abs(mlosses[0] - want0) / abs(want0)
+    print(f"  mamba2-1.3b full width on (2, 1): losses {[round(x, 4) for x in mlosses]}, step 0 {rel0:.2e} relative "
+          f"to the unsharded {want0:.6f} (tol 1e-3); steps {[round(x, 3) for x in times]} s; {peak_line(torch, smi)}",
+          flush=True)
+    if rel0 > 1e-3 or not all(np.isfinite(mlosses)):
+        fail(f"mamba2-1.3b on (2, 1): losses {mlosses} against the unsharded {want0}")
+    del params, state, step
+    free_device(torch)
+
+    # expert parallelism (a): one MoE layer at qwen2-moe-a2.7b's published widths
+    mesh24 = mesh_of(2, 4)
+    base = get_config("qwen2-moe-a2.7b").with_overrides(dtype="float32")
+    p = init_params(MOE.moe_specs(base), torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    x = torch.randn(8, 256, base.d_model, generator=gen, device="cuda")
+    up = torch.randn(8, 256, base.d_model, generator=gen, device="cuda")
+    pol24 = ShardingPolicy(rules=base_rules(False), mesh=mesh24)
+    dense, _ = MOE.moe_reference(base, p, x)
+    with torch.no_grad():
+        dense = dense + mlp_apply(base, p["shared"], x) * torch.sigmoid(x @ p["shared_gate"])
+    p_cpu, x_cpu = map_tree(lambda t: t.cpu(), p), x.cpu()
+    pol_cpu = ShardingPolicy(rules=base_rules(False), mesh=mesh_of(2, 4, "cpu"))
+    print(f"  qwen2-moe-a2.7b MoE layer: d {base.d_model}, {base.n_experts} experts as "
+          f"{p['wg'].shape[0]} ({p['wg'].shape[0] // 4} a model shard), top-{base.moe_top_k}, moe_d_ff "
+          f"{base.moe_d_ff}, {base.n_shared_experts} shared; x (8, 256, {base.d_model}) f32 on (2, 4)", flush=True)
+    for impl in ("psum", "a2a"):
+        with torch.no_grad():
+            at8, _ = MOE.moe_apply(base.with_overrides(capacity_slack=8.0, moe_impl=impl), p, x, pol=pol24)
+        err8 = float((at8 - dense).abs().max()) / float(dense.abs().max())
+        cfg_i = base.with_overrides(moe_impl=impl)
+        live = map_tree(lambda t: t.detach().requires_grad_(True), p)
+        xl = x.detach().requires_grad_(True)
+        syncs = MOE.host_syncs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, aux = MOE.moe_apply(cfg_i, live, xl, pol=pol24)
+        torch.cuda.synchronize()
+        t_fwd, syncs = time.perf_counter() - t0, MOE.host_syncs - syncs
+        grads = torch.autograd.grad((out * up).sum() + aux, [xl] + [t for _, t in leaves(live)])
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        with torch.no_grad():
+            ref_cpu, aux_cpu = MOE.moe_apply(cfg_i, p_cpu, x_cpu, pol=pol_cpu)
+        err_cpu = float((out.detach().cpu() - ref_cpu).abs().max()) / float(ref_cpu.abs().max())
+        aux = aux.detach()
+        aux_err = abs(float(aux) - float(aux_cpu)) / abs(float(aux_cpu))
+        ok = err8 <= 3e-5 and err_cpu <= 1e-5 and aux_err <= 1e-5 and finite
+        print(f"  {impl}: slack 8 against moe_reference {err8:.2e} of the largest output (tol 3e-5); at the config's "
+              f"slack {base.capacity_slack} against the CPU run {err_cpu:.2e} (tol 1e-5), aux {float(aux):.6f} "
+              f"({aux_err:.1e} off); backward finite: {finite}; forward {t_fwd:.3f} s with {syncs} expert-loop host "
+              f"syncs {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"qwen2-moe EP layer {impl} disagrees")
+        del at8, live, xl, out, aux, grads, ref_cpu
+    del p, p_cpu, x, x_cpu, up, dense
+    free_device(torch)
+
+    # expert parallelism (b): a train step, depth cut 24 -> 2 (all 24 layers'
+    # 15.15 B parameters with AdamW's moments and gradients in f32 are about
+    # 242 GB; 2 layers are 1.83 B, about 37 GB before activations at dp 2)
+    for impl in ("psum", "a2a"):
+        ecfg = get_config("qwen2-moe-a2.7b").with_overrides(n_layers=2, moe_impl=impl)
+        pol = make_policy(mesh24, global_batch=batch, seq_len=seq)
+        params = init_params(LM.param_specs(ecfg), torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+        state = opt.init(params)
+        step = make_train_step(ecfg, opt, lambda s: lr, pol=pol)
+        stream = LMBatchStream(batch, seq, ecfg.vocab_size, seed=SEED)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        syncs = MOE.host_syncs
+        elosses, auxes, times = [], [], []
+        for i in range(2):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, shard_batch(stream.next(), mesh24,
+                                                               pol.spec("act_batch", shape=(batch,))), i)
+            elosses.append(float(m["loss"]))
+            auxes.append(float(m["aux"]))
+            times.append(time.perf_counter() - t0)
+        syncs = MOE.host_syncs - syncs
+        runs.append(read_launches(f"two qwen2-moe-a2.7b {impl} steps on (2, 4)", ("flash_attention",)))
+        print(f"  qwen2-moe-a2.7b {impl} on (2, 4), depth cut 24 -> 2 ({param_count(LM.param_specs(ecfg)) / 1e9:.3f} B "
+              f"parameters; published {param_count(LM.param_specs(get_config('qwen2-moe-a2.7b'))) / 1e9:.2f} B), "
+              f"batch {batch} x {seq}: losses {[round(v, 4) for v in elosses]}, aux {[round(v, 4) for v in auxes]}; "
+              f"steps {[round(v, 3) for v in times]} s; {syncs // 2} expert-loop host syncs a step (2 layers x 2 data "
+              f"shards x 4 model shards a pass; remat {ecfg.remat!r}); {peak_line(torch, smi)}", flush=True)
+        if not all(np.isfinite(elosses + auxes)):
+            fail(f"qwen2-moe {impl} train step: losses {elosses}, aux {auxes}")
+        del params, state, step
+        free_device(torch)
+
+    # smoke width, f32: the card's DP and EP steps equal the CPU run's
+    smoke_dp_matches_cpu(torch, "qwen3-0.6b", (2, 1))
+    smoke_dp_matches_cpu(torch, "qwen3-0.6b", (4, 1))
+    for impl in ("psum", "a2a"):
+        smoke_dp_matches_cpu(torch, "qwen2-moe-a2.7b", (2, 4), impl)
+    return runs
+
+
 def _sgd(params, grads, lr: float):
     from repro_torch.models.params import map_tree
 
@@ -3039,6 +3529,8 @@ def main() -> int:
                   "federated top-k", sharded_phase, cold, timer, rows)
     runs += phase("[18] the hybrid family: jamba-1.5-large-398b, one scan period, contiguous engine", hybrid_phase,
                   cold)
+    runs += phase("[19] multi-device training on one card: data-parallel qwen3-0.6b and mamba2-1.3b, the elastic "
+                  "restore, qwen2-moe-a2.7b expert parallelism", multidevice_phase)
 
     meta = {
         "retrieval_topk": ("src/repro_torch/kernels/csrc/retrieval_topk.cu", "src/repro/kernels/retrieval_topk/kernel.py:105"),
@@ -3052,7 +3544,7 @@ def main() -> int:
     # embeddings; bf16 activations, KV pool and encoders) and, for
     # flash_attention, its largest path shape (the rerank), with the
     # further path shapes beside it; launches are summed over the
-    # main-path runs of phases 4-18
+    # main-path runs of phases 4-19
     path_row = {
         "retrieval_topk": ("retrieval_topk", "float32"), "mixed_prefill": ("mixed_prefill", "bfloat16"),
         "paged_decode": ("paged_decode", "bfloat16"), "flash_attention": ("flash_attention", "bfloat16", "rerank"),
@@ -3076,7 +3568,7 @@ def main() -> int:
                          ("head_dim_80", "dh80"), ("backward_train", "backward train"),
                          ("backward_hubert", "backward hubert"), ("backward_contriever", "backward contriever"),
                          ("partials_owned", "partials_owned"), ("partials_empty_zero", "partials_empty_zero"),
-                         ("jamba", "jamba")):
+                         ("jamba", "jamba"), ("per_shard_b2", "per-shard B=2"), ("per_shard_b4", "per-shard B=4")):
             extra = rows.get((name, "bfloat16", key))
             if extra is not None:
                 kernels[-1][tag] = {k: extra[k] for k in (

@@ -12,8 +12,11 @@ before it returns (an optimizer update in place afterwards cannot race
 the writer thread), then writes into a temporary directory, hashes each
 file, and publishes it by an atomic rename; ``keep_n`` checkpoints are
 kept.  ``restore`` checks every hash and rebuilds the structure of a
-given tree, tensors on ``device`` (default: each like-leaf's own).  A
-bf16 leaf raises: numpy has no bf16, and the state this package
+given tree, tensors on ``device`` (default: each like-leaf's own), or,
+with ``shardings`` (a matching tree of ``runtime.sharding.NamedSharding``),
+each leaf placed per its sharding: the elastic restore.  Leaves are
+stored in their logical layout, so a checkpoint saved from one mesh
+restores onto any other.  A bf16 leaf raises: numpy has no bf16, and the state this package
 checkpoints (f32 master weights and optimizer moments, int32 counters)
 has none.
 """
@@ -27,6 +30,8 @@ import threading
 
 import numpy as np
 import torch
+
+from repro_torch.runtime.sharding import device_put
 
 
 def _flatten(tree, path: str = ""):
@@ -131,10 +136,12 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, tree_like, step: int | None = None, device=None, verify: bool = True):
+    def restore(self, tree_like, step: int | None = None, device=None, verify: bool = True, shardings=None):
         """Restore into the structure of ``tree_like``: a tensor leaf comes
         back as a tensor on ``device`` (default: the like-leaf's device),
-        any other leaf as a numpy array.  Returns ``(tree, extra, step)``."""
+        any other leaf as a numpy array; with ``shardings``, every leaf as
+        the ``ShardedTensor`` its sharding places.  Returns ``(tree, extra,
+        step)``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -142,7 +149,8 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         out = []
-        for (_, like), fn in zip(_leaf_paths(tree_like), manifest["order"], strict=True):
+        places = [s for _, s in _flatten(shardings)] if shardings is not None else None
+        for i, ((_, like), fn) in enumerate(zip(_leaf_paths(tree_like), manifest["order"], strict=True)):
             path = os.path.join(d, fn)
             if verify:
                 with open(path, "rb") as f:
@@ -150,7 +158,9 @@ class CheckpointManager:
                 if digest != manifest["tensors"][fn]["sha256"]:
                     raise IOError(f"checkpoint corruption detected in {fn}")
             arr = np.load(path)
-            if isinstance(like, torch.Tensor):
+            if places is not None:
+                out.append(device_put(torch.from_numpy(arr), places[i]))
+            elif isinstance(like, torch.Tensor):
                 out.append(torch.from_numpy(arr).to(device if device is not None else like.device))
             else:
                 out.append(arr)

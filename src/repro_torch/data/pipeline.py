@@ -4,15 +4,18 @@
 (``tokens`` (B, S) and ``targets`` (B, S), -1 where unsupervised) from a
 synthetic source; its state is just (seed, step), so a checkpoint restart
 resumes the exact stream.  A copy of the reference's stream: the same
-seed gives the same tokens.  The caller moves a batch to its device.
+seed gives the same tokens.  ``shard_batch`` moves a batch to its device,
+or places it on a mesh.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.data.tokenizer import HashTokenizer
+from repro_torch.runtime.sharding import NamedSharding, PartitionSpec, device_put
 
 
 @dataclasses.dataclass
@@ -114,3 +117,13 @@ class LMBatchStream:
 
     def load_state_dict(self, d: dict):
         self.state = StreamState(**d)
+
+
+def shard_batch(batch: dict, mesh, batch_spec, device=None):
+    """A host batch as tensors on ``device`` without a mesh; with one, each
+    array placed per ``batch_spec`` (the activations' batch sharding: each
+    data shard's rows on that shard's devices), a scalar replicated."""
+    if mesh is None:
+        return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    return {k: device_put(torch.as_tensor(v), NamedSharding(mesh, batch_spec if np.ndim(v) >= 1 else PartitionSpec()))
+            for k, v in batch.items()}

@@ -200,14 +200,15 @@ def _layer_params(params, i: int, j: int):
     return map_tree(lambda t: t[i], params["blocks"][f"pos{j}"])
 
 
-def _ffn(cfg, pp, h):
+def _ffn(cfg, pp, h, pol=None):
     """h + the layer's FFN (dense MLP or MoE; none for a Mamba2 block) ->
-    (h, the MoE load-balance loss or None)."""
+    (h, the MoE load-balance loss or None).  ``pol`` reaches the MoE layer
+    (its expert-parallel forms)."""
     if "ffn_norm" not in pp:
         return h, None
     x = L.rmsnorm(h, pp["ffn_norm"], cfg.norm_eps)
     if "moe" in pp:
-        o, aux = MOE.moe_apply(cfg, pp["moe"], x)
+        o, aux = MOE.moe_apply(cfg, pp["moe"], x, pol=pol)
         return h + o, aux
     return h + L.mlp_apply(cfg, pp["mlp"], x), None
 
@@ -228,7 +229,7 @@ def _positions(shape, device):
     return torch.arange(shape[1], device=device)[None, :].expand(shape[0], shape[1])
 
 
-def _block(cfg: ModelConfig, params, i: int, h, positions, aux):
+def _block(cfg: ModelConfig, params, i: int, h, positions, aux, pol=None):
     """Scan block ``i`` (its ``scan_period`` layers) of the whole-sequence
     pass -> (h, aux plus the block's MoE load-balance losses)."""
     for j in range(cfg.scan_period):
@@ -238,7 +239,7 @@ def _block(cfg: ModelConfig, params, i: int, h, positions, aux):
             o, _ = M.mamba_apply(cfg, pp["mamba"], x)
         else:
             o = L.attn_apply(cfg, pp["attn"], x, positions)
-        h, a = _ffn(cfg, pp, h + o)
+        h, a = _ffn(cfg, pp, h + o, pol)
         if a is not None:
             aux = aux + a
     return h, aux
@@ -250,11 +251,13 @@ def _remat(cfg: ModelConfig) -> bool:
     return cfg.remat == "block" and torch.is_grad_enabled()
 
 
-def forward(cfg: ModelConfig, params, batch):
+def forward(cfg: ModelConfig, params, batch, pol=None):
     """Full causal forward.  ``batch["tokens"]`` (B, S), optionally
     ``batch["patch_embeds"]`` -> ``(logits (B, S, V), aux)``; ``aux`` is the
     MoE load-balance loss summed over the MoE layers in f32 and divided by
-    their count, 0 without experts."""
+    their count, 0 without experts.  With ``pol`` (a
+    ``runtime.sharding.ShardingPolicy``) the MoE layers run expert-parallel
+    over its mesh; nothing else changes."""
     tokens = batch["tokens"]
     h = _embed_inputs(cfg, params, batch)
     positions = _positions(tokens.shape, tokens.device)
@@ -262,36 +265,58 @@ def forward(cfg: ModelConfig, params, batch):
     remat = _remat(cfg)
     for i in range(cfg.n_blocks):
         if remat:
-            h, aux = checkpoint(_block, cfg, params, i, h, positions, aux, use_reentrant=False,
+            h, aux = checkpoint(_block, cfg, params, i, h, positions, aux, pol, use_reentrant=False,
                                 preserve_rng_state=False)
         else:
-            h, aux = _block(cfg, params, i, h, positions, aux)
+            h, aux = _block(cfg, params, i, h, positions, aux, pol)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers))
     return L.head_apply(cfg, params, h), aux / max(n_moe, 1)
 
 
-def sharded_ce(logits, targets, mask):
-    """Mean next-token cross-entropy in f32 over the positions where
+def masked_ce_sum(logits, targets, mask):
+    """Next-token cross-entropy in f32 summed over the positions where
     ``mask`` is set; a target below 0 (masked) reads class 0.  The
     reference's one-hot contraction picks the label logit exactly, as the
     gather here does."""
     lg = logits.float()
     lse = torch.logsumexp(lg, dim=-1)
     label = torch.gather(lg, -1, torch.clamp(targets, min=0).long()[..., None])[..., 0]
-    return -((label - lse) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return -((label - lse) * mask).sum()
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
+def sharded_ce(logits, targets, mask):
+    """Mean next-token cross-entropy in f32 over the positions where
+    ``mask`` is set."""
+    return masked_ce_sum(logits, targets, mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, pol=None):
     """Next-token CE plus ``router_aux_weight`` times the MoE loss.  batch:
     ``tokens`` (B, S), ``targets`` (B, S) with -1 masked.  Returns ``(loss,
-    {"ce", "aux", "tokens"})``."""
-    logits, aux = forward(cfg, params, batch)
+    {"ce", "aux", "tokens"})``; ``pol`` as in ``forward``."""
+    logits, aux = forward(cfg, params, batch, pol)
     targets = batch["targets"]
     mask = (targets >= 0).float()
     ce = sharded_ce(logits, targets, mask)
     loss = ce + cfg.router_aux_weight * aux
     return loss, {"ce": ce, "aux": aux, "tokens": mask.sum()}
+
+
+def cache_pspecs(cfg: ModelConfig, pol):
+    """PartitionSpec tree matching ``init_cache``'s structure (the
+    reference's, tuple for tuple)."""
+    blk = {}
+    for j in range(cfg.scan_period):
+        if cfg.mixer_kind(j) == "attn":
+            kv_spec = pol.spec(None, "cache_batch", "cache_seq", "cache_kv", None)
+            blk[f"pos{j}"] = {"k": kv_spec, "v": kv_spec}
+        else:
+            blk[f"pos{j}"] = {
+                "conv": tuple(pol.spec(None, "cache_batch", None, "act_ff" if i == 0 else None) for i in range(3)),
+                "ssm": pol.spec(None, "cache_batch", "act_heads", None, None),
+            }
+    return blk
 
 
 def prefill(cfg: ModelConfig, params, batch, cache_len: int | None = None):

@@ -9,6 +9,10 @@ arrays, turned into this package's tensors).  Both return the nested
 dict of tensors the model functions take; ``ParamTree`` holds such a
 dict as an ``nn.Module`` (device moves, ``state_dict``).  ``param_count``
 and ``param_bytes`` size a declaration; ``cast_tree`` casts a tree.
+``spec_to_pspec`` / ``make_pspecs`` map a declaration's logical axes to
+mesh axes by the rules of ``runtime/sharding.py`` (the reference's
+partition specs, tuple for tuple), and ``make_shardings`` to
+``NamedSharding``s on a mesh.
 
 The two packages draw different numbers from the same seed, so tests
 that hold the port against the reference feed both the same weights
@@ -23,6 +27,8 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.runtime.sharding import NamedSharding, PartitionSpec, resolve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +106,23 @@ def from_reference(specs, tree_of_numpy, device="cuda", dtype=torch.float32):
         return {k: walk(spec_node[k], ref_node[k], f"{path}/{k}") for k in spec_node}
 
     return walk(specs, tree_of_numpy, "")
+
+
+def spec_to_pspec(spec: ParamSpec, rules: dict[str, Any], axis_sizes: dict[str, int] | None = None) -> PartitionSpec:
+    """Map logical axes -> mesh axes.  Guards: (a) never reuse a mesh axis
+    within one spec; (b) with ``axis_sizes``, drop mesh axes that do not
+    divide the dimension (smollm's 15 heads / 5 kv-heads stay replicated
+    over model=16)."""
+    return resolve(rules, spec.axes, spec.shape, axis_sizes)
+
+
+def make_pspecs(specs, rules, axis_sizes=None):
+    return map_tree(lambda s: spec_to_pspec(s, rules, axis_sizes), specs)
+
+
+def make_shardings(specs, mesh, rules):
+    axis_sizes = dict(mesh.shape)
+    return map_tree(lambda s: NamedSharding(mesh, spec_to_pspec(s, rules, axis_sizes)), specs)
 
 
 def param_count(specs) -> int:

@@ -1299,3 +1299,137 @@ def test_sharded_serving_smoke_width_matches_cpu(cuda_device):
     assert launches["cuda", 1][0] > 0 and launches["cpu", 1][0] == 0
     for shards in (2, 4):  # the same steps, one launch per shard per layer
         assert launches["cuda", shards] == (shards * launches["cuda", 1][0], launches["cuda", 1][1])
+
+
+# --------------------------------------------------------------------- #
+# multi-device training on one card: data-parallel and expert-parallel
+# steps over meshes of cuda:0, the kernels at the per-shard batches
+# --------------------------------------------------------------------- #
+
+
+def _dp_grads(cfg, device, shape, batch, params, grad_pspecs=None):
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.models.params import map_tree
+    from repro_torch.runtime.compat import make_mesh
+    from repro_torch.runtime.sharding import make_policy
+    from repro_torch.runtime.steps import data_parallel_grads
+
+    mesh = make_mesh([device] * (shape[0] * shape[1]), ("data", "model"), shape=shape)
+    pol = make_policy(mesh, global_batch=batch["tokens"].shape[0])
+    placed = shard_batch(batch, mesh, pol.spec("act_batch", shape=batch["tokens"].shape[:1]))
+    return data_parallel_grads(cfg, pol, map_tree(lambda t: t.to(device), params), placed, grad_pspecs)
+
+
+@pytest.mark.parametrize("arch,shape,impl", [("qwen3-0.6b", (2, 1), "psum"), ("qwen3-0.6b", (4, 1), "psum"),
+                                             ("mamba2-1.3b", (2, 1), "psum"), ("qwen2-moe-a2.7b", (2, 4), "psum"),
+                                             ("qwen2-moe-a2.7b", (2, 4), "a2a")])
+def test_dp_and_ep_steps_on_one_card_match_the_cpu_run(cuda_device, arch, shape, impl):
+    """Smoke width, f32: the data-parallel (and, for qwen2-moe, expert-
+    parallel) gradients over a mesh of cuda:0 equal the same step over a
+    mesh of cpu (loss 1e-5 relative, each leaf 1e-4 of its largest entry,
+    the card-gradient rule above), through the kernels; the
+    reduce-scatter form is bitwise the all-reduce form on the card."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import lm as LM
+    from repro_torch.models.params import init_params, leaves, make_pspecs
+
+    cfg = smoke_config(get_config(arch)).with_overrides(dtype="float32", remat="block", vocab_size=512,
+                                                        moe_impl=impl)
+    params = init_params(LM.param_specs(cfg), torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(2)
+    tok = rng.integers(0, 512, size=(8, 64)).astype(np.int32)
+    tgt = tok.copy()
+    tgt[0, 3:] = -1
+    tgt[5, ::2] = -1
+    batch = {"tokens": tok, "targets": tgt}
+    kernel = ss_ops if cfg.family == "ssm" else fa_ops
+    loss_c, _, g_c = _dp_grads(cfg, "cpu", shape, batch, params)
+    n0 = kernel.launches
+    loss_g, _, g_g = _dp_grads(cfg, "cuda:0", shape, batch, params)
+    torch.cuda.synchronize()
+    assert kernel.launches - n0 >= 2 * shape[0] * cfg.n_layers  # forward + remat recompute per data shard
+    assert float(loss_g) == pytest.approx(float(loss_c), rel=1e-5)
+    want = dict(leaves(g_c))
+    for path, g in leaves(g_g):
+        g = g.cpu()
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any()), path
+        assert float((g - want[path]).abs().max()) <= 1e-4 * float(want[path].abs().max()), path
+    pspecs = make_pspecs(LM.param_specs(cfg), {"embed": "data", "expert_in": "data"}, {"data": shape[0]})
+    _, _, g_rs = _dp_grads(cfg, "cuda:0", shape, batch, params, grad_pspecs=pspecs)
+    for (path, a), (_, b) in zip(leaves(g_g), leaves(g_rs)):
+        assert torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("impl", ["psum", "a2a"])
+def test_ep_forms_on_one_card_ignore_poisoned_memory(cuda_device, impl):
+    """The EP forms' pad-bucket rows and empty slots are zeros even where
+    the caching allocator hands back memory that held NaN; the card's
+    output equals the CPU's (f32, 1e-5) and, at slack 8, the dense oracle."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.params import init_params, map_tree
+    from repro_torch.runtime.compat import make_mesh
+    from repro_torch.runtime.sharding import ShardingPolicy, base_rules
+
+    outs = {}
+    for slack in (8.0, 0.25):
+        cfg = ModelConfig(name="t", family="moe", d_model=256, n_experts=12, moe_top_k=4, moe_d_ff=192, d_ff=192,
+                          capacity_slack=slack, moe_impl=impl, dtype="float32")
+        p = init_params(MOE.moe_specs(cfg, tp_hint=4), torch.Generator().manual_seed(0), device="cpu")
+        x = torch.randn(8, 64, 256, generator=torch.Generator().manual_seed(1))
+        for dev in ("cpu", "cuda:0"):
+            pol = ShardingPolicy(rules=base_rules(False),
+                                 mesh=make_mesh([dev] * 8, ("data", "model"), shape=(2, 4)))
+            if dev != "cpu":
+                junk = torch.full((1 << 24,), float("nan"), device=dev)
+                del junk
+            outs[slack, dev] = MOE.moe_apply(cfg, map_tree(lambda t: t.to(dev), p), x.to(dev), pol=pol)
+        torch.cuda.synchronize()
+        got, want = outs[slack, "cuda:0"][0].cpu(), outs[slack, "cpu"][0]
+        assert bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+        if slack == 8.0:
+            dense, _ = MOE.moe_reference(cfg, p, x)
+            np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("b,h,kv", [(4, 16, 8), (2, 16, 8), (4, 16, 16)])
+def test_flash_attention_at_the_per_shard_batches(cuda_device, b, h, kv):
+    """qwen3-0.6b's train shape split over 2 and 4 data shards (B = 4, 2;
+    16 / 8 heads of 128, S = 256, causal) and qwen2-moe's (16 / 16 heads),
+    bf16: output and gradients against the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(b * h + kv)
+    q, k, v = (torch.randn(b, 256, n, 128, generator=gen, device=cuda_device).to(torch.bfloat16) for n in (h, kv, kv))
+    up = torch.randn(b, 256, h, 128, generator=gen, device=cuda_device)
+    out, got = _grads_through(lambda a, c, d: fa_ops.flash_attention(a, c, d, causal=True), (q, k, v), up)
+    out_p, want = _grads_through(lambda a, c, d: fa_ops.flash_attention_plain(a, c, d, causal=True), (q, k, v), up)
+    torch.cuda.synchronize()
+    _close(out, out_p, 2e-2)
+    for a, w in zip(got, want):
+        _close(a, w, 2e-2)
+
+
+def test_ssd_chunk_at_the_per_shard_batch(cuda_device):
+    """mamba2-1.3b's train chunk for one of 2 data shards (B = 4, L = 256,
+    64 heads of 64, state 128, one group), bf16: outputs and gradients
+    against the plain version at the SSD tolerances above."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    b, l, h, hd, ds = 4, 256, 64, 64, 128
+    x = torch.nn.functional.silu(torch.randn(b, l, h, hd, generator=gen, device=cuda_device)).to(torch.bfloat16)
+    bg = torch.nn.functional.silu(torch.randn(b, l, 1, ds, generator=gen, device=cuda_device)).to(torch.bfloat16)
+    cg = torch.nn.functional.silu(torch.randn(b, l, 1, ds, generator=gen, device=cuda_device)).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(torch.randn(b, l, h, generator=gen, device=cuda_device))
+    a = -torch.exp(0.5 * torch.randn(h, generator=gen, device=cuda_device))
+    ups = tuple(torch.randn(*shape, generator=gen, device=cuda_device)
+                for shape in ((b, l, h, hd), (b, h, hd, ds), (b, h)))
+
+    def run(fn):
+        return lambda x_, b_, c_, dt_, a_: fn(x_, b_.expand(b, l, h, ds), c_.expand(b, l, h, ds), dt_, a_)
+
+    outs, got = _grads_through(run(ss_ops.ssd_chunk), (x, bg, cg, dt, a), ups)
+    outs_p, want = _grads_through(run(ss_ops.ssd_chunk_plain), (x, bg, cg, dt, a), ups)
+    torch.cuda.synchronize()
+    for o, p in zip(outs, outs_p):
+        _close(o, p, 1e-4)
+    for a_, w in zip(got, want):
+        _close(a_, w, 2e-2)

@@ -37,12 +37,13 @@ def test_port_imports_no_jax_and_no_reference_package():
     )
     assert out.returncode == 0, out.stderr
     walked = set(out.stdout.split())
-    assert len(walked) >= 54  # every module was walked
+    assert len(walked) >= 56  # every module was walked
     assert {
         "repro_torch.kernels.flash_attention.ops", "repro_torch.models.dual_encoder",
         "repro_torch.models.cross_encoder", "repro_torch.launch.profile_serve",
         "repro_torch.core.advanced", "repro_torch.launch.table1", "repro_torch.models.moe",
         "repro_torch.runtime.compat", "repro_torch.serving.dist_decode", "repro_torch.core.retrieval",
+        "repro_torch.runtime.sharding", "repro_torch.launch.mesh",
     } <= walked
 
 

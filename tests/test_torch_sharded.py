@@ -418,8 +418,11 @@ def test_mesh_and_gather():
     t = [torch.full((2,), float(i)) for i in range(3)]
     g = gather(t, torch.device("cpu"))
     assert [x.data_ptr() for x in g] == [x.data_ptr() for x in t]  # already there: not copied
-    with pytest.raises(NotImplementedError):
+    # a flat list fills several axes only with a shape, as the reference's Mesh
+    # takes only an array of its axes' rank
+    with pytest.raises(ValueError):
         make_mesh(["cpu"] * 4, ("data", "model"))
+    assert make_mesh(["cpu"] * 4, ("data", "model"), shape=(2, 2)).shape == {"data": 2, "model": 2}
 
 
 def test_launcher_shards_on_cpu(capsys):
