@@ -209,13 +209,27 @@ only when every phase passed):
               a train step cut in depth from 24 to 2 layers, 2 AdamW
               steps per form; the expert loop's host syncs; at smoke width
               in f32, the DP and EP gradients on the card equal the CPU
-              run's.
+              run's;
+20. roofline  ``launch/dryrun.py``'s count on ``meta`` against the card:
+              qwen3-0.6b's train step (phase 13's settings), its prefill
+              and decode at phase 6's shapes, mamba2-1.3b's train step and
+              qwen3-0.6b's on phase 19's (2, 1) mesh, each run on meta and
+              on cuda:0 under ``launch/roofline.CostCounter``: FLOPs,
+              bytes, conversions, collectives and kernel calls equal;
+              flash_attention, ssd_chunk and flash_decode launched on the
+              card, none on meta; each step timed (median of 5 after 2
+              warm-ups) against its one-card bound: bound_s, measured_s,
+              share and mfu printed, a share above 1.05 (a bound the card
+              beats: a wrong count) fails; the counter's peak beside
+              max_memory_allocated; the hillclimb baselines (A0, B0, C0)
+              on the (16, 16) meta mesh each ok.
 
 Each phase prints its seconds and peak memory.  Every kernel's launch
 counter is set to 0 just before each main-path run (the serves, phase 5's
 index build, phase 10's retrievals, the training runs and steps of
-13-16 and 19, the sharded serves of 17 and the serve of 18) and read just
-after; a kernel of that path left at 0 fails the run.
+13-16 and 19, the sharded serves of 17, the serve of 18 and the counted
+steps of 20) and read just after; a kernel of that path left at 0 fails
+the run.
 
 The line before the last lines is ``{"kernels": [...]}``, then the card's
 nvidia-smi line, then ``{"ok": true, "device": {...}}``.
@@ -529,6 +543,13 @@ def bound(nbytes: float, *ops: tuple[float, str]) -> tuple[float, str]:
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def bound_of(cost) -> tuple[float, str]:
+    """``bound`` of a kernel's cost hook, ``(FLOPs by operand dtype, bytes)``:
+    the same arithmetic the cost counter records (``kernels/_build.py``)."""
+    flops, nbytes = cost
+    return bound(nbytes, *((f, dt) for dt, f in flops.items()))
+
+
 def check(name: str, err: float, dtype: str) -> None:
     ok = err <= TOL[dtype]
     print(f"  {name}: max_abs_err={err:.3e} (tol {TOL[dtype]:g}) {'ok' if ok else 'FAIL'}", flush=True)
@@ -561,8 +582,12 @@ def reset_launches() -> None:
         setattr(mod, attr, 0)
 
 
+def launch_counts() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+
+
 def read_launches(what: str, need) -> dict:
-    got = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+    got = launch_counts()
     print(f"  launches during {what}: {got}", flush=True)
     if any(got[n] == 0 for n in need):
         fail(f"a kernel of the path was never launched during {what}: {got}")
@@ -584,7 +609,6 @@ def mixed_prefill_row(torch, timer, gen, desc_h: list, tables, n_pool: int, h: i
     dev = torch.device("cuda")
     r, w, dh, bs = len(desc_h), 256, 128, 32
     tdt = getattr(torch, dtype)
-    es = torch.empty((), dtype=tdt).element_size()
     desc = torch.tensor(desc_h, dtype=torch.int32, device=dev)
     q = torch.randn(r, w, h, dh, generator=gen, device=dev).to(tdt)
     kp = torch.randn(n_pool, bs, kv, dh, generator=gen, device=dev).to(tdt)
@@ -603,12 +627,7 @@ def mixed_prefill_row(torch, timer, gen, desc_h: list, tables, n_pool: int, h: i
     kv_k = kp[tables.long()].reshape(r, s_pad, kv, dh).permute(0, 2, 1, 3)
     kv_v = vp[tables.long()].reshape(r, s_pad, kv, dh).permute(0, 2, 1, 3)
     qt = q.permute(0, 2, 1, 3)
-    n_q = sum(d[2] for d in desc_h)
-    n_kv = [min(kl, q0 + ql) if ql > 0 else 0 for _, q0, ql, kl in desc_h]
-    flops = sum(4 * h * dh * min(q0 + j + 1, kl) for _, q0, ql, kl in desc_h for j in range(ql))
-    nbytes = (n_q * h * dh * es + r * w * h * dh * es + 2 * sum(n_kv) * kv * dh * es + desc.numel() * 4
-              + sum(-(-n // bs) for n in n_kv) * 4)
-    b_ms, b_by = bound(nbytes, (flops, dtype))
+    b_ms, b_by = bound_of(cp.cost(q, kp, vp, tables, desc, desc_host=desc_h))
     return dict(
         **timer.turns(dict(
             ms=lambda: cp.mixed_prefill_attention(q, kp, vp, tables, desc),
@@ -675,10 +694,8 @@ def jamba_kernels(torch, timer, gen, rows: dict) -> None:
     lens_t = torch.tensor(lens_c, dtype=torch.int32, device=dev)
     mask_c = (torch.arange(SC, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
     SH, SHD, SDS, SG = 256, 64, 16, 8
-    tri = S * (S + 1) // 2
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
-        es = torch.empty((), dtype=tdt).element_size()
         q = torch.randn(B, S, H, DH, generator=gen, device=dev).to(tdt)
         k = torch.randn(B, S, KV, DH, generator=gen, device=dev).to(tdt)
         v = torch.randn(B, S, KV, DH, generator=gen, device=dev).to(tdt)
@@ -687,7 +704,7 @@ def jamba_kernels(torch, timer, gen, rows: dict) -> None:
         shape = f"jamba admit prefill: B={B} S={S} H={H} KV={KV} (G={H // KV}) dh={DH} causal {dtype}"
         check(f"flash_attention {shape}", err, dtype)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        b_ms, b_by = bound(es * (2 * B * S * H * DH + 2 * B * S * KV * DH), (4 * B * H * DH * tri, dtype))
+        b_ms, b_by = bound_of(fa.cost(q, k, v, True))
         rows["flash_attention", dtype, "jamba"] = dict(
             **timer.turns(dict(
                 ms=lambda: fa.flash_attention(q, k, v, causal=True),
@@ -706,8 +723,7 @@ def jamba_kernels(torch, timer, gen, rows: dict) -> None:
         shape = (f"jamba decode: B={B} H={H} KV={KV} (G={H // KV}) dh={DH} S={SC} lengths "
                  f"{min(lens_c)}-{max(lens_c)} (sum {sum(lens_c)}) {dtype}")
         check(f"flash_decode {shape}", err, dtype)
-        b_ms, b_by = bound(es * (2 * B * H * DH + 2 * sum(lens_c) * KV * DH) + 4 * B,
-                           (4 * sum(lens_c) * H * DH, dtype))
+        b_ms, b_by = bound_of(da.decode_cost(qd, kc, vc, lens_t, lengths_host=lens_c))
         rows["flash_decode", dtype, "jamba"] = dict(
             **timer.turns(dict(
                 ms=lambda: da.decode_attention(qd, kc, vc, lens_t),
@@ -737,14 +753,8 @@ def jamba_kernels(torch, timer, gen, rows: dict) -> None:
               f"{plain[0].abs().max().item():.3e}; the per-head C.B^T scratch {cbt.numel() * 4 / 1e6:.1f} MB "
               f"({groups} groups)", flush=True)
         check(f"ssd_chunk {shape} {dtype}, error / max |output|", rel, "float32")
-        # bytes: x and the per-head B and C as handed over, dt, a in; y,
-        # state, decay out.  FLOPs over the causal half: C.B^T once per
-        # (batch, head), since every head holds its own rows, on the inputs'
-        # type; the score-weighted x and the state product f32
-        nbytes = es * (B * S * SH * SHD + 2 * B * S * SH * SDS) + 4 * (B * S * SH + SH) \
-            + 4 * (B * S * SH * SHD + B * SH * SHD * SDS + B * SH)
-        b_ms, b_by = bound(nbytes, (B * SH * tri * 2 * SDS, dtype),
-                           (B * SH * (tri * 2 * SHD + 2 * S * SHD * SDS), "float32"))
+        # the per-head B and C as handed over: C.B^T once per (batch, head)
+        b_ms, b_by = bound_of(ss.cost(x, bh, ch, dt, a))
         rows["ssd_chunk", dtype, "jamba"] = dict(
             **timer.turns(dict(
                 ms=lambda: ss.ssd_chunk(x, bh, ch, dt, a),
@@ -790,8 +800,8 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         return qs, cs, err
 
     def topk_row(qs, cs, k, dtype, err):
-        (nq, d), n, es = qs.shape, cs.shape[0], qs.element_size()
-        b_ms, b_by = bound(nq * d * es + n * d * es + nq * k * 8, (2 * nq * n * d, dtype))
+        (nq, d), n = qs.shape, cs.shape[0]
+        b_ms, b_by = bound_of(rt.cost(qs, cs, k))
         return dict(
             **timer.turns(dict(
                 ms=lambda: rt.retrieval_topk(qs, cs, k),
@@ -839,12 +849,6 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
     tables = tables.to(dev)
     desc = torch.tensor(desc_h, dtype=torch.int32, device=dev)
     lens = torch.tensor(lens_h, dtype=torch.int32, device=dev)
-    # what these descriptors and lengths need: bytes read once, FLOPs of QK and PV
-    # (a dead lane's output is 0 whatever its q holds, so only live lanes read q)
-    n_q = sum(ql for _, _, ql, _ in desc_h)
-    n_kv = [min(kl, qs0 + ql) if ql > 0 else 0 for _, qs0, ql, kl in desc_h]
-    flops_m = sum(4 * H * DH * min(qs0 + j + 1, kl) for _, qs0, ql, kl in desc_h for j in range(ql))
-    flops_d = 4 * sum(lens_h) * H * DH
     # SDPA yardsticks over the gathered views (the gather is not timed)
     lane = torch.arange(W, device=dev)
     kpos = torch.arange(s_pad, device=dev)
@@ -855,7 +859,6 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
 
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
-        es = torch.empty((), dtype=tdt).element_size()
         q = torch.randn(R, W, H, DH, generator=gen, device=dev).to(tdt)
         qd = torch.randn(R, H, DH, generator=gen, device=dev).to(tdt)
         kp = torch.randn(n_pool, BS, KV, DH, generator=gen, device=dev).to(tdt)
@@ -921,9 +924,7 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         kv_k = kp[tables.long()].reshape(R, s_pad, KV, DH).permute(0, 2, 1, 3)
         kv_v = vp[tables.long()].reshape(R, s_pad, KV, DH).permute(0, 2, 1, 3)
         qt = q.permute(0, 2, 1, 3)
-        nbytes = (n_q * H * DH * es + R * W * H * DH * es  # q of live lanes in, every lane out
-                  + 2 * sum(n_kv) * KV * DH * es + desc.numel() * 4 + sum(-(-n // BS) for n in n_kv) * 4)
-        b_ms, b_by = bound(nbytes, (flops_m, dtype))
+        b_ms, b_by = bound_of(cp.cost(q, kp, vp, tables, desc, desc_host=desc_h))
         rows["mixed_prefill", dtype] = dict(
             **timer.turns(dict(
                 ms=lambda: cp.mixed_prefill_attention(q, kp, vp, tables, desc),
@@ -934,9 +935,7 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
             shape=f"R={R} W={W} H={H} KV={KV} dh={DH} bs={BS} n_t={NT} {dtype}",
         )
-        nbytes_d = (2 * R * H * DH * es + 2 * sum(lens_h) * KV * DH * es
-                    + sum(-(-n // BS) for n in lens_h) * 4 + R * 4)  # table entries the lengths reach
-        b_ms, b_by = bound(nbytes_d, (flops_d, dtype))
+        b_ms, b_by = bound_of(da.paged_cost(qd, kp, vp, tables, lens, lengths_host=lens_h))
         rows["paged_decode", dtype] = dict(
             **timer.turns(dict(
                 ms=lambda: da.paged_decode_attention(qd, kp, vp, tables, lens),
@@ -977,10 +976,8 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         desc_w_h.append((r, q0, ln - q0, ln))
     tables_w = tables_w.to(dev)
     desc_w = torch.tensor(desc_w_h, dtype=torch.int32, device=dev)
-    n_q_w = sum(ql for _, _, ql, _ in desc_w_h)
     # K/V the rows need, each pool position read once however many rows alias it
     kv_pos = {(int(tables_w[r, p // BS]), p % BS) for r, _, _, kl in desc_w_h for p in range(kl)}
-    flops_w = sum(4 * H * DH * (q0 + j + 1) for _, q0, ql, _ in desc_w_h for j in range(ql))
     qpos_w = desc_w[:, 1:2] + lane[None, :]
     mask_w = (kpos[None, None, :] <= qpos_w[:, :, None]) & (kpos[None, None, :] < desc_w[:, 3, None, None])
     mask_w = (mask_w | (kpos[None, None, :] == 0))[:, None]
@@ -989,7 +986,6 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
           f"{sum(d[3] for d in desc_w_h)} read", flush=True)
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
-        es = torch.empty((), dtype=tdt).element_size()
         q = torch.randn(R, W, H, DH, generator=gen, device=dev).to(tdt)
         kp = torch.randn(n_pool, BS, KV, DH, generator=gen, device=dev).to(tdt)
         vp = torch.randn(n_pool, BS, KV, DH, generator=gen, device=dev).to(tdt)
@@ -1014,9 +1010,9 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         kv_k = kp[tables_w.long()].reshape(R, s_pad, KV, DH).permute(0, 2, 1, 3)
         kv_v = vp[tables_w.long()].reshape(R, s_pad, KV, DH).permute(0, 2, 1, 3)
         qt = q.permute(0, 2, 1, 3)
-        nbytes = (n_q_w * H * DH * es + R * W * H * DH * es + 2 * len(kv_pos) * KV * DH * es
-                  + desc_w.numel() * 4 + sum(-(-d[3] // BS) for d in desc_w_h) * 4)
-        b_ms, b_by = bound(nbytes, (flops_w, dtype))
+        # K/V the rows need, each pool position read once however many rows alias it
+        b_ms, b_by = bound_of(cp.cost(q, kp, vp, tables_w, desc_w, desc_host=desc_w_h,
+                                      tables_host=tables_w.tolist()))
         rows["mixed_prefill", dtype, "warm"] = dict(
             **timer.turns(dict(
                 ms=lambda: cp.mixed_prefill_attention(q, kp, vp, tables_w, desc_w),
@@ -1039,10 +1035,8 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         ("ragged causal", 3, 100, 16, 8, 128, True),  # 100 positions: no tile multiple
     ]
     for label, b, sl, h, kv, dh, causal in flash_cases:
-        pairs = sum(min(i + 1, sl) for i in range(sl)) if causal else sl * sl
         for dtype in ("float32", "bfloat16"):
             tdt = getattr(torch, dtype)
-            es = torch.empty((), dtype=tdt).element_size()
             q = torch.randn(b, sl, h, dh, generator=gen, device=dev).to(tdt)
             k = torch.randn(b, sl, kv, dh, generator=gen, device=dev).to(tdt)
             v = torch.randn(b, sl, kv, dh, generator=gen, device=dev).to(tdt)
@@ -1060,7 +1054,7 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
                         fail(f"flash_attention {label} {dtype}: the output differs from the parent's build")
                     print(f"  flash_attention {label} {dtype}: bitwise equal to the parent's build", flush=True)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            b_ms, b_by = bound(es * (2 * b * sl * h * dh + 2 * b * sl * kv * dh), (4 * b * h * dh * pairs, dtype))
+            b_ms, b_by = bound_of(fa.cost(q, k, v, causal))
             rows["flash_attention", dtype, label] = dict(
                 **timer.turns(dict(
                     ms=lambda: fa.flash_attention(q, k, v, causal=causal),
@@ -1080,7 +1074,6 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
     shards, step = 4, S // 4
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
-        es = torch.empty((), dtype=tdt).element_size()
         qd = torch.randn(R, H, DH, generator=gen, device=dev).to(tdt)
         kc = torch.randn(R, S, KV, DH, generator=gen, device=dev).to(tdt)
         vc = torch.randn(R, S, KV, DH, generator=gen, device=dev).to(tdt)
@@ -1100,7 +1093,7 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         ]
         err_c = (da.combine_partials(*zip(*parts)) - o_m / torch.clamp(l_m, min=1e-30)).abs().max().item()
         check(f"flash_decode partials, {shards} shards combined vs monolithic, {dtype} cache", err_c, "float32")
-        b_ms, b_by = bound(es * (2 * R * H * DH + 2 * sum(lens_c) * KV * DH) + 4 * R, (4 * sum(lens_c) * H * DH, dtype))
+        b_ms, b_by = bound_of(da.decode_cost(qd, kc, vc, lens_t, lengths_host=lens_c))
         rows["flash_decode", dtype] = dict(
             **timer.turns(dict(
                 ms=lambda: da.decode_attention(qd, kc, vc, lens_t),
@@ -1118,7 +1111,6 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
     SB, SL, SH, SHD, SDS, SG = 8, 256, 64, 64, 128, 1
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
-        es = torch.empty((), dtype=tdt).element_size()
         # as the mixer hands them over: silu'd x, B, C (one group, expanded
         # over the heads), softplus'd dt, a = -exp(A_log)
         x = F.silu(torch.randn(SB, SL, SH, SHD, generator=gen, device=dev)).to(tdt)
@@ -1138,19 +1130,8 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
             if not all(torch.equal(o, p) for o, p in zip(outs, parent.ssd_chunk(x, bg, cg, dt, a))):
                 fail(f"ssd_chunk {dtype}: the outputs differ from the parent's build")
             print(f"  ssd_chunk {dtype}: bitwise equal to the parent's build", flush=True)
-        # bytes: x in, one group of B and C, dt, a; y, state, decay out.
-        # FLOPs over the causal half (j <= i) that the function needs: C.B^T
-        # once per (batch, group), on the inputs' own type (bf16 x bf16 is
-        # exact with f32 accumulation); the score-weighted x and the state
-        # product once per (batch, head), f32 since the decay weights are f32
-        tri = SL * (SL + 1) // 2
-        nbytes = es * (SB * SL * SH * SHD + 2 * SB * SL * SG * SDS) + 4 * (SB * SL * SH + SH) \
-            + 4 * (SB * SL * SH * SHD + SB * SH * SHD * SDS + SB * SH)
-        b_ms, b_by = bound(
-            nbytes,
-            (SB * SG * tri * 2 * SDS, dtype),
-            (SB * SH * (tri * 2 * SHD + 2 * SL * SHD * SDS), "float32"),
-        )
+        # one group of B and C (expanded over the heads): C.B^T once per batch
+        b_ms, b_by = bound_of(ss.cost(x, bg, cg, dt, a))
         rows["ssd_chunk", dtype] = dict(
             **timer.turns(dict(
                 ms=lambda: ss.ssd_chunk(x, bg, cg, dt, a),
@@ -1171,7 +1152,6 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         rows["mixed_prefill", dtype, "G=1"] = mixed_prefill_row(
             torch, timer, gen, desc_h, tables, n_pool, HM, HM, dtype, "qwen2-moe heads, the step's mix above")
         tdt = getattr(torch, dtype)
-        es = torch.empty((), dtype=tdt).element_size()
         qd = torch.randn(R, HM, DH, generator=gen, device=dev).to(tdt)
         kp = torch.randn(n_pool, BS, HM, DH, generator=gen, device=dev).to(tdt)
         vp = torch.randn(n_pool, BS, HM, DH, generator=gen, device=dev).to(tdt)
@@ -1180,8 +1160,7 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         check(f"paged_decode B={R} H=KV={HM} {dtype}", err, dtype)
         kv_k = kp[tables.long()].reshape(R, s_pad, HM, DH).permute(0, 2, 1, 3)
         kv_v = vp[tables.long()].reshape(R, s_pad, HM, DH).permute(0, 2, 1, 3)
-        b_ms, b_by = bound(2 * R * HM * DH * es + 2 * sum(lens_h) * HM * DH * es
-                           + sum(-(-n // BS) for n in lens_h) * 4 + R * 4, (4 * sum(lens_h) * HM * DH, dtype))
+        b_ms, b_by = bound_of(da.paged_cost(qd, kp, vp, tables, lens, lengths_host=lens_h))
         rows["paged_decode", dtype, "G=1"] = dict(
             **timer.turns(dict(
                 ms=lambda: da.paged_decode_attention(qd, kp, vp, tables, lens),
@@ -1199,8 +1178,7 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         err = (o.float() - fa.flash_attention_plain(q, k, v, causal=True).float()).abs().max().item()
         check(f"flash_attention admit prefill B=8 S=256 H=KV={HM} causal {dtype}", err, dtype)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        pairs = 256 * 257 // 2
-        b_ms, b_by = bound(es * 4 * 8 * 256 * HM * DH, (4 * 8 * HM * DH * pairs, dtype))
+        b_ms, b_by = bound_of(fa.cost(q, k, v, True))
         rows["flash_attention", dtype, "G=1"] = dict(
             **timer.turns(dict(
                 ms=lambda: fa.flash_attention(q, k, v, causal=True),
@@ -1216,8 +1194,7 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         o = da.decode_attention(qd, kc, vc, lens_t)
         err = (o.float() - da.decode_attention_plain(qd, kc, vc, lens_t).float()).abs().max().item()
         check(f"flash_decode B={R} S={S} H=KV={HM} {dtype}", err, dtype)
-        b_ms, b_by = bound(es * (2 * R * HM * DH + 2 * sum(lens_c) * HM * DH) + 4 * R,
-                           (4 * sum(lens_c) * HM * DH, dtype))
+        b_ms, b_by = bound_of(da.decode_cost(qd, kc, vc, lens_t, lengths_host=lens_c))
         rows["flash_decode", dtype, "G=1"] = dict(
             **timer.turns(dict(
                 ms=lambda: da.decode_attention(qd, kc, vc, lens_t),
@@ -1304,7 +1281,7 @@ def training_checks(torch, timer, gen, parent: Parent | None, rows: dict) -> Non
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             fwd_bytes = es * (2 * b * sl * h * dh + 2 * b * sl * kv * dh)
             if dh == 80:
-                b_ms, b_by = bound(fwd_bytes, (4 * b * h * dh * pairs, dtype))
+                b_ms, b_by = bound_of(fa.cost(q, k, v, causal))
                 rows["flash_attention", dtype, "dh80"] = dict(
                     **timer.turns(dict(
                         ms=lambda: fa.flash_attention(q, k, v, causal=causal),
@@ -1431,8 +1408,7 @@ def per_shard_kernels(torch, timer, gen, rows: dict) -> None:
     err = rel_err([o], [o_p])
     check(f"flash_attention per-shard (dp 4) {shape} forward, error / max |out|", err, dtype)
     check(f"flash_attention per-shard (dp 4) {shape} dq, dk, dv, error / max |grad|", rel_err(g, g_p), dtype)
-    pairs = sl * (sl + 1) // 2
-    b_ms, b_by = bound(2 * (2 * b * sl * h * dh + 2 * b * sl * kv * dh), (4 * b * h * dh * pairs, dtype))
+    b_ms, b_by = bound_of(fa.cost(q, k, v, True))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     rows["flash_attention", dtype, "per-shard B=2"] = dict(
         **timer.turns(dict(
@@ -1470,10 +1446,7 @@ def per_shard_kernels(torch, timer, gen, rows: dict) -> None:
     if err_g > 1e-4:
         fail("ssd_chunk per-shard: the gradient disagrees with the plain version's autograd")
     bx, cx = bg.expand(SB, SL, SH, SDS), cg.expand(SB, SL, SH, SDS)
-    tri = SL * (SL + 1) // 2
-    nbytes = 2 * (SB * SL * SH * SHD + 2 * SB * SL * SDS) + 4 * (SB * SL * SH + SH) \
-        + 4 * (SB * SL * SH * SHD + SB * SH * SHD * SDS + SB * SH)
-    b_ms, b_by = bound(nbytes, (SB * tri * 2 * SDS, dtype), (SB * SH * (tri * 2 * SHD + 2 * SL * SHD * SDS), "float32"))
+    b_ms, b_by = bound_of(ss.cost(x, bx, cx, dt, a))
     rows["ssd_chunk", dtype, "per-shard B=4"] = dict(
         **timer.turns(dict(
             ms=lambda: ss.ssd_chunk(x, bx, cx, dt, a),
@@ -2733,15 +2706,11 @@ def sharded_kernels(torch, timer, rows: dict) -> None:
     tables = torch.tensor(tables_h, dtype=torch.int32, device=dev)
     desc = torch.tensor(desc_h, dtype=torch.int32, device=dev)
     owned_1 = (tables // (N_SH * n_local)) == 0  # one shard: every block but the trash
-    n_q = sum(ql for _, _, ql, _ in desc_h)
-    n_kv = [min(kl, q0 + ql) if ql > 0 else 0 for _, q0, ql, kl in desc_h]
-    flops = sum(4 * H * DH * min(q0 + j + 1, kl) for _, q0, ql, kl in desc_h for j in range(ql))
     s_pad, lane, kpos = NT * BS, torch.arange(W, device=dev), torch.arange(NT * BS, device=dev)
     mask = (kpos[None, None, :] <= (desc[:, 1:2] + lane[None, :])[:, :, None]) & (kpos[None, None, :] < desc[:, 3, None, None])
     mask = (mask | (kpos[None, None, :] == 0))[:, None]  # keeps dead lanes finite
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
-        es = torch.empty((), dtype=tdt).element_size()
         q = torch.randn(R, W, H, DH, generator=gen, device=dev).to(tdt)
         kp = torch.randn(N_SH * n_local + 1, BS, KV, DH, generator=gen, device=dev).to(tdt)
         vp = torch.randn(N_SH * n_local + 1, BS, KV, DH, generator=gen, device=dev).to(tdt)
@@ -2774,9 +2743,7 @@ def sharded_kernels(torch, timer, rows: dict) -> None:
         kv_v = vp[tables.long()].reshape(R, s_pad, KV, DH).permute(0, 2, 1, 3)
         qt = q.permute(0, 2, 1, 3)
         # q of live lanes in; o, m, l of every lane out (f32)
-        nbytes = (n_q * H * DH * es + R * W * H * (DH + 2) * 4 + 2 * sum(n_kv) * KV * DH * es + desc.numel() * 4
-                  + sum(-(-n // BS) for n in n_kv) * 5)
-        b_ms, b_by = bound(nbytes, (flops, dtype))
+        b_ms, b_by = bound_of(cp.cost(q, kp, vp, tables, desc, owned_1, partials=True, desc_host=desc_h))
         row = dict(
             **timer.turns(dict(
                 ms=lambda: cp.mixed_prefill_partials(q, kp, vp, tables, desc, owned=owned_1),
@@ -2803,7 +2770,6 @@ def sharded_kernels(torch, timer, rows: dict) -> None:
     lens = torch.tensor(lens_h, dtype=torch.int32, device=dev)
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
-        es = torch.empty((), dtype=tdt).element_size()
         qd = torch.randn(R, H, DH, generator=gen, device=dev).to(tdt)
         kc = torch.randn(R, S, KV, DH, generator=gen, device=dev).to(tdt)
         vc = torch.randn(R, S, KV, DH, generator=gen, device=dev).to(tdt)
@@ -2825,8 +2791,7 @@ def sharded_kernels(torch, timer, rows: dict) -> None:
               err_p, dtype)
         loc_h = loc.tolist()
         mask_s = (torch.arange(step, device=dev)[None, :] < loc[:, None]) | (torch.arange(step, device=dev) == 0)
-        b_ms, b_by = bound(es * (R * H * DH + 2 * sum(loc_h) * KV * DH) + 4 * R + R * H * (DH + 2) * 4,
-                           (4 * sum(loc_h) * H * DH, dtype))
+        b_ms, b_by = bound_of(da.decode_cost(qd, ks, vs, loc, return_partials=True, lengths_host=loc_h))
         row = dict(
             **timer.turns(dict(
                 ms=lambda: da.decode_attention(qd, ks, vs, loc, return_partials=True, empty_zero=True),
@@ -3452,6 +3417,114 @@ def _sgd(params, grads, lr: float):
     return map_tree(lambda p, g: p - lr * g, params, grads)
 
 
+
+# --------------------------------------------------------------------- #
+# phase 20: the dry run's roofline held against steps timed on the card
+# --------------------------------------------------------------------- #
+
+
+def roofline_phase(torch, smi: str) -> list[dict]:
+    """[20] ``launch/dryrun.py``'s count on ``meta`` against the same step
+    counted on the card, the step's share of its bound, memory, and the
+    hillclimb baselines on the meta mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.roofline import PEAK_FLOPS, Roofline, model_flops_for
+    from repro_torch.runtime.sharding import make_policy
+
+    free_device(torch)
+    train = ShapeConfig("train_8x256", 256, 8, "train")  # phase 13's batch; f32 weights and AdamW, bf16, remat
+    cells = [  # (arch, shape, data shards of a (dp, 1) mesh or None, the kernels the step launches)
+        ("qwen3-0.6b", train, None, ("flash_attention",)),
+        ("qwen3-0.6b", ShapeConfig("prefill_8x256", 256, 8, "prefill"), None, ("flash_attention",)),  # phase 6's admit
+        ("qwen3-0.6b", ShapeConfig("decode_8x272", 272, 8, "decode"), None, ("flash_decode",)),  # phase 6's stripe
+        ("mamba2-1.3b", train, None, ("ssd_chunk",)),
+        ("qwen3-0.6b", train, 2, ("flash_attention",)),  # phase 19's (2, 1) mesh
+    ]
+    runs = []
+    for arch, shape, dp, need in cells:
+        cfg = get_config(arch)
+        label = f"{arch} {shape.name}" + (f" on ({dp}, 1) x cuda:0" if dp else "")
+
+        def policy(device):
+            if dp is None:
+                return make_policy(None)
+            return make_policy(mesh_of(dp, device=device), shape_kind=shape.kind, global_batch=shape.global_batch,
+                               seq_len=shape.seq_len)
+
+        # (a) the dry run's count on meta, the same step's on the card
+        before = launch_counts()
+        t0 = time.perf_counter()
+        meta, _ = D._run_cell(cfg, shape, policy("meta"), "adamw")
+        meta_s = time.perf_counter() - t0
+        if launch_counts() != before:
+            fail(f"{label}: a kernel launched during the meta run: {before} -> {launch_counts()}")
+        step, args, info = D.cell_args(cfg, shape, policy("cuda:0"), "adamw", device="cuda:0",
+                                       generator=torch.Generator(device="cuda").manual_seed(SEED))
+        free_device(torch)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        card, _, _ = D.count_step(step, args, info["cache"])
+        torch.cuda.synchronize()
+        runs.append(read_launches(f"the counted {label} step", need))
+        peak_card = torch.cuda.max_memory_allocated()
+        pairs = {k: (getattr(meta, k), getattr(card, k)) for k in ("flops", "bytes", "convert_bytes")}
+        pairs["collective_count"] = (meta.collectives["collective_count"], card.collectives["collective_count"])
+        print(f"  {label}: meta (in {meta_s:.1f} s) / card: " + ", ".join(
+            f"{k} {m:.6e} / {c:.6e}" for k, (m, c) in pairs.items()) + f"; kernels {card.kernels}", flush=True)
+        if any(m != c for m, c in pairs.values()) or meta.collectives != card.collectives or \
+                meta.kernels != card.kernels:
+            fail(f"{label}: the meta count differs from the card's: {pairs}, {meta.collectives} / "
+                 f"{card.collectives}, {meta.kernels} / {card.kernels}")
+        # (b) the measured step against its bound: every coordinate's work
+        # runs on the one card, so the bound is the one card's
+        times = []
+        for i in range(7):  # 2 warm-ups, then the median of 5
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append(time.perf_counter() - t0)
+            del out
+        measured = statistics.median(times)
+        rl = Roofline(arch, shape.name, "one card", 1, card.flops, card.bytes,
+                      sum(v for k, v in card.collectives.items() if k != "collective_count"),
+                      dict(card.collectives), model_flops_for(cfg, shape), card.peak_bytes)
+        share = rl.step_bound_s / measured
+        mfu = rl.model_flops / (PEAK_FLOPS * measured)
+        print(f"  {label}: bound_s {rl.step_bound_s:.6f} ({rl.dominant}: compute {rl.compute_s:.6f}, memory "
+              f"{rl.memory_s:.6f}, collective {rl.collective_s:.6f}), measured_s {measured:.6f} (median of 5 after 2 "
+              f"warm-ups, {min(times):.6f}-{max(times):.6f}), share {share:.4f}, mfu {mfu:.4f}; convert_bytes "
+              f"{card.convert_bytes / card.bytes:.1%} of bytes ({smi})", flush=True)
+        # (c) memory: the counter's high-water mark beside the allocator's
+        print(f"  {label}: counter peak {card.peak_bytes / 2**30:.3f} GiB, max_memory_allocated "
+              f"{peak_card / 2**30:.3f} GiB (ratio {card.peak_bytes / peak_card:.3f})", flush=True)
+        if share > 1.05:
+            fail(f"{label}: the card beat the bound ({share:.4f} of it): a wrong count")
+        del step, args, info, meta, card
+        free_device(torch)
+
+    # (d) the hillclimb baselines on the meta mesh
+    before = launch_counts()
+    t0, c0 = time.perf_counter(), time.process_time()
+    for tag, arch, shape_name in (("A0", "qwen3-4b", "decode_32k"), ("B0", "qwen2-moe-a2.7b", "train_4k"),
+                                  ("C0", "smollm-360m", "train_4k")):
+        r = D.dryrun_cell(arch, shape_name, "single", verbose=False)
+        if r["status"] != "ok":
+            fail(f"hillclimb baseline {tag} ({arch} x {shape_name}): {r}")
+        print(f"  {tag} {arch} x {shape_name} on the (16, 16) meta mesh: {r['compile_s']:.1f} s, bound "
+              f"{r['step_bound_s'] * 1e3:.2f} ms ({r['dominant']}), mfu_bound {r['mfu_bound']:.4f}, mem/device "
+              f"{r['memory_analysis']['peak_bytes_per_device'] / 2**30:.2f} GiB (arithmetic on the H100 SXM peaks)",
+              flush=True)
+    if launch_counts() != before:
+        fail(f"a kernel launched during the meta dry runs: {before} -> {launch_counts()}")
+    print(f"  the three baselines: {time.perf_counter() - t0:.1f} s wall, {time.process_time() - c0:.1f} s of this "
+          f"process's CPU (a train cell's three depths run in worker processes)", flush=True)
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", help="a directory holding an earlier commit's six kernel sources (csrc/*.cu), "
@@ -3531,6 +3604,8 @@ def main() -> int:
                   cold)
     runs += phase("[19] multi-device training on one card: data-parallel qwen3-0.6b and mamba2-1.3b, the elastic "
                   "restore, qwen2-moe-a2.7b expert parallelism", multidevice_phase)
+    runs += phase("[20] roofline: the dry run's count on meta against the card's, each step's share of its bound, "
+                  "the hillclimb baselines", roofline_phase)
 
     meta = {
         "retrieval_topk": ("src/repro_torch/kernels/csrc/retrieval_topk.cu", "src/repro/kernels/retrieval_topk/kernel.py:105"),
@@ -3544,7 +3619,7 @@ def main() -> int:
     # embeddings; bf16 activations, KV pool and encoders) and, for
     # flash_attention, its largest path shape (the rerank), with the
     # further path shapes beside it; launches are summed over the
-    # main-path runs of phases 4-19
+    # main-path runs of phases 4-20
     path_row = {
         "retrieval_topk": ("retrieval_topk", "float32"), "mixed_prefill": ("mixed_prefill", "bfloat16"),
         "paged_decode": ("paged_decode", "bfloat16"), "flash_attention": ("flash_attention", "bfloat16", "rerank"),

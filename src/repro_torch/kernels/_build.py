@@ -16,6 +16,12 @@ header is rebuilt and a stale library is never loaded.
 
 Nothing here runs at import time: the CPU tests import every module,
 and a machine without ``nvcc`` only fails when a kernel is asked for.
+
+``counted`` runs a wrapper's body under a cost counter: the kernel's
+own cost (its ``cost`` hook: FLOPs by operand dtype, and bytes, each
+input read once and each output written once) is recorded in place of
+the aten ops the body issues, so the CUDA kernel, the CPU plain version
+and the empty result a ``meta`` call returns all count the same work.
 """
 from __future__ import annotations
 
@@ -163,6 +169,37 @@ def aligned16(t) -> bool:
     es = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(st * es % 16 == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
+
+
+def flops(*pairs) -> dict[str, float]:
+    """``(count, dtype)`` pairs summed by dtype name (``"bfloat16"``,
+    ``"float32"``): a cost hook's FLOPs, each part at its operands' type."""
+    out: dict[str, float] = {}
+    for n, dtype in pairs:
+        name = str(dtype).removeprefix("torch.")
+        out[name] = out.get(name, 0) + n
+    return out
+
+
+def fresh(out):
+    """A plain version's output (a tensor or a tuple of them) laid out as
+    the kernel writes it, contiguous: the ops after a kernel call then see
+    the same strides on the CPU, on the card and on ``meta``."""
+    if isinstance(out, tuple):
+        return tuple(t.contiguous() for t in out)
+    return out.contiguous()
+
+
+def counted(name: str, cost, run):
+    """``run()``; under an active cost counter (``runtime.compat.counter``)
+    the kernel ``name`` is recorded at ``cost()`` (``(flops by dtype,
+    bytes)``) and the aten ops ``run`` issues are not counted."""
+    from repro_torch.runtime.compat import counter
+
+    c = counter()
+    if c is None:
+        return run()
+    return c.record_kernel(name, *cost(), run)
 
 
 def needs_grad(*tensors) -> bool:

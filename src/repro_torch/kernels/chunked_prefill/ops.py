@@ -2,12 +2,14 @@
 
 ``mixed_prefill_attention`` launches the hand-written kernel
 (``kernels/csrc/mixed_prefill.cu``: bf16 on the tensor cores, f32 on the
-CUDA cores) for CUDA tensors and runs ``mixed_prefill_attention_plain``
-for CPU tensors; anything else raises.  ``mixed_prefill_partials`` is the
+CUDA cores) for CUDA tensors, runs ``mixed_prefill_attention_plain`` for
+CPU tensors and returns an empty output for ``meta`` tensors; anything
+else raises.  ``mixed_prefill_partials`` is the
 same walk stopped before the normalisation, the per-shard half of the
 sharded engine's dispatch: f32 ``(o, m, l)`` over the keys of the blocks
 an ``owned`` mask marks (``mixed_prefill_partials_plain`` on the CPU).
-``launches`` counts the launches of both forms.
+``launches`` counts the launches of both forms; ``cost`` is one call's
+FLOPs and bytes, which a cost counter records (``_build.counted``).
 
 Descriptor contract (one row per ``desc[r] = (slot, q_start, q_len,
 kv_len)``): lane ``j`` of row ``r`` attends pool position ``kpos`` of
@@ -125,13 +127,56 @@ def _aligned(*ts):
     )
 
 
+def cost(q, k_pool, v_pool, block_tables, desc, owned=None, partials: bool = False,
+         desc_host=None, tables_host=None):
+    """(FLOPs by dtype, bytes) of one call: q of the live lanes, the K/V of
+    the pool positions the rows reach, the descriptors and the table
+    entries (and ``owned`` mask bytes) read once, every lane's output (the
+    f32 ``(o, m, l)`` with ``partials``) written once; Q.K and P.V over
+    each live lane's visible keys.  ``desc_host`` (the descriptors as a
+    list of ``(slot, q_start, q_len, kv_len)``) is what the data needs,
+    and with ``tables_host`` (the tables as lists) a position that several
+    rows' entries alias is read once; None takes every lane live and
+    seeing its whole table span, all the shapes tell."""
+    r, w, h, dh = q.shape
+    bs, kv = k_pool.shape[1], k_pool.shape[2]
+    span = block_tables.shape[1] * bs
+    if desc_host is None:
+        desc_host = [(i, 0, w, span) for i in range(r)]
+        flops = 4 * h * dh * r * w * span
+    else:
+        flops = sum(4 * h * dh * min(q0 + j + 1, kl) for _, q0, ql, kl in desc_host for j in range(ql))
+    n_q = sum(ql for _, _, ql, _ in desc_host)
+    n_kv = [min(kl, q0 + ql) if ql > 0 else 0 for _, q0, ql, kl in desc_host]
+    if tables_host is None:
+        positions = sum(n_kv)
+    else:
+        positions = len({(tables_host[d[0]][p // bs], p % bs) for d, n in zip(desc_host, n_kv) for p in range(n)})
+    es = q.element_size()
+    out = r * w * h * (dh + 2) * 4 if partials else r * w * h * dh * es
+    entry = 5 if owned is not None else 4
+    nbytes = (n_q * h * dh * es + out + 2 * positions * kv * dh * es + r * 4 * 4
+              + sum(-(-n // bs) for n in n_kv) * entry)
+    return _build.flops((flops, q.dtype)), nbytes
+
+
 def mixed_prefill_partials(q, k_pool, v_pool, block_tables, desc, owned=None):
     """The partials form of ``mixed_prefill_attention`` (see
     ``mixed_prefill_partials_plain`` for the contract): the kernel for
     CUDA tensors, the plain version for CPU tensors."""
     _build.refuse_grad("mixed_prefill_partials", q, k_pool, v_pool)
+    return _build.counted(
+        "mixed_prefill", lambda: cost(q, k_pool, v_pool, block_tables, desc, owned, partials=True),
+        lambda: _partials(q, k_pool, v_pool, block_tables, desc, owned))
+
+
+def _partials(q, k_pool, v_pool, block_tables, desc, owned):
     if q.device.type == "cpu":
-        return mixed_prefill_partials_plain(q, k_pool, v_pool, block_tables, desc, owned)
+        return _build.fresh(mixed_prefill_partials_plain(q, k_pool, v_pool, block_tables, desc, owned))
+    if q.device.type == "meta":
+        r, w, h, dh = q.shape
+        g = (r, k_pool.shape[2], h // k_pool.shape[2], w)
+        return tuple(torch.empty(g + (n,), dtype=torch.float32, device=q.device) for n in (dh, 1, 1))
     if q.device.type != "cuda":
         raise ValueError(f"mixed_prefill_partials: tensor on {q.device}")
     _check_mixed("mixed_prefill_partials", q, k_pool, v_pool, block_tables, desc)
@@ -166,8 +211,15 @@ def mixed_prefill_attention(q, k_pool, v_pool, block_tables, desc):
     """Ragged mixed prefill/decode attention through a block table (see
     the module docstring for the descriptor contract)."""
     _build.refuse_grad("mixed_prefill_attention", q, k_pool, v_pool)
+    return _build.counted("mixed_prefill", lambda: cost(q, k_pool, v_pool, block_tables, desc),
+                          lambda: _attention(q, k_pool, v_pool, block_tables, desc))
+
+
+def _attention(q, k_pool, v_pool, block_tables, desc):
     if q.device.type == "cpu":
-        return mixed_prefill_attention_plain(q, k_pool, v_pool, block_tables, desc)
+        return _build.fresh(mixed_prefill_attention_plain(q, k_pool, v_pool, block_tables, desc))
+    if q.device.type == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.device.type != "cuda":
         raise ValueError(f"mixed_prefill_attention: tensor on {q.device}")
     _check_mixed("mixed_prefill_attention", q, k_pool, v_pool, block_tables, desc)

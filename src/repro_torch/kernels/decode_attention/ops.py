@@ -4,10 +4,12 @@ through block tables into the paged pool.
 ``decode_attention`` (contiguous ``(B, S, KV, dh)`` cache, kernel
 ``kernels/csrc/flash_decode.cu``) and ``paged_decode_attention`` (block
 pool, kernel ``kernels/csrc/paged_decode.cu``) launch their hand-written
-kernels for CUDA tensors and run their plain versions for CPU tensors;
-anything else raises.  ``flash_decode_launches`` and ``launches`` count
-the launches of the two kernels.  Row ``b`` attends its first
-``lengths[b]`` positions.  ``combine_partials`` merges the ``(o, m, l)``
+kernels for CUDA tensors, run their plain versions for CPU tensors and
+return empty outputs for ``meta`` tensors; anything else raises.
+``flash_decode_launches`` and ``launches`` count the launches of the two
+kernels; ``decode_cost`` and ``paged_cost`` are one call's FLOPs and
+bytes, which a cost counter records (``_build.counted``).  Row ``b``
+attends its first ``lengths[b]`` positions.  ``combine_partials`` merges the ``(o, m, l)``
 partials of disjoint cache shards.
 
 Both kernels split each row's positions over blocks of ``SPLIT`` (one
@@ -99,6 +101,25 @@ def combine_partials(o, m, l):
     return o_g / torch.clamp(l_g, min=1e-30)
 
 
+def _partials_shapes(b, h, kv, dh):
+    return (b, kv, h // kv, dh), (b, kv, h // kv, 1), (b, kv, h // kv, 1)
+
+
+def decode_cost(q, k_cache, v_cache, lengths, return_partials: bool = False, lengths_host=None):
+    """(FLOPs by dtype, bytes) of one ``decode_attention`` call: q, the
+    K/V of the positions read and the lengths read once, the output (or
+    the f32 partials) written once; Q.K and P.V over those positions.
+    ``lengths_host`` (the lengths as a list) is what the data needs; None
+    takes every row's whole cache, all the shapes tell (a meta tensor has
+    no lengths to read)."""
+    b, h, dh = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    n = b * s if lengths_host is None else sum(lengths_host)
+    es = q.element_size()
+    out = b * h * (dh + 2) * 4 if return_partials else b * h * dh * es
+    return _build.flops((4 * n * h * dh, q.dtype)), es * (b * h * dh + 2 * n * kv * dh) + 4 * b + out
+
+
 def decode_attention(q, k_cache, v_cache, lengths, return_partials: bool = False,
                      empty_zero: bool = False):
     """Single-token attention over a contiguous cache.  The caches are
@@ -108,8 +129,19 @@ def decode_attention(q, k_cache, v_cache, lengths, return_partials: bool = False
     mean rule, or with ``empty_zero`` the exact-zero rule (see
     ``decode_attention_plain``)."""
     _build.refuse_grad("decode_attention", q, k_cache, v_cache)
+    return _build.counted(
+        "flash_decode", lambda: decode_cost(q, k_cache, v_cache, lengths, return_partials),
+        lambda: _decode(q, k_cache, v_cache, lengths, return_partials, empty_zero))
+
+
+def _decode(q, k_cache, v_cache, lengths, return_partials: bool, empty_zero: bool):
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, lengths, return_partials, empty_zero)
+        return _build.fresh(decode_attention_plain(q, k_cache, v_cache, lengths, return_partials, empty_zero))
+    if q.device.type == "meta":
+        if return_partials:
+            return tuple(torch.empty(sh, dtype=torch.float32, device=q.device)
+                         for sh in _partials_shapes(*q.shape[:2], k_cache.shape[2], q.shape[2]))
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: tensor on {q.device}")
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape[0] != q.shape[0] or k_cache.shape[1] == 0:
@@ -122,8 +154,7 @@ def decode_attention(q, k_cache, v_cache, lengths, return_partials: bool = False
                         for t in (k_cache, v_cache))
     lengths = lengths.to(torch.int32).contiguous()
     if return_partials:  # (o, m, l), f32
-        shapes = ((b, kv, h // kv, dh), (b, kv, h // kv, 1), (b, kv, h // kv, 1))
-        result = tuple(torch.empty(sh, dtype=torch.float32, device=q.device) for sh in shapes)
+        result = tuple(torch.empty(sh, dtype=torch.float32, device=q.device) for sh in _partials_shapes(b, h, kv, dh))
         ptrs = (0, *(t.data_ptr() for t in result))
     else:
         result = torch.empty_like(q)
@@ -155,13 +186,34 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths):
     return decode_attention_plain(q, k_view, v_view, lengths)
 
 
+def paged_cost(q, k_pool, v_pool, block_tables, lengths, lengths_host=None):
+    """(FLOPs by dtype, bytes) of one ``paged_decode_attention`` call: q,
+    the K/V of the positions read, the table entries they reach and the
+    lengths read once, the output written once; Q.K and P.V over those
+    positions.  ``lengths_host`` (the lengths as a list) is what the data
+    needs; None takes every table entry's whole block."""
+    b, h, dh = q.shape
+    bs, kv = k_pool.shape[1], k_pool.shape[2]
+    lens = [block_tables.shape[1] * bs] * b if lengths_host is None else lengths_host
+    es = q.element_size()
+    nbytes = 2 * b * h * dh * es + 2 * sum(lens) * kv * dh * es + sum(-(-n // bs) for n in lens) * 4 + b * 4
+    return _build.flops((4 * sum(lens) * h * dh, q.dtype)), nbytes
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     """Single-token attention through a block table over a shared KV pool.
     A row with ``lengths[b] == 0`` gives 0 (the plain version gives mean(V)
     over the table's span, as ``decode_attention_plain``)."""
     _build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
+    return _build.counted("paged_decode", lambda: paged_cost(q, k_pool, v_pool, block_tables, lengths),
+                          lambda: _paged(q, k_pool, v_pool, block_tables, lengths))
+
+
+def _paged(q, k_pool, v_pool, block_tables, lengths):
     if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths)
+        return _build.fresh(paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths))
+    if q.device.type == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: tensor on {q.device}")
     b, h, dh = q.shape

@@ -2,8 +2,10 @@
 ``(B, S, heads, head_dim)`` tensors, causal or not.
 
 ``flash_attention`` launches the hand-written kernel
-(``kernels/csrc/flash_attention.cu``) for CUDA tensors and runs
-``flash_attention_plain`` for CPU tensors; anything else raises.
+(``kernels/csrc/flash_attention.cu``) for CUDA tensors, runs
+``flash_attention_plain`` for CPU tensors and returns an empty output
+for ``meta`` tensors; anything else raises.  ``cost`` is one call's FLOPs
+and bytes, which a cost counter records (``_build.counted``).
 ``launches`` counts kernel launches.  Query position ``i`` sees key
 position ``j`` iff the call is non-causal or ``i >= j`` (top-left
 aligned); query head ``h`` reads KV head ``h // (H // KV)``.  The kernel
@@ -66,10 +68,30 @@ def _padded_head_dim(dh: int) -> int | None:
     return next((d for d in _HEAD_DIMS if d >= dh), None)
 
 
+def cost(q, k, v, causal: bool):
+    """(FLOPs by dtype, bytes) of one call: q, k and v read once, the
+    output written once; Q.K^T and P.V over the (query, key) pairs the
+    mask keeps (query i sees keys j <= i, top-left aligned, when causal)."""
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    m = min(sq, sk)
+    pairs = m * (m + 1) // 2 + (sq - m) * sk if causal else sq * sk
+    nbytes = q.element_size() * (2 * b * sq * h * dh + 2 * b * sk * kv * dh)
+    return _build.flops((4 * b * h * dh * pairs, q.dtype)), nbytes
+
+
 def _launch(q, k, v, causal: bool):
-    """The kernel on CUDA tensors (checked), the plain version on CPU ones."""
+    """The kernel on CUDA tensors (checked), the plain version on CPU ones,
+    an empty output on meta ones; counted as one kernel call."""
+    return _build.counted("flash_attention", lambda: cost(q, k, v, causal), lambda: _run(q, k, v, causal))
+
+
+def _run(q, k, v, causal: bool):
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return _build.fresh(flash_attention_plain(q, k, v, causal=causal))
+    if q.device.type == "meta":  # laid out as the kernel's: a padded head_dim's columns cut off
+        dh_run = _padded_head_dim(q.shape[3]) or q.shape[3]
+        return torch.empty((*q.shape[:3], dh_run), dtype=q.dtype, device=q.device)[..., : q.shape[3]]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: tensor on {q.device}")
     if q.dim() != 4 or k.dim() != 4:

@@ -1,8 +1,10 @@
 """Top-k maximum-inner-product retrieval: the provider's scoring op.
 
 ``retrieval_topk`` launches the hand-written kernel
-(``kernels/csrc/retrieval_topk.cu``) for CUDA tensors and runs
-``retrieval_topk_plain`` for CPU tensors; anything else raises.
+(``kernels/csrc/retrieval_topk.cu``) for CUDA tensors, runs
+``retrieval_topk_plain`` for CPU tensors and returns empty outputs for
+``meta`` tensors; anything else raises.  ``cost`` is one call's FLOPs
+and bytes, which a cost counter records (``_build.counted``).
 ``launches`` counts the calls that reach the card, one each (two kernel
 launches: the partial lists over splits of the corpus, then their merge).
 
@@ -58,12 +60,27 @@ def _rows16(t: torch.Tensor, d_pad: int) -> torch.Tensor:
     return out
 
 
+def cost(queries: torch.Tensor, corpus: torch.Tensor, k: int):
+    """(FLOPs by dtype, bytes) of one call: the queries and the corpus read
+    once, k scores and ids per query written once; Q.C^T."""
+    (nq, d), n, es = queries.shape, corpus.shape[0], queries.element_size()
+    return _build.flops((2 * nq * n * d, queries.dtype)), nq * d * es + n * d * es + nq * k * 8
+
+
 def retrieval_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int):
     """queries (Q, D), corpus (N, D) -> (scores (Q, k) f32, idx (Q, k) i32),
     sorted by score descending, ties to the smaller index."""
     _build.refuse_grad("retrieval_topk", queries, corpus)
+    return _build.counted("retrieval_topk", lambda: cost(queries, corpus, k), lambda: _run(queries, corpus, k))
+
+
+def _run(queries: torch.Tensor, corpus: torch.Tensor, k: int):
     if queries.device.type == "cpu" and corpus.device.type == "cpu":
         return retrieval_topk_plain(queries, corpus, k)
+    if queries.device.type == "meta" and corpus.device.type == "meta":
+        nq = queries.shape[0]
+        return (torch.empty((nq, k), dtype=torch.float32, device=queries.device),
+                torch.empty((nq, k), dtype=torch.int32, device=queries.device))
     if queries.device.type != "cuda" or corpus.device != queries.device:
         raise ValueError(f"retrieval_topk: tensors on {queries.device} / {corpus.device}")
     if queries.dim() != 2 or corpus.dim() != 2 or queries.shape[1] != corpus.shape[1]:

@@ -2,8 +2,10 @@
 Mamba2 mixer).
 
 ``ssd_chunk`` launches the hand-written kernel
-(``kernels/csrc/ssd_chunk.cu``) for CUDA tensors and runs
-``ssd_chunk_plain`` for CPU tensors; anything else raises.  ``launches``
+(``kernels/csrc/ssd_chunk.cu``) for CUDA tensors, runs
+``ssd_chunk_plain`` for CPU tensors and returns empty outputs for
+``meta`` tensors; anything else raises.  ``cost`` is one call's FLOPs and
+bytes, which a cost counter records (``_build.counted``).  ``launches``
 counts the calls that reach the card, one each (two kernel launches: the
 ``C . B^T`` tiles, then the chunk terms).  For one chunk of ``L`` positions per (batch,
 head), with ``cum`` the inclusive prefix sum of ``dt * a`` over the chunk:
@@ -108,10 +110,37 @@ def ssd_chunk(x, b, c, dt, a):
     return _launch(x, b, c, dt, a)
 
 
+def cost(x, b, c, dt, a):
+    """(FLOPs by dtype, bytes) of one call.  Bytes: x, the distinct B and C
+    rows (one group when every head reads the same rows, head stride 0,
+    else one per head), dt and a read once; y, state and decay written once.
+    FLOPs over the causal half (j <= i): C.B^T once per (batch, group) on
+    the inputs' type, the score-weighted x and the state product per
+    (batch, head) in f32 (the decay weights are f32)."""
+    bsz, l, h, hd = x.shape
+    ds = b.shape[3]
+    g = 1 if b.stride(2) == 0 and c.stride(2) == 0 else h
+    tri = l * (l + 1) // 2
+    nbytes = x.element_size() * (bsz * l * h * hd + 2 * bsz * l * g * ds) + 4 * (bsz * l * h + h) \
+        + 4 * (bsz * l * h * hd + bsz * h * hd * ds + bsz * h)
+    return _build.flops((bsz * g * tri * 2 * ds, x.dtype),
+                        (bsz * h * (tri * 2 * hd + 2 * l * hd * ds), torch.float32)), nbytes
+
+
 def _launch(x, b, c, dt, a):
-    """The kernel on CUDA tensors (checked), the plain version on CPU ones."""
+    """The kernel on CUDA tensors (checked), the plain version on CPU ones,
+    empty outputs on meta ones; counted as one kernel call."""
+    return _build.counted("ssd_chunk", lambda: cost(x, b, c, dt, a), lambda: _run(x, b, c, dt, a))
+
+
+def _run(x, b, c, dt, a):
     if x.device.type == "cpu":
-        return ssd_chunk_plain(x, b, c, dt, a)
+        return _build.fresh(ssd_chunk_plain(x, b, c, dt, a))
+    if x.device.type == "meta":
+        bsz, l, h, hd = x.shape
+        ds = b.shape[3]
+        f32 = dict(dtype=torch.float32, device=x.device)
+        return torch.empty((bsz, l, h, hd), **f32), torch.empty((bsz, h, hd, ds), **f32), torch.empty((bsz, h), **f32)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk: tensor on {x.device}")
     if x.dim() != 4 or b.dim() != 4 or dt.dim() != 3:

@@ -349,11 +349,15 @@ def head_specs(cfg: ModelConfig) -> dict:
 def embed_apply(cfg: ModelConfig, p, tokens):
     """Token ids -> embeddings in ``cfg.dtype``.  An id outside
     ``[0, vocab_size)`` raises: the model has no row for it."""
-    if tokens.numel() and bool(((tokens < 0) | (tokens >= cfg.vocab_size)).any()):
-        bad = tokens[(tokens < 0) | (tokens >= cfg.vocab_size)]
-        raise ValueError(
-            f"token id {int(bad[0])} outside the model's vocabulary [0, {cfg.vocab_size})"
-        )
+    if tokens.numel():
+        out_of_range = ((tokens < 0) | (tokens >= cfg.vocab_size)).any()
+        # a meta tensor holds no ids, so there is nothing to read back: the
+        # check's device ops above still run, only the host read is skipped
+        if out_of_range.device.type != "meta" and bool(out_of_range):
+            bad = tokens[(tokens < 0) | (tokens >= cfg.vocab_size)]
+            raise ValueError(
+                f"token id {int(bad[0])} outside the model's vocabulary [0, {cfg.vocab_size})"
+            )
     return p["tok"][tokens.long()].to(torch_dtype(cfg.dtype))
 
 

@@ -20,7 +20,9 @@ gated contributions into a zero tensor of the activations' dtype.  The
 JAX package's grouped product is XLA's ``ragged_dot``, not a Pallas
 kernel, so here it stays on stock matmuls: a loop over the experts whose
 group is not empty, their sizes read on the host (one device sync per
-call, counted in ``host_syncs``).  Rows in no group (the pad bucket, the
+call, counted in ``host_syncs``; on ``meta`` tensors, which hold no
+routing, a stated stand-in: the buffer's rows split evenly over the
+experts).  Rows in no group (the pad bucket, the
 empty all-to-all slots) are zeros, as ``ragged_dot`` gives them.  Each
 expert's weights are cast to the activation dtype one expert at a time,
 never the whole stacked leaf.  The combine is deterministic: each token's
@@ -60,6 +62,7 @@ from torch.profiler import record_function
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import mlp_apply, mlp_specs
 from repro_torch.models.params import ParamSpec, map_tree
+from repro_torch.runtime.compat import gather
 from repro_torch.runtime.sharding import NamedSharding, PartitionSpec, assemble, device_put, entry_axes
 
 host_syncs = 0  # the expert loop's reads of its group sizes on the host
@@ -97,11 +100,20 @@ def _route(cfg: ModelConfig, router_w, x2d):
     return gates, ids, probs
 
 
+def _counts(v, n: int):
+    """How often each of 0 .. n - 1 occurs in ``v``, whose values all lie
+    there.  A meta tensor has no values (and ``bincount``, whose length
+    depends on them, no meta kernel): zeros of the counts' shape."""
+    if v.device.type == "meta":
+        return torch.zeros(n, dtype=torch.int64, device=v.device)
+    return torch.bincount(v, minlength=n)
+
+
 def _aux_loss(cfg: ModelConfig, probs, ids):
     """Switch-style load-balance loss over the tokens given."""
     e = probs.shape[-1]
     me = probs.mean(dim=0)
-    ce = torch.bincount(ids.reshape(-1), minlength=e).float()
+    ce = _counts(ids.reshape(-1), e).float()
     ce = ce / torch.clamp(ce.sum(), min=1.0)
     return e * torch.sum(me * ce)
 
@@ -120,8 +132,13 @@ def _expert_compute(wg, wu, wd, xbuf, group_sizes):
     dt = xbuf.dtype
     y = torch.zeros((xbuf.shape[0], wd.shape[-1]), dtype=dt, device=xbuf.device)
     start = 0
-    host_syncs += 1
-    for e, g in enumerate(group_sizes.tolist()):  # the one host sync of the call
+    if xbuf.device.type == "meta":  # no routing to read: the rows split evenly over the experts
+        n, n_e = xbuf.shape[0], group_sizes.shape[0]
+        sizes = [n // n_e + (e < n % n_e) for e in range(n_e)]
+    else:
+        host_syncs += 1
+        sizes = group_sizes.tolist()  # the one host sync of the call
+    for e, g in enumerate(sizes):
         if g == 0:
             continue
         xe = xbuf[start : start + g]
@@ -163,8 +180,7 @@ def _local_moe(cfg: ModelConfig, cap: int, p, x2d, my: int = 0):
     sel_t = torch.div(order, k, rounding_mode="floor")  # the pair's token
     sel_g = torch.where(sel_e < e_loc, gates.reshape(-1)[order], torch.zeros((), device=x2d.device))
     with record_function("moe_expert_loop"):  # the profiler's name for the loop's device time
-        y = _expert_compute(p["wg"], p["wu"], p["wd"], x2d[sel_t],
-                            torch.bincount(sel_e, minlength=e_loc + 1)[:e_loc])
+        y = _expert_compute(p["wg"], p["wu"], p["wd"], x2d[sel_t], _counts(sel_e, e_loc + 1)[:e_loc])
     out = _combine(y * sel_g[:, None].to(y.dtype), order, ids, x2d.dtype)
     return out, _aux_loss(cfg, probs, ids)
 
@@ -203,9 +219,10 @@ def _groups(mesh, tok_axes: tuple):
 
 
 def _mean_aux(auxes, device):
-    total = auxes[0].to(device)
+    auxes = gather(auxes, device, "all-reduce")  # the pmean
+    total = auxes[0]
     for a in auxes[1:]:
-        total = total + a.to(device)
+        total = total + a
     return total / len(auxes)
 
 
@@ -227,9 +244,10 @@ def _moe_psum(cfg: ModelConfig, pol, p, x2d):
             o, a = _local_moe(cfg, cap, {k: w.block(coord) for k, w in ws.items()}, xs.block(coord), my=coord[mi])
             parts.append(o)
             auxes.append(a)
-        total = parts[0]  # the psum over model, in shard order
+        parts = gather(parts, parts[0].device, "all-reduce")  # the psum over model, in shard order
+        total = parts[0]
         for o in parts[1:]:
-            total = total + o.to(total.device)
+            total = total + o
         outs.append((group[0], total))
     return assemble(tok, outs, x2d.device), _mean_aux(auxes, x2d.device)
 
@@ -272,18 +290,18 @@ def _moe_a2a(cfg: ModelConfig, pol, p, x2d):
         ys = []
         for jp, coord in enumerate(group):  # the all-to-all there: shard jp takes block [j, jp] of every j
             dev = mesh.device(coord)
-            recv_x = torch.cat([s["x"][jp].to(dev) for s in sends])
-            recv_e = torch.cat([s["e"][jp].to(dev) for s in sends])
+            recv_x = torch.cat(gather([s["x"][jp] for s in sends], dev, "all-to-all"))
+            recv_e = torch.cat(gather([s["e"][jp] for s in sends], dev, "all-to-all"))
             e_loc = sends[jp]["e_loc"]
             eorder = torch.argsort(recv_e, stable=True)
             w = {n: ws[n].block(coord) for n in ("wg", "wu", "wd")}
             with record_function("moe_expert_loop"):
-                y = _expert_compute(w["wg"], w["wu"], w["wd"], recv_x[eorder],
-                                    torch.bincount(recv_e, minlength=e_loc + 1)[:e_loc])
+                y = _expert_compute(w["wg"], w["wu"], w["wd"], recv_x[eorder], _counts(recv_e, e_loc + 1)[:e_loc])
             ys.append(torch.zeros_like(y).index_copy(0, eorder, y).view(tp, cap, d))  # un-sorted
         for j, (coord, s) in enumerate(zip(group, sends)):  # and back: shard j takes block [jp, j] of every jp
             dev = mesh.device(coord)
-            back = torch.cat([y[j].to(dev) for y in ys] + [torch.zeros((1, d), dtype=ys[0].dtype, device=dev)])
+            back = torch.cat(gather([y[j] for y in ys], dev, "all-to-all")
+                             + [torch.zeros((1, d), dtype=ys[0].dtype, device=dev)])
             contrib = back[s["slot"]] * s["g"][:, None].to(back.dtype)  # a dropped pair reads the zero row
             outs.append((coord, _combine(contrib, s["order"], s["ids"], x2d.dtype)))
     return assemble(tok, outs, x2d.device), _mean_aux(auxes, x2d.device)

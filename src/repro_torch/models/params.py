@@ -3,10 +3,12 @@
 A model declares its parameters once as a nested dict of ``ParamSpec``
 (shape, logical axis names, initializer), with the same keys and shapes
 as the JAX package's tree.  From it come ``init_params`` (random weights
-drawn from a ``torch.Generator`` with the same init rules) and
-``from_reference`` (the JAX package's parameter tree, given as numpy
-arrays, turned into this package's tensors).  Both return the nested
-dict of tensors the model functions take; ``ParamTree`` holds such a
+drawn from a ``torch.Generator`` with the same init rules),
+``abstract_params`` (the tree as ``meta`` tensors: shapes and dtypes, no
+storage; the dry run's inputs) and ``from_reference`` (the JAX
+package's parameter tree, given as numpy arrays, turned into this
+package's tensors).  Each returns the nested dict of tensors the model
+functions take; ``ParamTree`` holds such a
 dict as an ``nn.Module`` (device moves, ``state_dict``).  ``param_count``
 and ``param_bytes`` size a declaration; ``cast_tree`` casts a tree.
 ``spec_to_pspec`` / ``make_pspecs`` map a declaration's logical axes to
@@ -89,6 +91,12 @@ def init_params(specs, generator: torch.Generator, device="cuda", dtype=torch.fl
         return v.mul_(std).to(dtype)
 
     return map_tree(make, specs)
+
+
+def abstract_params(specs, dtype=torch.float32):
+    """Every leaf of ``specs`` as an empty ``meta`` tensor of its shape in
+    ``dtype``: the reference's ``ShapeDtypeStruct`` tree, nothing allocated."""
+    return map_tree(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"), specs)
 
 
 def from_reference(specs, tree_of_numpy, device="cuda", dtype=torch.float32):

@@ -11,7 +11,10 @@ or ``cpu`` (the reference's fake host devices play that part).  A
 collective is ``gather``: every shard's tensor onto one device, in shard
 order, where the caller reduces them in that order, so a combine is
 deterministic; ``split`` hands each shard of a one-axis mesh its slice of
-a tensor.
+a tensor.  Under a cost counter (``counter``: ``launch/roofline.py``'s
+``CostCounter``) each call records one collective of the reference's
+kind (``all-gather``, ``all-reduce``, ...) and the bytes it moves, the
+counterpart of the collectives the reference's roofline read from HLO.
 
 ``shard_map`` and ``axis_size`` have no counterpart here: the loop over
 the coordinates is the shard map, and ``mesh.shape[axis]`` the axis size.
@@ -117,21 +120,42 @@ def make_topology_mesh(shape, axes) -> Mesh:
     return make_mesh([f"cuda:{i}" for i in range(need)], axes, shape=shape)
 
 
-def gather(tensors, device) -> list[torch.Tensor]:
-    """Each shard's tensor on ``device``, in shard order (a tensor already
-    there is passed through, not copied)."""
-    return [t.to(device) for t in tensors]
+def counter():
+    """The innermost cost counter active on this thread (a dispatch mode
+    with ``record_collective``, ``launch/roofline.py``'s ``CostCounter``),
+    or None.  It is looked up on torch's own mode stack, so nothing here
+    holds it."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if hasattr(mode, "record_collective"):
+            return mode
+    return None
+
+
+def gather(tensors, device, kind: str = "all-gather") -> list[torch.Tensor]:
+    """Each shard's tensor on ``device`` (one device, or a list of one per
+    tensor), in shard order (a tensor already there is passed through, not
+    copied).  ``kind`` names the collective the caller's reduction over the
+    gathered tensors stands for (``all-reduce``, ``reduce-scatter``,
+    ``all-to-all``), which a cost counter records with the tensors' bytes."""
+    tensors = list(tensors)
+    if (c := counter()) is not None:
+        c.record_collective(kind, tensors)
+    devices = device if isinstance(device, (list, tuple)) else [device] * len(tensors)
+    return [t.to(d) for t, d in zip(tensors, devices)]
 
 
 def split(x, mesh: Mesh, dim: int) -> list[torch.Tensor]:
     """``x`` cut along ``dim`` into ``mesh.size`` equal slices, each on its
     shard's device (a view where the device is ``x``'s), or ``x`` as given
     when it is already the list of those slices.  Raises on an uneven
-    split."""
+    split.  A cost counter records the cut as one ``all-to-all`` of the
+    slices' bytes."""
     if isinstance(x, (list, tuple)):
         if len(x) != mesh.size or len({t.shape[dim] for t in x}) != 1:
             raise ValueError(f"{len(x)} slices for {mesh.size} shards, or of unequal lengths along dim {dim}")
         return list(x)
     if x.shape[dim] % mesh.size:
         raise ValueError(f"size {x.shape[dim]} along dim {dim} does not split over {mesh.size} shards")
-    return [t.to(d) for t, d in zip(torch.chunk(x, mesh.size, dim=dim), mesh.devices)]
+    return gather(torch.chunk(x, mesh.size, dim=dim), list(mesh.devices), "all-to-all")

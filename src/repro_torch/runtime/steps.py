@@ -33,6 +33,7 @@ from repro_torch.models import encoder as ENC
 from repro_torch.models import lm as LM
 from repro_torch.models.params import cast_tree, leaves, map_tree
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.runtime.compat import gather
 from repro_torch.runtime.sharding import ShardedTensor, data_shards, entry_axes
 
 
@@ -108,7 +109,7 @@ def data_parallel_grads(cfg: ModelConfig, pol, params, batch, grad_pspecs=None):
     shards = data_shards(pol, n_rows)
     dp = len(shards)
     rows = _shard_rows(batch, mesh, shards)
-    n_tok = torch.clamp(sum(r["targets"].ge(0).sum().to(lead) for r in rows).float(), min=1.0)
+    n_tok = torch.clamp(sum(gather([r["targets"].ge(0).sum() for r in rows], lead, "all-reduce")).float(), min=1.0)
     bf16_grads = getattr(cfg, "bf16_grads", False)
     batch_axes = entry_axes(pol.spec("act_batch", shape=(n_rows,))[0])
     coords = [c for c, _ in shards]
@@ -128,19 +129,19 @@ def data_parallel_grads(cfg: ModelConfig, pol, params, batch, grad_pspecs=None):
             return ce_i + cfg.router_aux_weight * aux_i / dp, {"ce": ce_i, "aux": aux_i}
 
         loss_i, m_i, g_i = value_and_grad(share, shadow)
-        loss = loss_i.to(lead) if loss is None else loss + loss_i.to(lead)
-        ce = m_i["ce"].to(lead) if ce is None else ce + m_i["ce"].to(lead)
-        aux = m_i["aux"].to(lead) if aux is None else aux + m_i["aux"].to(lead)
+        loss_i, ce_i, aux_i = gather([loss_i, m_i["ce"], m_i["aux"]], lead, "all-reduce")
+        loss = loss_i if loss is None else loss + loss_i
+        ce = ce_i if ce is None else ce + ce_i
+        aux = aux_i if aux is None else aux + aux_i
         for path, g in leaves(g_i):  # the reduction, in shard order, as each shard finishes
             cut = slicing.get(path)
             if cut is None:
-                acc[path] = g.to(lead) if i == 0 else acc[path] + g.to(lead)
+                (g,) = gather([g], lead, "all-reduce")
+                acc[path] = g if i == 0 else acc[path] + g
                 continue
             d, n, owners = cut
-            parts = torch.chunk(g, n, dim=d)
-            dst = [mesh.device(coords[o]) for o in owners]
-            acc[path] = ([p.to(t) for p, t in zip(parts, dst)] if i == 0
-                         else [a + p.to(t) for a, p, t in zip(acc[path], parts, dst)])
+            parts = gather(torch.chunk(g, n, dim=d), [mesh.device(coords[o]) for o in owners], "reduce-scatter")
+            acc[path] = parts if i == 0 else [a + p for a, p in zip(acc[path], parts)]
         del g_i
     grads = map_tree(lambda _: None, params)
     for path, a in acc.items():  # the reduce-scattered slices put back together
@@ -149,7 +150,7 @@ def data_parallel_grads(cfg: ModelConfig, pol, params, batch, grad_pspecs=None):
         for key in parents:
             node = node[key]
         d = slicing[path][0] if slicing.get(path) else None
-        node[last] = a if d is None else torch.cat([x.to(lead) for x in a], dim=d)
+        node[last] = a if d is None else torch.cat(gather(a, lead, "all-gather"), dim=d)
     return loss, {"ce": ce, "aux": aux / dp, "tokens": n_tok}, grads
 
 

@@ -1433,3 +1433,28 @@ def test_ssd_chunk_at_the_per_shard_batch(cuda_device):
         _close(o, p, 1e-4)
     for a_, w in zip(got, want):
         _close(a_, w, 2e-2)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-1.3b"])
+def test_meta_count_equals_the_cards(cuda_device, arch):
+    """The dry run's count of a smoke-width train step on ``meta`` equals
+    the same step's on the card: FLOPs, bytes, conversions, collectives and
+    kernel calls exactly; the kernels launched on the card only."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.runtime.sharding import make_policy
+
+    cfg = smoke_config(get_config(arch)).with_overrides(vocab_size=512)
+    shape = ShapeConfig("t", 64, 4, "train")
+    name = {"qwen3-0.6b": "flash_attention", "mamba2-1.3b": "ssd_chunk"}[arch]
+    counter = (fa_ops, "launches") if name == "flash_attention" else (ss_ops, "launches")
+    before = getattr(*counter)
+    meta, _ = D._run_cell(cfg, shape, make_policy(None), "adamw")
+    assert getattr(*counter) == before
+    card, _ = D._run_cell(cfg, shape, make_policy(None), "adamw", device="cuda",
+                          generator=torch.Generator(device=cuda_device).manual_seed(0))
+    torch.cuda.synchronize()
+    assert getattr(*counter) > before
+    for k in ("flops", "bytes", "convert_bytes", "dus_bytes", "collectives", "kernels"):
+        assert getattr(meta, k) == getattr(card, k), k
