@@ -3157,6 +3157,7 @@ def multidevice_phase(torch, smi: str) -> list[dict]:
     from repro_torch.models.layers import mlp_apply
     from repro_torch.models.params import init_params, leaves, make_pspecs, make_shardings, map_tree, param_count
     from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.runtime import trace
     from repro_torch.runtime.sharding import ShardedTensor, ShardingPolicy, base_rules, make_policy
     from repro_torch.runtime.steps import data_parallel_grads, make_train_step
     from repro_torch.runtime.train_loop import SimulatedFailure, Trainer, TrainerConfig
@@ -3346,12 +3347,12 @@ def multidevice_phase(torch, smi: str) -> list[dict]:
         cfg_i = base.with_overrides(moe_impl=impl)
         live = map_tree(lambda t: t.detach().requires_grad_(True), p)
         xl = x.detach().requires_grad_(True)
-        syncs = MOE.host_syncs
+        syncs = trace.counters().get("moe.group_sizes", 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out, aux = MOE.moe_apply(cfg_i, live, xl, pol=pol24)
         torch.cuda.synchronize()
-        t_fwd, syncs = time.perf_counter() - t0, MOE.host_syncs - syncs
+        t_fwd, syncs = time.perf_counter() - t0, trace.counters().get("moe.group_sizes", 0) - syncs
         grads = torch.autograd.grad((out * up).sum() + aux, [xl] + [t for _, t in leaves(live)])
         finite = all(bool(torch.isfinite(g).all()) for g in grads)
         with torch.no_grad():
@@ -3382,7 +3383,7 @@ def multidevice_phase(torch, smi: str) -> list[dict]:
         stream = LMBatchStream(batch, seq, ecfg.vocab_size, seed=SEED)
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        syncs = MOE.host_syncs
+        syncs = trace.counters().get("moe.group_sizes", 0)
         elosses, auxes, times = [], [], []
         for i in range(2):
             t0 = time.perf_counter()
@@ -3391,7 +3392,7 @@ def multidevice_phase(torch, smi: str) -> list[dict]:
             elosses.append(float(m["loss"]))
             auxes.append(float(m["aux"]))
             times.append(time.perf_counter() - t0)
-        syncs = MOE.host_syncs - syncs
+        syncs = trace.counters().get("moe.group_sizes", 0) - syncs
         runs.append(read_launches(f"two qwen2-moe-a2.7b {impl} steps on (2, 4)", ("flash_attention",)))
         print(f"  qwen2-moe-a2.7b {impl} on (2, 4), depth cut 24 -> 2 ({param_count(LM.param_specs(ecfg)) / 1e9:.3f} B "
               f"parameters; published {param_count(LM.param_specs(get_config('qwen2-moe-a2.7b'))) / 1e9:.2f} B), "

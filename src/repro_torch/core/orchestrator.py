@@ -60,6 +60,7 @@ from repro_torch.core.resilience import (
     ScoreGate,
 )
 from repro_torch.data.tokenizer import ANS, BOS, CTX, EOS, PAD, QRY, SEP, HashTokenizer
+from repro_torch.runtime import trace
 
 # the faults one provider may raise without failing the round: absorbed
 # by quorum (Algorithm 1's k_n <= k), counted in the health ledger.  An
@@ -402,34 +403,35 @@ class Orchestrator:
         discarded at aggregation).  ``routes`` lets a caller that already
         computed ``query_routes`` pass them in instead of re-embedding."""
         queries = list(queries)
-        base = [self.tok.encode(q, max_len=24) for q in queries]
-        if routes is None:
-            routes = self.query_routes(queries)
-        if routes is None:
-            fan, mine_of = self.providers, None
-        else:
-            mine_of = {}  # provider id -> query rows routed to it
-            for b, sub in enumerate(routes):
-                for p in sub:
-                    mine_of.setdefault(int(p.provider_id), set()).add(b)
-            fan = [p for p in self.providers if int(p.provider_id) in mine_of]
+        with trace.span("fed.collect", queries=len(queries)):
+            base = [self.tok.encode(q, max_len=24) for q in queries]
+            if routes is None:
+                routes = self.query_routes(queries)
+            if routes is None:
+                fan, mine_of = self.providers, None
+            else:
+                mine_of = {}  # provider id -> query rows routed to it
+                for b, sub in enumerate(routes):
+                    for p in sub:
+                        mine_of.setdefault(int(p.provider_id), set()).add(b)
+                fan = [p for p in self.providers if int(p.provider_id) in mine_of]
 
-        def tokens_for(p):
-            rows = base
-            if self.rewriter is not None:  # personalized expansion (§2.2)
-                rows = [self.rewriter.rewrite(r, p.provider_id) for r in base]
-            width = max(len(r) for r in rows)
-            if mine_of is not None:
-                mine = mine_of[int(p.provider_id)]
-                rows = [
-                    r if b in mine else np.full((width,), PAD, np.int32)
-                    for b, r in enumerate(rows)
-                ]
-            return np.stack(
-                [np.pad(r, (0, width - len(r))) for r in rows]
-            ).astype(np.int32)  # PAD tail; the embedder masks PAD
+            def tokens_for(p):
+                rows = base
+                if self.rewriter is not None:  # personalized expansion (§2.2)
+                    rows = [self.rewriter.rewrite(r, p.provider_id) for r in base]
+                width = max(len(r) for r in rows)
+                if mine_of is not None:
+                    mine = mine_of[int(p.provider_id)]
+                    rows = [
+                        r if b in mine else np.full((width,), PAD, np.int32)
+                        for b, r in enumerate(rows)
+                    ]
+                return np.stack(
+                    [np.pad(r, (0, width - len(r))) for r in rows]
+                ).astype(np.int32)  # PAD tail; the embedder masks PAD
 
-        return self._collect(fan, tokens_for)
+            return self._collect(fan, tokens_for)
 
     def _gate_responses(self, responses: list[dict]) -> tuple[list[dict], dict | None]:
         """Aggregator-side poisoning gate (opt-in, ``score_gate``): each
@@ -500,42 +502,43 @@ class Orchestrator:
         """Step 4 over a batch: one re-rank pass over the (B, C, S)
         candidate block when the reranker supports batching, else per-row.
         Produces per-query context dicts identical to ``aggregate``."""
-        responses, gated = self._gate_responses(responses)
-        all_tokens = np.concatenate([r["chunk_tokens"] for r in responses], 1)  # (B, C, S)
-        all_ids = np.concatenate([r["chunk_ids"] for r in responses], 1)  # (B, C)
-        all_scores = np.concatenate([r["scores"] for r in responses], 1)
-        providers = np.concatenate(
-            [
-                np.full(r["chunk_ids"].shape, int(r["provider"]))
-                for r in responses
-            ],
-            1,
-        )
-        if self.aggregation == "rerank" and self.reranker is not None:
-            q_tok = np.stack([self.tok.encode(q, max_len=24) for q in queries])
-            if getattr(self.reranker, "supports_batch", False):
-                rank_scores = np.asarray(self.reranker(q_tok, all_tokens))
+        with trace.span("fed.rerank", queries=len(queries)):
+            responses, gated = self._gate_responses(responses)
+            all_tokens = np.concatenate([r["chunk_tokens"] for r in responses], 1)  # (B, C, S)
+            all_ids = np.concatenate([r["chunk_ids"] for r in responses], 1)  # (B, C)
+            all_scores = np.concatenate([r["scores"] for r in responses], 1)
+            providers = np.concatenate(
+                [
+                    np.full(r["chunk_ids"].shape, int(r["provider"]))
+                    for r in responses
+                ],
+                1,
+            )
+            if self.aggregation == "rerank" and self.reranker is not None:
+                q_tok = np.stack([self.tok.encode(q, max_len=24) for q in queries])
+                if getattr(self.reranker, "supports_batch", False):
+                    rank_scores = np.asarray(self.reranker(q_tok, all_tokens))
+                else:
+                    rank_scores = np.stack(
+                        [np.asarray(self.reranker(q_tok[b], all_tokens[b])) for b in range(len(queries))]
+                    )
             else:
-                rank_scores = np.stack(
-                    [np.asarray(self.reranker(q_tok[b], all_tokens[b])) for b in range(len(queries))]
-                )
-        else:
-            rank_scores = all_scores
-        n = min(self.n_global, all_ids.shape[1])
-        outs = []
-        for b in range(len(queries)):
-            order = np.argsort(-rank_scores[b])[:n]
-            ctx = {
-                "chunk_tokens": all_tokens[b][order],
-                "chunk_ids": all_ids[b][order],
-                "scores": rank_scores[b][order],
-                "providers": providers[b][order],
-                "n_candidates": all_ids.shape[1],
-            }
-            if gated is not None:
-                ctx["gated"] = gated
-            outs.append(ctx)
-        return outs
+                rank_scores = all_scores
+            n = min(self.n_global, all_ids.shape[1])
+            outs = []
+            for b in range(len(queries)):
+                order = np.argsort(-rank_scores[b])[:n]
+                ctx = {
+                    "chunk_tokens": all_tokens[b][order],
+                    "chunk_ids": all_ids[b][order],
+                    "scores": rank_scores[b][order],
+                    "providers": providers[b][order],
+                    "n_candidates": all_ids.shape[1],
+                }
+                if gated is not None:
+                    ctx["gated"] = gated
+                outs.append(ctx)
+            return outs
 
     def build_prompt(self, query_text: str, context: dict, max_len: int = 512) -> np.ndarray:
         """[BOS] CTX chunk1 SEP chunk2 ... QRY query ANS — a STABLE
@@ -557,24 +560,25 @@ class Orchestrator:
         the ``BOS/CTX/QRY/query/ANS`` skeleton intact, where a blind
         ``ids[-max_len:]`` would slice off ``BOS``/``CTX`` and could
         bisect a chunk."""
-        query = [int(t) for t in self.tok.encode(query_text, bos=False) if t not in (PAD, EOS)]
-        n_markers = 4  # BOS, CTX, QRY, ANS
-        # fixed reserve: chunk inclusion must not depend on the query, or
-        # same-context siblings diverge before QRY and never share blocks
-        reserve = min(self.query_reserve, max(0, (max_len - n_markers) // 2))
-        chunk_budget = max_len - n_markers - reserve
-        ids = [BOS, CTX]
-        for row in context["chunk_tokens"]:
-            chunk = [int(t) for t in row if t not in (PAD, BOS, EOS)]
-            if len(chunk) + 1 > chunk_budget:  # +1: trailing SEP
-                break  # ranked order: everything after is lower-scored
-            ids += chunk
-            ids.append(SEP)
-            chunk_budget -= len(chunk) + 1
-        ids.append(QRY)
-        ids += query[: max(0, max_len - len(ids) - 1)]  # tail cut, ANS always fits
-        ids.append(ANS)
-        return np.asarray(ids, np.int32)[None, :]
+        with trace.span("fed.prompt"):
+            query = [int(t) for t in self.tok.encode(query_text, bos=False) if t not in (PAD, EOS)]
+            n_markers = 4  # BOS, CTX, QRY, ANS
+            # fixed reserve: chunk inclusion must not depend on the query, or
+            # same-context siblings diverge before QRY and never share blocks
+            reserve = min(self.query_reserve, max(0, (max_len - n_markers) // 2))
+            chunk_budget = max_len - n_markers - reserve
+            ids = [BOS, CTX]
+            for row in context["chunk_tokens"]:
+                chunk = [int(t) for t in row if t not in (PAD, BOS, EOS)]
+                if len(chunk) + 1 > chunk_budget:  # +1: trailing SEP
+                    break  # ranked order: everything after is lower-scored
+                ids += chunk
+                ids.append(SEP)
+                chunk_budget -= len(chunk) + 1
+            ids.append(QRY)
+            ids += query[: max(0, max_len - len(ids) - 1)]  # tail cut, ANS always fits
+            ids.append(ANS)
+            return np.asarray(ids, np.int32)[None, :]
 
     def _prompt_max_len(self) -> int:
         """Generator-advertised prompt window (``max_prompt_len`` on an

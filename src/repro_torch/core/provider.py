@@ -38,6 +38,7 @@ from repro_torch.core.filters import Filter, apply_filters
 from repro_torch.data.corpus import Chunk
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.kernels.retrieval_topk.ops import retrieval_topk
+from repro_torch.runtime import trace
 
 
 def pack(payload: dict) -> bytes:
@@ -73,9 +74,10 @@ class DataProvider:
         self.fail = fail
         self.delay_s = delay_s
         self.enclave = Enclave(f"cfedrag-provider-v1:{provider_id}")
-        self.chunk_tokens = np.stack(
-            [tokenizer.encode(c.text, max_len=chunk_max_len) for c in self.chunks]
-        )
+        with trace.span("provider.tokenize", provider=provider_id, chunks=len(self.chunks)):
+            self.chunk_tokens = np.stack(
+                [tokenizer.encode(c.text, max_len=chunk_max_len) for c in self.chunks]
+            )
         self._chunk_id_arr = np.asarray([c.chunk_id for c in self.chunks], np.int64)
         self.embeddings: torch.Tensor | None = None
         self.channel: SecureChannel | None = None
@@ -88,10 +90,11 @@ class DataProvider:
 
     # ---- lifecycle ----
     def build_index(self, batch: int = 512):
-        outs = []
-        for i in range(0, len(self.chunk_tokens), batch):
-            outs.append(self._on_device(self.embed_fn(self.chunk_tokens[i : i + batch])))
-        self.embeddings = torch.cat(outs, 0).contiguous()
+        with trace.span("provider.index", provider=self.provider_id, chunks=len(self.chunks)):
+            outs = []
+            for i in range(0, len(self.chunk_tokens), batch):
+                outs.append(self._on_device(self.embed_fn(self.chunk_tokens[i : i + batch])))
+            self.embeddings = torch.cat(outs, 0).contiguous()
 
     def _on_device(self, emb) -> torch.Tensor:
         return torch.as_tensor(emb, device=self.device).to(torch.float32)
@@ -132,7 +135,8 @@ class DataProvider:
         q_emb = self._on_device(self.embed_fn(q))  # (B, D)
         m_eff = min(m, len(self.chunks))
         scores, idx = retrieval_topk(q_emb.contiguous(), self.embeddings, m_eff)
-        scores, idx = scores.cpu().numpy(), idx.cpu().numpy()  # (B, m)
+        scores = trace.to_host(scores, "provider.topk").numpy()  # (B, m)
+        idx = trace.to_host(idx, "provider.topk").numpy()
         if single:
             scores, idx = scores[0], idx[0]
         payload = {

@@ -29,11 +29,18 @@ find their prefixes cached.  Its pool then holds two waves of
 cached.  ``--shards N`` (paged only) splits a pool of 144 blocks over N
 shards, on the first N cards or, with fewer cards, all on the first one,
 so that the sharded dispatch's device time is filed by kernel beside the
-rest.  Needs a CUDA device.
+rest.  The program's flight-recorder spans (``runtime/trace.py``) are
+mirrored into the profiled serve as profiler ranges, which the kernel
+sums leave out; each idle gap between the device's busy intervals is
+named by the innermost span that covers most of it (the most covering
+one where none covers half), and the longest gaps, the share of idle
+time under each span name and under none, and the share of idle time
+that some span covers are printed.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import subprocess
 import time
 
@@ -75,6 +82,42 @@ def _kind(name: str) -> str:
     return "elementwise / other"
 
 
+def _union(intervals) -> list:
+    merged: list = []
+    for s, e in sorted(intervals):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return merged
+
+
+def idle_by_span(events, ranges: set) -> tuple[list, float]:
+    """The idle gaps between the device's busy intervals, each as ``(us,
+    name)``: the innermost of the program ranges that cover at least half
+    of it, else the one covering most, else "no span"; and the idle time
+    the ranges cover, in us.  ``events``: a profile's events; ``ranges``:
+    the names of the program's ranges."""
+    dev = [e for e in events if e.device_type.name == "CUDA" and e.name != LOOP and e.name not in ranges
+           and e.time_range.elapsed_us() > 0]
+    merged = _union([(e.time_range.start, e.time_range.end) for e in dev])
+    spans = sorted(((e.time_range.start, e.time_range.end, e.name) for e in events
+                    if e.device_type.name == "CPU" and e.name in ranges), key=lambda x: x[0])
+    starts = [sp[0] for sp in spans]
+    gaps, covered, active, nxt = [], 0.0, [], 0
+    for (_, a), (b, _) in zip(merged, merged[1:]):
+        hi = bisect.bisect_left(starts, b)
+        active.extend(spans[nxt:hi])
+        nxt = max(nxt, hi)
+        active = [sp for sp in active if sp[1] > a]
+        over = [(min(b, e) - max(a, s), e - s, name) for s, e, name in active]
+        half = [o for o in over if 2 * o[0] >= b - a]
+        best = min(half, key=lambda o: o[1]) if half else max(over, default=None)
+        gaps.append((b - a, best[2] if best is not None and best[0] > 0 else "no span"))
+        covered += sum(e - s for s, e in _union([(max(a, s), min(b, e)) for s, e, _ in active]))
+    return gaps, covered
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--system", default="paged", choices=["paged", "contiguous", "paper", "mamba2", "spec", "moe",
@@ -96,6 +139,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serve import full_width_system, paper_models_system
+    from repro_torch.runtime import trace
     from repro_torch.runtime.compat import make_mesh
     from repro_torch.serving.kv_cache import blocks_for
 
@@ -135,17 +179,25 @@ def main(argv=None) -> int:
               f"{st.get('prefill_tokens_saved', 0)}/{st.get('prefill_tokens', 0)} prefill tokens saved, "
               f"{st['mixed_dispatches']} mixed + {st['decode_dispatches']} decode dispatches")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sys_.serve(texts)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    trace.mirror(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            m0, t0 = time.monotonic(), time.perf_counter()
+            sys_.serve(texts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n_spans = len(trace.spans(m0))
+    finally:
+        trace.mirror(False)
     st = sys_.last_serve_stats
-    # a profiler range (``record_function``) also shows on the device
-    # timeline as a span from its first kernel to its last, idle gaps
-    # included: it is no kernel, so it is left out of the sums
+    # a profiler range (``record_function``: the expert loop's and the
+    # program's mirrored spans) also shows on the device timeline as a
+    # span from its first kernel to its last, idle gaps included: it is no
+    # kernel, so it is left out of the sums
+    ranges = trace.names()
     kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total > 0 and e.key != LOOP]
+               if e.device_type.name == "CUDA" and e.self_device_time_total > 0 and e.key != LOOP
+               and e.key not in ranges]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     print(f"[{smi}] torch {torch.__version__}, system {args.system}"
@@ -184,6 +236,20 @@ def main(argv=None) -> int:
     print(f"top {args.top} kernels by device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[: args.top]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:100]}")
+    gaps, covered = idle_by_span(prof.events(), ranges)
+    idle = sum(us for us, _ in gaps)
+    print(f"program spans mirrored: {n_spans} in the profiled serve; device idle between its first and last "
+          f"kernel {idle / 1e3:.1f} ms in {len(gaps)} gaps, {100 * covered / max(idle, 1e-9):.1f}% of it "
+          f"covered by some span")
+    by_name: dict[str, float] = {}
+    for us, name in gaps:
+        by_name[name] = by_name.get(name, 0.0) + us
+    print("idle time by the span that covers most of each gap:")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        print(f"  {name:20s} {us / 1e3:9.2f} ms  {100 * us / max(idle, 1e-9):5.1f}%")
+    print(f"top {args.top} idle gaps:")
+    for us, name in sorted(gaps, reverse=True)[: args.top]:
+        print(f"  {us / 1e3:9.3f} ms  {name}")
     cpu_ops = [e for e in prof.key_averages() if e.device_type.name == "CPU"]
     print(f"top {args.top} host ops by self CPU time:")
     for e in sorted(cpu_ops, key=lambda e: -e.self_cpu_time_total)[: args.top]:

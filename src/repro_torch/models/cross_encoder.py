@@ -17,6 +17,7 @@ from repro_torch.data.tokenizer import EOS, PAD, SEP
 from repro_torch.models import layers as L
 from repro_torch.models.lm import _stack_specs, encoder_stack
 from repro_torch.models.params import ParamSpec
+from repro_torch.runtime import trace
 
 
 def param_specs(cfg: ModelConfig) -> dict:
@@ -71,7 +72,7 @@ def make_reranker(cfg: ModelConfig, params, *, max_len: int = 64):
 
     def score(toks: np.ndarray, types: np.ndarray) -> np.ndarray:
         out = score_pairs(cfg, params, torch.as_tensor(toks, device=device), torch.as_tensor(types, device=device))
-        return out.cpu().numpy().astype(np.float32)
+        return trace.to_host(out, "rerank.scores").numpy().astype(np.float32)
 
     def rerank(query_tokens: np.ndarray, cand_tokens: np.ndarray) -> np.ndarray:
         cand = np.asarray(cand_tokens)

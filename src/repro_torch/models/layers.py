@@ -32,6 +32,7 @@ from repro_torch.kernels.chunked_prefill.ops import mixed_prefill_attention, mix
 from repro_torch.kernels.decode_attention.ops import decode_attention, paged_decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.params import ParamSpec
+from repro_torch.runtime import trace
 from repro_torch.serving.dist_decode import combine_partials
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -353,7 +354,7 @@ def embed_apply(cfg: ModelConfig, p, tokens):
         out_of_range = ((tokens < 0) | (tokens >= cfg.vocab_size)).any()
         # a meta tensor holds no ids, so there is nothing to read back: the
         # check's device ops above still run, only the host read is skipped
-        if out_of_range.device.type != "meta" and bool(out_of_range):
+        if out_of_range.device.type != "meta" and bool(trace.to_host(out_of_range, "model.token_check")):
             bad = tokens[(tokens < 0) | (tokens >= cfg.vocab_size)]
             raise ValueError(
                 f"token id {int(bad[0])} outside the model's vocabulary [0, {cfg.vocab_size})"

@@ -20,7 +20,8 @@ gated contributions into a zero tensor of the activations' dtype.  The
 JAX package's grouped product is XLA's ``ragged_dot``, not a Pallas
 kernel, so here it stays on stock matmuls: a loop over the experts whose
 group is not empty, their sizes read on the host (one device sync per
-call, counted in ``host_syncs``; on ``meta`` tensors, which hold no
+call, counted under the recorder's ``moe.group_sizes``
+(``runtime/trace.py``); on ``meta`` tensors, which hold no
 routing, a stated stand-in: the buffer's rows split evenly over the
 experts).  Rows in no group (the pad bucket, the
 empty all-to-all slots) are zeros, as ``ragged_dot`` gives them.  Each
@@ -62,10 +63,9 @@ from torch.profiler import record_function
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import mlp_apply, mlp_specs
 from repro_torch.models.params import ParamSpec, map_tree
+from repro_torch.runtime import trace
 from repro_torch.runtime.compat import gather
 from repro_torch.runtime.sharding import NamedSharding, PartitionSpec, assemble, device_put, entry_axes
-
-host_syncs = 0  # the expert loop's reads of its group sizes on the host
 
 
 def padded_experts(cfg: ModelConfig, tp: int) -> int:
@@ -128,7 +128,6 @@ def _expert_compute(wg, wu, wd, xbuf, group_sizes):
     """SwiGLU of each expert over its contiguous group of ``xbuf`` rows
     (``group_sizes`` per expert, from the first row), in ``xbuf``'s dtype;
     the rows past the groups are zeros."""
-    global host_syncs
     dt = xbuf.dtype
     y = torch.zeros((xbuf.shape[0], wd.shape[-1]), dtype=dt, device=xbuf.device)
     start = 0
@@ -136,8 +135,7 @@ def _expert_compute(wg, wu, wd, xbuf, group_sizes):
         n, n_e = xbuf.shape[0], group_sizes.shape[0]
         sizes = [n // n_e + (e < n % n_e) for e in range(n_e)]
     else:
-        host_syncs += 1
-        sizes = group_sizes.tolist()  # the one host sync of the call
+        sizes = trace.to_host(group_sizes, "moe.group_sizes").tolist()  # the one host sync of the call
     for e, g in enumerate(sizes):
         if g == 0:
             continue

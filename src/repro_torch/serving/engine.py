@@ -94,6 +94,7 @@ explicit ``mesh`` places them by hand, several on one card if need be.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Sequence
 
 import numpy as np
@@ -103,9 +104,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import EOS, PAD
 from repro_torch.models import lm as LM
 from repro_torch.models.layers import torch_dtype
+from repro_torch.runtime import trace
 from repro_torch.runtime.compat import Mesh, make_mesh
 from repro_torch.serving.kv_cache import BlockPool, BlockTable, HostBlockStore, PrefixIndex, blocks_for
-from repro_torch.serving.scheduler import Request, Scheduler
+from repro_torch.serving.scheduler import Request, Scheduler, mark_first_token
 
 
 class AdmissionDeadlock(RuntimeError):
@@ -150,6 +152,24 @@ def accept_prefix(draft, target, *, q_len=None, rem=None, done=None, eos=EOS):
     if done is not None:
         can = can & ~torch.as_tensor(done, device=dev)[:, None]
     return can.sum(dim=1).to(torch.int32), can
+
+
+def _stamp_first_tokens(slots: list, rows, em_h) -> None:
+    """``first_token_at`` for each request in ``rows`` whose row the last
+    readback shows has emitted."""
+    now = time.monotonic()
+    for i in rows:
+        req = slots[i]
+        if req is not None and req.first_token_at is None and em_h[i] >= 1:
+            mark_first_token(req, now)
+
+
+def _decode_lanes(em_before, em_after, rows, b: int) -> dict:
+    """A fused decode chunk's lanes: each of the decoding ``rows`` that was
+    not done at a step emitted one token there, and the chunk ran as many
+    steps as the row that emitted most."""
+    emitted = em_after[rows] - em_before[rows]
+    return {"lanes_live": int(emitted.sum()), "lanes_run": b * int(emitted.max(initial=0)), "fill_lanes": 0}
 
 
 def resolve_fill_deps(fill_deps: dict[int, frozenset], pending) -> list[int]:
@@ -291,7 +311,6 @@ class ServeEngine:
         # dispatch observability: fused admit prefills (contiguous), fused
         # decode chunks and unified mixed steps (paged)
         self.admit_dispatches = 0
-        self.admit_rows_total = 0
         self.decode_dispatches = 0
         self.mixed_dispatches = 0
         # prefix-cache gauges (engine lifetime; each serve reports its
@@ -491,7 +510,7 @@ class ServeEngine:
         chunk = torch.zeros((b, sc), dtype=torch.int32, device=self.device)
         emitted0 = emitted
         for t in range(n_steps):
-            if bool(done.all()):
+            if bool(trace.to_host(done.all(), "engine.decode_stop")):
                 break
             logits = LM.decode_step(
                 self.cfg, self.params, cache, cur[:, None], lengths + emitted - 1,
@@ -509,6 +528,13 @@ class ServeEngine:
         keep = out[rows[:, None], idx]
         out[rows[:, None], idx] = torch.where(valid, chunk, keep)
         return cur, lengths, emitted, done, budget, out
+
+    def _readback(self, st):
+        """The rows' ``emitted`` and ``done`` on the host: the engine's wait
+        for its last dispatch."""
+        with trace.span("engine.readback"):
+            return (trace.to_host(st[2], "engine.readback").numpy().astype(np.int64),
+                    trace.to_host(st[3], "engine.readback").numpy().copy())
 
     def _prefill(self, tokens, lengths):
         """Packed prefill into a fresh contiguous cache of ``cache_len``
@@ -548,7 +574,7 @@ class ServeEngine:
         out = torch.zeros((first_tok.shape[0], t_max), dtype=torch.int32, device=self.device)
         out[:, 0] = first_tok
         cur, done, t = first_tok, first_tok == EOS, 1
-        while t < t_max and not bool(done.all()):
+        while t < t_max and not bool(trace.to_host(done.all(), "engine.decode_stop")):
             logits = LM.decode_step(self.cfg, self.params, cache, cur[:, None], lengths + t - 1)
             nxt = torch.argmax(logits[:, -1, :], -1).to(torch.int32)
             nxt = torch.where(done, torch.full_like(nxt, PAD), nxt)  # finished rows stay PAD
@@ -580,7 +606,7 @@ class ServeEngine:
         lengths = self._dev([min(len(p), self.scfg.max_prompt_len) for p in batch])
         first, cache = self._prefill(self._dev(self._pack(batch)), lengths)
         out, n_steps = self._decode_loop(cache, first, lengths)
-        return list(out[:, :n_steps].cpu().numpy())
+        return list(trace.to_host(out[:, :n_steps], "engine.readback").numpy())
 
     # ------------------------------------------------------------------ #
     # resident paged state
@@ -641,7 +667,7 @@ class ServeEngine:
         card it blocks until done and is ordered after every kernel already
         queued on the stream, so the payload holds what the last step wrote
         and the block may be overwritten once this returns."""
-        payload = [v.to("cpu", copy=True) for v in self._block_views(b)]
+        payload = [trace.to_host(v, "engine.spill", copy=True) for v in self._block_views(b)]
         return payload, int(sum(p.numel() * p.element_size() for p in payload))
 
     def _upload_block(self, payload, b: int) -> None:
@@ -744,35 +770,40 @@ class ServeEngine:
         while True:
             # ---- admit queued requests into free slots (bucketed) ----
             admits: list[tuple[int, np.ndarray, int, int]] = []
-            for slot in range(B):
-                if slots[slot] is not None:
-                    continue
-                req = scheduler.pop_ready()
-                if req is None:
-                    break
-                p = req.tokens[-width:]
-                length = len(p)
-                # prefill always emits one token, so the budget floor is 1;
-                # None means the engine cap
-                b_new = t_cap if req.max_new_tokens is None else req.max_new_tokens
-                b_new = max(1, min(int(b_new), t_cap))
-                admits.append((slot, p, length, b_new))
-                scheduler.record_tenant_admit(req.tenant, prefill_tokens=length)
-                slots[slot] = req
-                em_h[slot], dn_h[slot] = 1, b_new <= 1
-                bu_h[slot] = b_new
+            with trace.span("engine.admit") as sp:
+                for slot in range(B):
+                    if slots[slot] is not None:
+                        continue
+                    req = scheduler.pop_ready()
+                    if req is None:
+                        break
+                    p = req.tokens[-width:]
+                    length = len(p)
+                    # prefill always emits one token, so the budget floor is 1;
+                    # None means the engine cap
+                    b_new = t_cap if req.max_new_tokens is None else req.max_new_tokens
+                    b_new = max(1, min(int(b_new), t_cap))
+                    admits.append((slot, p, length, b_new))
+                    scheduler.record_tenant_admit(req.tenant, prefill_tokens=length)
+                    slots[slot] = req
+                    em_h[slot], dn_h[slot] = 1, b_new <= 1
+                    bu_h[slot] = b_new
+                sp.attrs["rids"] = [slots[s].rid for s, _, _, _ in admits]
             while admits:
                 # power-of-2 groups: k waiting requests prefill in O(log k)
                 # dispatches
                 g = 1 << (len(admits).bit_length() - 1)
                 group, admits = admits[:g], admits[g:]
-                st = self._admit_rows(
-                    st, cache, self._dev(self._pack([p for _, p, _, _ in group])),
-                    self._dev([s for s, _, _, _ in group]),
-                    self._dev([ln for _, _, ln, _ in group]), self._dev([bn for _, _, _, bn in group]),
-                )
+                lens = [ln for _, _, ln, _ in group]
+                with trace.span("engine.step", kind="admit", rows=g, lanes_live=sum(lens), lanes_run=g * width,
+                                fill_lanes=sum(lens), rids=[slots[s].rid for s, _, _, _ in group]):
+                    with trace.span("engine.launch"):
+                        st = self._admit_rows(
+                            st, cache, self._dev(self._pack([p for _, p, _, _ in group])),
+                            self._dev([s for s, _, _, _ in group]), self._dev(lens),
+                            self._dev([bn for _, _, _, bn in group]),
+                        )
                 self.admit_dispatches += 1
-                self.admit_rows_total += g
             active = [i for i in range(B) if slots[i] is not None]
             scheduler.record_occupancy(free_slots=B - len(active))
             scheduler.record_dispatch_stats(
@@ -787,28 +818,40 @@ class ServeEngine:
                     if scheduler.has_pending:
                         continue  # a submit raced the close / empty check
                     return
-                scheduler.wait_for_work()
+                with trace.span("engine.wait"):
+                    scheduler.wait_for_work()
                 continue
 
-            remaining = [int(bu_h[i] - em_h[i]) for i in active if not dn_h[i]]
-            if remaining:
+            dec = [i for i in active if not dn_h[i]]
+            if dec:
                 # budgets and EOS are enforced on the device, so the chunk
                 # length is only a scheduling granularity
-                n = max(1, min(max(remaining), scfg.sched_chunk))
-                st = self._decode_chunk(st, n, cache)
+                n = max(1, min(max(int(bu_h[i] - em_h[i]) for i in dec), scfg.sched_chunk))
+                with trace.span("engine.step", kind="decode", rows=len(dec), rids=[slots[i].rid for i in dec]) as sp:
+                    with trace.span("engine.launch"):
+                        st = self._decode_chunk(st, n, cache)
+                    em_before, (em_h, dn_h) = em_h, self._readback(st)
+                    sp.attrs.update(_decode_lanes(em_before, em_h, dec, B))
                 self.decode_dispatches += 1
                 steps += 1
-            em_h, dn_h = st[2].cpu().numpy().astype(np.int64), st[3].cpu().numpy().copy()
+            else:
+                em_h, dn_h = self._readback(st)
+            _stamp_first_tokens(slots, active, em_h)
 
             retired = [i for i in active if dn_h[i]]
             if retired:
-                out_h = st[5].cpu().numpy()
-                for i in retired:
-                    req = slots[i]
-                    ans = out_h[i, : int(em_h[i])].copy()
-                    scheduler.finish(req, ans)
-                    slots[i] = None  # retire: the slot is free for the next admit
-                    yield req.rid, ans
+                done = []
+                with trace.span("engine.retire", rids=[slots[i].rid for i in retired]):
+                    out_h = trace.to_host(st[5], "engine.retire").numpy()
+                    for i in retired:
+                        req = slots[i]
+                        ans = out_h[i, : int(em_h[i])].copy()
+                        scheduler.finish(req, ans)
+                        slots[i] = None  # retire: the slot is free for the next admit
+                        done.append((req.rid, ans))
+                for rid, ans in done:
+                    with trace.span("stream.yield", rid=rid):
+                        yield rid, ans
 
     def _dispatch_lifetime(self) -> dict:
         return {
@@ -988,99 +1031,103 @@ class ServeEngine:
                 # through the mixed step below.  The one exception is a
                 # re-admitted (spilled) chunk, whose payload uploads here,
                 # synchronously, so it is never pending
-                for slot in range(B):
-                    if slots[slot] is not None:
-                        continue
-                    req = scheduler.pop_ready(admit_if=admit_gate)
-                    if req is None:
-                        break
-                    p = req.tokens[-width:]
-                    length = len(p)
-                    b_new = t_cap if req.max_new_tokens is None else req.max_new_tokens
-                    b_new = max(1, min(int(b_new), t_cap))
-                    start, cow, deps = 0, None, set()
-                    if index is not None:
-                        plan = planned.pop(req.rid, None) or index.plan(p)
-                        if plan is None:
-                            raise RuntimeError("prefix admit raced the block pool")
-                        table_ids, cow_dst = index.commit(plan)
-                        for payload, b in plan.uploads:
-                            if payload:
-                                self._upload_block(payload, b)
-                        row_tables[slot].adopt(table_ids)
-                        tables_h[slot, :] = self._trash_block
-                        tables_h[slot, : len(table_ids)] = table_ids
-                        self.prefix_lookups += 1
-                        self.prefill_tokens_total += length
-                        start = plan.start
-                        if start:
-                            self.prefix_hits += 1
-                            self.prefill_tokens_saved += start
-                            self.prefix_shared_total += len(plan.shared) + (cow_dst is not None)
-                        if cow_dst is not None and plan.cow_src is not None:
-                            # a device boundary copy is still to be made; a
-                            # spilled boundary uploaded above
-                            cow = (plan.cow_src, cow_dst)
-                        # wait on shared or COW-source chunks that another
-                        # in-flight fill has registered but not yet written
-                        deps = {
-                            b for b in (set(plan.shared) | ({plan.cow_src} if cow else set()))
-                            if b in pending_blocks
-                        }
-                        for c in range(len(plan.nodes), length // bs):
-                            pending_blocks[table_ids[c]] = (slot, (c + 1) * bs)
-                    else:
-                        tb = row_tables[slot]
-                        if not tb.extend_to(length + 1):
-                            raise RuntimeError("paged admit raced the block pool")
-                        tables_h[slot, :] = self._trash_block
-                        tables_h[slot, : tb.n_blocks] = tb.ids
-                    scheduler.record_tenant_admit(
-                        req.tenant, prefill_tokens=length, prefill_tokens_saved=start, hit=start > 0
-                    )
-                    slots[slot] = req
-                    fills[slot] = dict(p=p, length=length, b_new=b_new, pos=start, cow=cow, deps=deps)
-                    if spec:
-                        d_tb = d_row_tables[slot]
-                        if not d_tb.extend_to(length + 1):
-                            raise RuntimeError("draft admit raced the draft pool")
-                        d_tables_h[slot, :] = self._trash_block
-                        d_tables_h[slot, : d_tb.n_blocks] = d_tb.ids
-                        d_fills[slot] = dict(p=p, length=length, pos=0)
-                        d_broken[slot] = False
-                    # inert on device until the fill's last chunk seeds it
-                    em_h[slot], dn_h[slot] = 0, True
-                    bu_h[slot], ln_h[slot] = b_new, length
+                with trace.span("engine.admit") as adm:
+                    admitted = adm.attrs["rids"] = []
+                    for slot in range(B):
+                        if slots[slot] is not None:
+                            continue
+                        req = scheduler.pop_ready(admit_if=admit_gate)
+                        if req is None:
+                            break
+                        p = req.tokens[-width:]
+                        length = len(p)
+                        b_new = t_cap if req.max_new_tokens is None else req.max_new_tokens
+                        b_new = max(1, min(int(b_new), t_cap))
+                        start, cow, deps = 0, None, set()
+                        if index is not None:
+                            plan = planned.pop(req.rid, None) or index.plan(p)
+                            if plan is None:
+                                raise RuntimeError("prefix admit raced the block pool")
+                            table_ids, cow_dst = index.commit(plan)
+                            for payload, b in plan.uploads:
+                                if payload:
+                                    self._upload_block(payload, b)
+                            row_tables[slot].adopt(table_ids)
+                            tables_h[slot, :] = self._trash_block
+                            tables_h[slot, : len(table_ids)] = table_ids
+                            self.prefix_lookups += 1
+                            self.prefill_tokens_total += length
+                            start = plan.start
+                            if start:
+                                self.prefix_hits += 1
+                                self.prefill_tokens_saved += start
+                                self.prefix_shared_total += len(plan.shared) + (cow_dst is not None)
+                            if cow_dst is not None and plan.cow_src is not None:
+                                # a device boundary copy is still to be made; a
+                                # spilled boundary uploaded above
+                                cow = (plan.cow_src, cow_dst)
+                            # wait on shared or COW-source chunks that another
+                            # in-flight fill has registered but not yet written
+                            deps = {
+                                b for b in (set(plan.shared) | ({plan.cow_src} if cow else set()))
+                                if b in pending_blocks
+                            }
+                            for c in range(len(plan.nodes), length // bs):
+                                pending_blocks[table_ids[c]] = (slot, (c + 1) * bs)
+                        else:
+                            tb = row_tables[slot]
+                            if not tb.extend_to(length + 1):
+                                raise RuntimeError("paged admit raced the block pool")
+                            tables_h[slot, :] = self._trash_block
+                            tables_h[slot, : tb.n_blocks] = tb.ids
+                        scheduler.record_tenant_admit(
+                            req.tenant, prefill_tokens=length, prefill_tokens_saved=start, hit=start > 0
+                        )
+                        slots[slot] = req
+                        admitted.append(req.rid)
+                        fills[slot] = dict(p=p, length=length, b_new=b_new, pos=start, cow=cow, deps=deps)
+                        if spec:
+                            d_tb = d_row_tables[slot]
+                            if not d_tb.extend_to(length + 1):
+                                raise RuntimeError("draft admit raced the draft pool")
+                            d_tables_h[slot, :] = self._trash_block
+                            d_tables_h[slot, : d_tb.n_blocks] = d_tb.ids
+                            d_fills[slot] = dict(p=p, length=length, pos=0)
+                            d_broken[slot] = False
+                        # inert on device until the fill's last chunk seeds it
+                        em_h[slot], dn_h[slot] = 0, True
+                        bu_h[slot], ln_h[slot] = b_new, length
 
-                active = [i for i in range(B) if slots[i] is not None]
-                scheduler.record_occupancy(
-                    free_slots=B - len(active),
-                    free_blocks=pool.free_blocks,
-                    reclaimable_blocks=pool.reclaimable_blocks if index is not None else None,
-                    # without the drafter's headroom a drafter OOM would not
-                    # show in the memory gauges
-                    draft_free_blocks=d_pool.free_blocks if spec else None,
-                )
-                report_prefix()
-                scheduler.record_dispatch_stats(
-                    admit_dispatches=0,
-                    decode_dispatches=self.decode_dispatches - d0,
-                    mixed_dispatches=self.mixed_dispatches - m0,
-                    steps=steps,
-                    lifetime=self._dispatch_lifetime(),
-                    draft_dispatches=self.draft_dispatches - dr0,
-                    draft_fill_dispatches=self.draft_fill_dispatches - df0,
-                    spec_rounds=self.spec_rounds - sr0,
-                    spec_tokens_proposed=self.spec_tokens_proposed - sp0,
-                    spec_tokens_accepted=self.spec_tokens_accepted - sa0,
-                    spec_tokens_emitted=self.spec_tokens_emitted - se0,
-                )
+                    active = [i for i in range(B) if slots[i] is not None]
+                    scheduler.record_occupancy(
+                        free_slots=B - len(active),
+                        free_blocks=pool.free_blocks,
+                        reclaimable_blocks=pool.reclaimable_blocks if index is not None else None,
+                        # without the drafter's headroom a drafter OOM would not
+                        # show in the memory gauges
+                        draft_free_blocks=d_pool.free_blocks if spec else None,
+                    )
+                    report_prefix()
+                    scheduler.record_dispatch_stats(
+                        admit_dispatches=0,
+                        decode_dispatches=self.decode_dispatches - d0,
+                        mixed_dispatches=self.mixed_dispatches - m0,
+                        steps=steps,
+                        lifetime=self._dispatch_lifetime(),
+                        draft_dispatches=self.draft_dispatches - dr0,
+                        draft_fill_dispatches=self.draft_fill_dispatches - df0,
+                        spec_rounds=self.spec_rounds - sr0,
+                        spec_tokens_proposed=self.spec_tokens_proposed - sp0,
+                        spec_tokens_accepted=self.spec_tokens_accepted - sa0,
+                        spec_tokens_emitted=self.spec_tokens_emitted - se0,
+                    )
                 if not active:
                     if drain or scheduler.closed:
                         if scheduler.has_pending:
                             continue
                         return
-                    scheduler.wait_for_work()
+                    with trace.span("engine.wait"):
+                        scheduler.wait_for_work()
                     continue
 
                 fill_rows = [i for i in range(B) if fills[i] is not None]
@@ -1151,35 +1198,45 @@ class ServeEngine:
                     dec_pos = self._dev(ln_h + em_h - 1)
                     cur = st[0]
                     drafts = None
-                    if d_fill_rows:
-                        d_tok = np.zeros((B, W), np.int32)
-                        d_qs = np.zeros((B,), np.int32)
-                        d_ql = np.zeros((B,), np.int32)
-                        d_lanes = W
-                        for i in d_fill_rows:
-                            if d_lanes <= 0:
-                                break
-                            fl = d_fills[i]
-                            take = min(fl["length"] - fl["pos"], d_lanes)
-                            d_tok[i, :take] = fl["p"][fl["pos"] : fl["pos"] + take]
-                            d_qs[i], d_ql[i] = fl["pos"], take
-                            d_lanes -= take
-                            fl["pos"] += take
-                            if fl["pos"] >= fl["length"]:
-                                d_fills[i] = None
-                        drafts = self._draft_rows(
-                            self._dev(d_tok), self._dev(d_qs), self._dev(d_ql), cur, dec_pos,
-                            self._dev(d_tables_h), self._dev(d_dec_tab),
-                        )
-                        # a dispatch that only streams drafter prompt chunks
-                        # is admission cost (the drafter's prefill), not a round's
-                        if draft_ok:
-                            self.draft_dispatches += 1
-                        else:
-                            self.draft_fill_dispatches += 1
-                    elif draft_ok:
-                        drafts = self._draft_tokens(cur, dec_pos, self._dev(d_dec_tab))
-                        self.draft_dispatches += 1
+                    if d_fill_rows or draft_ok:
+                        with trace.span("engine.step", kind="draft") as sp:
+                            d_ql = np.zeros((B,), np.int32)
+                            if d_fill_rows:
+                                d_tok = np.zeros((B, W), np.int32)
+                                d_qs = np.zeros((B,), np.int32)
+                                d_lanes = W
+                                for i in d_fill_rows:
+                                    if d_lanes <= 0:
+                                        break
+                                    fl = d_fills[i]
+                                    take = min(fl["length"] - fl["pos"], d_lanes)
+                                    d_tok[i, :take] = fl["p"][fl["pos"] : fl["pos"] + take]
+                                    d_qs[i], d_ql[i] = fl["pos"], take
+                                    d_lanes -= take
+                                    fl["pos"] += take
+                                    if fl["pos"] >= fl["length"]:
+                                        d_fills[i] = None
+                                with trace.span("engine.launch"):
+                                    drafts = self._draft_rows(
+                                        self._dev(d_tok), self._dev(d_qs), self._dev(d_ql), cur, dec_pos,
+                                        self._dev(d_tables_h), self._dev(d_dec_tab),
+                                    )
+                                # a dispatch that only streams drafter prompt chunks
+                                # is admission cost (the drafter's prefill), not a round's
+                                if draft_ok:
+                                    self.draft_dispatches += 1
+                                else:
+                                    self.draft_fill_dispatches += 1
+                            else:
+                                with trace.span("engine.launch"):
+                                    drafts = self._draft_tokens(cur, dec_pos, self._dev(d_dec_tab))
+                                self.draft_dispatches += 1
+                            # the k-loop's q_len=1 steps run over every row, the
+                            # fill step (when there is one) over every lane
+                            rows = sorted(set(np.flatnonzero(d_ql).tolist()) | set(draft_ok))
+                            sp.attrs.update(rows=len(rows), rids=[slots[i].rid for i in rows],
+                                            lanes_live=int(d_ql.sum()) + (kd + 1) * len(draft_ok),
+                                            lanes_run=(B * W if d_fill_rows else 0) + B * (kd + 1), fill_lanes=0)
                     tok = np.zeros((B, W), np.int32)
                     q_start_h = np.zeros((B,), np.int32)
                     q_len_h = np.zeros((B,), np.int32)
@@ -1204,19 +1261,24 @@ class ServeEngine:
                         is_spec[i] = True
                         q_len_h[i] = v
                         lanes -= v
-                    take_fills(runnable, tok, q_start_h, q_len_h, row_len_h, b_new_h, lanes)
+                    fill = lanes - take_fills(runnable, tok, q_start_h, q_len_h, row_len_h, b_new_h, lanes)
                     st = mark_oom(st, oom)
                     if is_spec.any() or q_len_h.any():
-                        em_before = em_h.copy()
-                        st = self._spec_mixed_rows(
-                            st, self._dev(tok), self._dev(q_start_h), self._dev(q_len_h),
-                            self._dev(is_spec, torch.bool),
-                            drafts if drafts is not None else torch.zeros((B, kd), dtype=torch.int32, device=dev),
-                            self._dev(row_len_h), self._dev(b_new_h), self._dev(tables_h),
-                        )
+                        rows = np.flatnonzero(q_len_h).tolist()
+                        with trace.span("engine.step", kind="spec", rows=len(rows), rids=[slots[i].rid for i in rows],
+                                        lanes_live=int(q_len_h.sum()), lanes_run=B * W, fill_lanes=fill):
+                            em_before = em_h.copy()
+                            if drafts is None:
+                                drafts = torch.zeros((B, kd), dtype=torch.int32, device=dev)
+                            with trace.span("engine.launch"):
+                                st = self._spec_mixed_rows(
+                                    st, self._dev(tok), self._dev(q_start_h), self._dev(q_len_h),
+                                    self._dev(is_spec, torch.bool), drafts,
+                                    self._dev(row_len_h), self._dev(b_new_h), self._dev(tables_h),
+                                )
+                            em_h, dn_h = self._readback(st)
                         self.mixed_dispatches += 1
                         steps += 1
-                        em_h, dn_h = st[2].cpu().numpy().astype(np.int64), st[3].cpu().numpy().copy()
                         if is_spec.any():
                             committed = em_h[is_spec] - em_before[is_spec]
                             self.spec_tokens_emitted += int(committed.sum())
@@ -1226,62 +1288,77 @@ class ServeEngine:
                                 self.spec_rounds += 1
                 elif runnable:
                     # ---- ONE mixed dispatch: decode lanes + fill chunks ----
-                    tok = np.zeros((B, W), np.int32)
-                    q_start_h = np.zeros((B,), np.int32)
-                    q_len_h = np.zeros((B,), np.int32)
-                    is_dec = np.zeros((B,), bool)
-                    row_len_h = np.zeros((B,), np.int32)
-                    b_new_h = np.ones((B,), np.int32)
-                    oom = np.zeros((B,), bool)
-                    lanes = W
-                    for i in dec_rows:  # decode first: fills absorb the wait
-                        if lanes <= 0:
-                            break
-                        need = min(ln_h[i] + min(em_h[i] + 1, bu_h[i]) - 1, self._cache_len_padded)
-                        if not self._grow(i, need, oom, dn_h, oom_slots):
-                            continue
-                        is_dec[i] = True
-                        q_len_h[i] = 1
-                        lanes -= 1
-                    take_fills(runnable, tok, q_start_h, q_len_h, row_len_h, b_new_h, lanes)
-                    st = mark_oom(st, oom)
-                    st = self._mixed_rows(
-                        st, self._dev(tok), self._dev(q_start_h), self._dev(q_len_h),
-                        self._dev(is_dec, torch.bool), self._dev(row_len_h),
-                        self._dev(b_new_h), self._dev(tables_h),
-                    )
+                    with trace.span("engine.step", kind="mixed") as sp:
+                        tok = np.zeros((B, W), np.int32)
+                        q_start_h = np.zeros((B,), np.int32)
+                        q_len_h = np.zeros((B,), np.int32)
+                        is_dec = np.zeros((B,), bool)
+                        row_len_h = np.zeros((B,), np.int32)
+                        b_new_h = np.ones((B,), np.int32)
+                        oom = np.zeros((B,), bool)
+                        lanes = W
+                        for i in dec_rows:  # decode first: fills absorb the wait
+                            if lanes <= 0:
+                                break
+                            need = min(ln_h[i] + min(em_h[i] + 1, bu_h[i]) - 1, self._cache_len_padded)
+                            if not self._grow(i, need, oom, dn_h, oom_slots):
+                                continue
+                            is_dec[i] = True
+                            q_len_h[i] = 1
+                            lanes -= 1
+                        fill = lanes - take_fills(runnable, tok, q_start_h, q_len_h, row_len_h, b_new_h, lanes)
+                        rows = np.flatnonzero(q_len_h).tolist()
+                        sp.attrs.update(rows=len(rows), rids=[slots[i].rid for i in rows],
+                                        lanes_live=int(q_len_h.sum()), lanes_run=B * W, fill_lanes=fill)
+                        st = mark_oom(st, oom)
+                        with trace.span("engine.launch"):
+                            st = self._mixed_rows(
+                                st, self._dev(tok), self._dev(q_start_h), self._dev(q_len_h),
+                                self._dev(is_dec, torch.bool), self._dev(row_len_h),
+                                self._dev(b_new_h), self._dev(tables_h),
+                            )
+                        em_h, dn_h = self._readback(st)
                     self.mixed_dispatches += 1
                     steps += 1
-                    em_h, dn_h = st[2].cpu().numpy().astype(np.int64), st[3].cpu().numpy().copy()
                 elif dec_rows:
                     # no fill in flight: fused multi-step decode, one dispatch
-                    remaining = [int(bu_h[i] - em_h[i]) for i in dec_rows]
-                    n = max(1, min(max(remaining), scfg.sched_chunk))
-                    oom = np.zeros((B,), bool)
-                    for i in dec_rows:
-                        need = min(ln_h[i] + min(em_h[i] + n, bu_h[i]) - 1, self._cache_len_padded)
-                        self._grow(i, need, oom, dn_h, oom_slots)
-                    st = mark_oom(st, oom)
-                    st = self._decode_chunk(st, n, self._cache, self._dev(tables_h))
+                    with trace.span("engine.step", kind="decode", rows=len(dec_rows),
+                                    rids=[slots[i].rid for i in dec_rows]) as sp:
+                        remaining = [int(bu_h[i] - em_h[i]) for i in dec_rows]
+                        n = max(1, min(max(remaining), scfg.sched_chunk))
+                        oom = np.zeros((B,), bool)
+                        for i in dec_rows:
+                            need = min(ln_h[i] + min(em_h[i] + n, bu_h[i]) - 1, self._cache_len_padded)
+                            self._grow(i, need, oom, dn_h, oom_slots)
+                        st = mark_oom(st, oom)
+                        with trace.span("engine.launch"):
+                            st = self._decode_chunk(st, n, self._cache, self._dev(tables_h))
+                        em_before, (em_h, dn_h) = em_h, self._readback(st)
+                        sp.attrs.update(_decode_lanes(em_before, em_h, dec_rows, B))
                     self.decode_dispatches += 1
                     steps += 1
-                    em_h, dn_h = st[2].cpu().numpy().astype(np.int64), st[3].cpu().numpy().copy()
+                _stamp_first_tokens(slots, [i for i in active if fills[i] is None], em_h)
 
                 retired = [i for i in active if dn_h[i] and fills[i] is None and slots[i] is not None]
                 if retired:
-                    out_h = st[5].cpu().numpy()
-                    for i in retired:
-                        req = slots[i]
-                        ans = out_h[i, : int(em_h[i])].copy()
-                        scheduler.finish(req, ans, truncated=i in oom_slots)
-                        oom_slots.discard(i)
-                        slots[i] = None
-                        row_tables[i].release()
-                        tables_h[i, :] = self._trash_block
-                        if spec:
-                            drop_draft(i)
-                            d_broken[i] = False
-                        yield req.rid, ans
+                    done = []
+                    with trace.span("engine.retire", rids=[slots[i].rid for i in retired]):
+                        out_h = trace.to_host(st[5], "engine.retire").numpy()
+                        for i in retired:
+                            req = slots[i]
+                            ans = out_h[i, : int(em_h[i])].copy()
+                            scheduler.finish(req, ans, truncated=i in oom_slots)
+                            oom_slots.discard(i)
+                            slots[i] = None
+                            row_tables[i].release()
+                            tables_h[i, :] = self._trash_block
+                            if spec:
+                                drop_draft(i)
+                                d_broken[i] = False
+                            done.append((req.rid, ans))
+                    for rid, ans in done:
+                        with trace.span("stream.yield", rid=rid):
+                            yield rid, ans
         finally:
             # the pool and index outlive this call: an abandoned stream must
             # not leak owned blocks or unwritten chunk registrations into the

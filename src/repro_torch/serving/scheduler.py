@@ -71,6 +71,8 @@ from typing import Any
 
 import numpy as np
 
+from repro_torch.runtime import trace
+
 
 @dataclasses.dataclass
 class Request:
@@ -83,6 +85,7 @@ class Request:
     submitted_at: float = 0.0  # actual submit time: the expiry clock
     anchor_t0: float | None = None  # optional upstream anchor for latency_s only
     started_at: float | None = None  # slot admission time
+    first_token_at: float | None = None  # the engine's first readback that shows a token
     finished_at: float | None = None
     answer: np.ndarray | None = None
     status: str = "queued"  # queued | active | done | expired
@@ -118,6 +121,31 @@ def _broadcast(values, n: int, what: str) -> list:
             )
         return out
     return [values] * n
+
+
+def _attrs(req: Request) -> dict:
+    return dict(rid=req.rid, tag=req.tag, prompt=0 if req.tokens is None else len(req.tokens))
+
+
+def mark_first_token(req: Request, at: float) -> None:
+    """Stamp ``first_token_at`` and file the request's queue wait and
+    prefill (admission to first token) as spans of the recorder, so a
+    request that has its first token counts whether or not it finishes."""
+    req.first_token_at = at
+    attrs = _attrs(req)
+    trace.record("request.queued", req.submitted_at, req.started_at, **attrs)
+    trace.record("request.prefill", req.started_at, at, **attrs)
+
+
+def _record_finish(req: Request) -> None:
+    """A finished request's decode (first token to finish) as a span; its
+    queue wait alone where it finished with no first token."""
+    if req.started_at is None:  # never admitted
+        return
+    if req.first_token_at is None:
+        trace.record("request.queued", req.submitted_at, req.started_at, **_attrs(req))
+    else:
+        trace.record("request.decode", req.first_token_at, req.finished_at, answer=len(req.answer), **_attrs(req))
 
 
 def _percentiles(reqs) -> dict:
@@ -392,6 +420,7 @@ class Scheduler:
         req.deadlocked = deadlocked
         req.finished_at = time.monotonic()
         req.answer = np.asarray(answer)
+        _record_finish(req)
         with self._cond:
             self.results[req.rid] = req
             self._cond.notify_all()  # wake drain() waiters

@@ -28,6 +28,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.runtime import trace  # noqa: E402
 from repro_torch.runtime.compat import make_mesh  # noqa: E402
 from repro_torch.runtime.sharding import PartitionSpec as P, ShardingPolicy, base_rules, make_policy  # noqa: E402
 
@@ -191,19 +192,23 @@ def test_rows_in_no_group_are_zeros_on_poisoned_memory(ref):
             assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(aux))
 
 
+def _group_size_syncs() -> int:
+    return trace.counters().get("moe.group_sizes", 0)
+
+
 @pytest.mark.parametrize("impl", ["psum", "a2a"])
 def test_expert_loop_syncs_once_per_model_shard_per_data_shard(ref, impl):
     p = _tree(ref, "p0")
-    before = MOE.host_syncs
+    before = _group_size_syncs()
     MOE.moe_apply(_cfg(1.5, impl), p, torch.as_tensor(ref["x"]), pol=_pol())
-    assert MOE.host_syncs - before == 8
+    assert _group_size_syncs() - before == 8
     # a batch smaller than the data axis: every data row holds the same tokens,
     # computed once (psum) -- a2a still splits them over the model axis
     mesh = make_mesh(["cpu"] * 8, ("data", "model"), shape=(2, 4))
     pol = make_policy(mesh, global_batch=1)
-    before = MOE.host_syncs
+    before = _group_size_syncs()
     out, _ = MOE.moe_apply(_cfg(1.5, impl), p, torch.as_tensor(ref["x"][:1]), pol=pol)
-    assert MOE.host_syncs - before == 4 and bool(torch.isfinite(out).all())
+    assert _group_size_syncs() - before == 4 and bool(torch.isfinite(out).all())
 
 
 def test_moe_param_specs():

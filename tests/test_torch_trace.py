@@ -1,0 +1,199 @@
+"""The port's flight recorder (``repro_torch/runtime/trace.py``): the ring,
+the span tree and its sync counts; and what the serving path records on a
+tiny CPU engine: each mixed step's lanes add up to the engine's computed
+prefill tokens, a decode chunk of n tokens checks its stop at most n
+times, every request's first token lies between its admission and its
+finish on the paged, speculative and contiguous paths and is filed before
+the request finishes, and the profiler
+sees the program's spans only with the mirror on; and how
+``launch/profile_serve.py`` names the device's idle gaps."""
+import threading
+import time
+import types
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.launch.profile_serve import idle_by_span
+from repro_torch.models import lm as LM
+from repro_torch.models.params import init_params
+from repro_torch.runtime import trace
+from repro_torch.serving.engine import ServeConfig, ServeEngine
+from repro_torch.serving.scheduler import Scheduler
+
+B, WIDTH, BUDGET = 3, 32, 12
+
+
+def _engine(arch="qwen3-0.6b", **kw):
+    cfg = smoke_config(get_config(arch))
+    params = init_params(LM.param_specs(cfg), torch.Generator().manual_seed(0), device="cpu")
+    scfg = ServeConfig(max_batch=B, max_prompt_len=WIDTH, max_new_tokens=6, **kw)
+    return ServeEngine(cfg, params, scfg, device="cpu")
+
+
+def _prompts(n=7, seed=0):
+    """Ragged prompts, every other one sharing a 16-token prefix."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(8, 256, size=16)
+    return [np.concatenate([shared, rng.integers(8, 256, size=rng.integers(1, 12))]) if i % 2
+            else rng.integers(8, 256, size=rng.integers(3, 30)) for i in range(n)]
+
+
+def _serve(eng, prompts, budgets=(6, 1, 4, 2, 6, 3, 5)):
+    t0 = time.monotonic()
+    sched = Scheduler()
+    sched.submit_many(prompts, list(budgets[: len(prompts)]))
+    eng.serve(sched)
+    return sched, [s for s in trace.spans(t0) if s.thread == threading.get_ident()]
+
+
+def test_the_ring_holds_its_capacity():
+    rec = trace.Recorder(capacity=4)
+    ids = [rec.record("x", float(i), float(i) + 0.5, i=i) for i in range(10)]
+    kept = rec.spans()
+    assert len(kept) == 4 and [s.id for s in kept] == ids[-4:] and [s.attrs["i"] for s in kept] == [6, 7, 8, 9]
+    assert [s.attrs["i"] for s in rec.spans(7.0, 9.0)] == [7, 8]
+
+
+def test_spans_nest_and_count_the_reads_inside_them():
+    rec = trace.Recorder()
+    x = torch.arange(4)
+    with rec.span("outer", a=1) as outer:
+        with rec.span("inner") as inner:
+            y = rec.to_host(x, "site.a", copy=True)
+        assert rec.to_host(x, "site.b") is x  # already on the host
+        rec.count("site.b", 2)
+    with rec.span("after") as after:
+        pass
+    assert inner.parent == outer.id and outer.parent is None and after.parent is None
+    assert inner.attrs == {"syncs": 1} and outer.attrs == {"a": 1, "syncs": 2} and after.attrs == {}
+    assert rec.counters() == {"site.a": 1, "site.b": 3}
+    assert outer.start <= inner.start <= inner.end <= outer.end
+    x[0] = 7
+    assert int(y[0]) == 0  # asked for a copy: no alias, even on the CPU
+    assert [s.name for s in rec.spans()] == ["inner", "outer", "after"] and rec.names() == {"inner", "outer", "after"}
+
+
+def test_mixed_steps_fill_lanes_add_up_to_the_computed_prefill():
+    eng = _engine(paged=True, block_size=4, prefix_cache=True, token_budget=BUDGET)
+    prompts = _prompts()
+    for _ in range(2):  # the second serve finds the prefixes cached
+        pt, ps = eng.prefill_tokens_total, eng.prefill_tokens_saved
+        _, spans = _serve(eng, prompts)
+        steps = [s for s in spans if s.name == "engine.step"]
+        mixed = [s for s in steps if s.attrs["kind"] == "mixed"]
+        assert mixed and all(s.attrs["lanes_run"] == B * BUDGET for s in mixed)
+        assert all(0 <= s.attrs["fill_lanes"] <= s.attrs["lanes_live"] <= s.attrs["lanes_run"] for s in steps)
+        assert sum(s.attrs["fill_lanes"] for s in steps) == (eng.prefill_tokens_total - pt) - (
+            eng.prefill_tokens_saved - ps)
+    assert eng.prefill_tokens_saved > 0
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_a_decode_chunk_checks_its_stop_at_most_once_a_token(paged):
+    eng = _engine(paged=paged, sched_chunk=4, **({"block_size": 8} if paged else {}))
+    calls = []
+    inner = eng._decode_chunk
+
+    def counted(st, n, *a, **kw):
+        c0 = trace.counters().get("engine.decode_stop", 0)
+        out = inner(st, n, *a, **kw)
+        calls.append((n, trace.counters()["engine.decode_stop"] - c0))
+        return out
+
+    eng._decode_chunk = counted
+    _, spans = _serve(eng, _prompts(5), budgets=(6, 6, 5, 6, 4))
+    decode = [s for s in spans if s.name == "engine.step" and s.attrs["kind"] == "decode"]
+    assert len(decode) == len(calls) > 0
+    for s, (n, checks) in zip(decode, calls):
+        stepped = s.attrs["lanes_run"] // B
+        assert checks <= n and stepped <= checks <= stepped + 1  # one check a step, and the one that stops
+        assert s.attrs["lanes_live"] <= s.attrs["lanes_run"] and s.attrs["syncs"] >= checks + 2
+
+
+@pytest.mark.parametrize("kw", [dict(paged=True, block_size=8, token_budget=BUDGET),
+                                dict(paged=True, block_size=8, token_budget=BUDGET, draft_k=2),
+                                dict(paged=False)], ids=["paged", "spec", "contiguous"])
+def test_first_token_lies_between_admission_and_finish(kw):
+    sched, spans = _serve(_engine(**kw), _prompts())
+    reqs = list(sched.results.values())
+    assert len(reqs) == 7
+    for r in reqs:
+        assert r.submitted_at <= r.started_at <= r.first_token_at <= r.finished_at, r
+    for name in ("request.queued", "request.prefill", "request.decode"):
+        assert sorted(s.attrs["rid"] for s in spans if s.name == name) == sorted(r.rid for r in reqs)
+    steps = [s for s in spans if s.name == "engine.step"]
+    assert steps and all(s.parent is None for s in steps)
+    assert {s.name for s in spans if s.parent in {st.id for st in steps}} == {"engine.launch", "engine.readback"}
+
+
+def test_a_request_files_its_first_token_before_it_finishes():
+    eng = _engine(paged=True, block_size=8, token_budget=BUDGET, sched_chunk=2)
+    t0 = time.monotonic()
+    sched = Scheduler()
+    reqs = [sched.submit(p, max_new_tokens=b) for p, b in zip(_prompts(), (6, 1, 4, 2, 6, 3, 5))]
+    stream = eng.serve_stream(sched, drain=True)
+    rid, _ = next(stream)  # the first request done, the others still decoding
+    spans = [s for s in trace.spans(t0) if s.thread == threading.get_ident()]
+    stream.close()
+    filed = {name: {s.attrs["rid"] for s in spans if s.name == name}
+             for name in ("request.queued", "request.prefill", "request.decode")}
+    assert filed["request.decode"] == {rid} and filed["request.queued"] == filed["request.prefill"] <= set(reqs)
+    assert len(filed["request.prefill"]) > 1  # requests with a first token that did not finish count too
+
+
+def _profiled(eng, prompts):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _serve(eng, prompts)
+    return prof.events()
+
+
+def test_the_profiler_sees_the_spans_only_through_the_mirror():
+    eng = _engine("qwen2-moe-a2.7b", paged=True, block_size=8, token_budget=BUDGET)
+    prompts = _prompts(4)
+    _serve(eng, prompts)  # warm
+    off = _profiled(eng, prompts)
+    assert {e.name for e in off if e.is_user_annotation} == {"moe_expert_loop"}
+    d0 = eng.mixed_dispatches + eng.decode_dispatches
+    trace.mirror(True)
+    try:
+        on = _profiled(eng, prompts)
+    finally:
+        trace.mirror(False)
+    steps = [e for e in on if e.name == "engine.step"]
+    assert len(steps) == eng.mixed_dispatches + eng.decode_dispatches - d0
+    assert {e.name for e in on if e.is_user_annotation} <= trace.names() | {"moe_expert_loop"}
+
+    def under(e, name):
+        while e is not None and e.name != name:
+            e = e.cpu_parent
+        return e
+
+    dispatched = [e for e in on if e.name.startswith("aten::") and under(e, "engine.launch") is not None]
+    assert dispatched and all(under(e, "engine.step") is not None for e in dispatched)
+    for s in steps:  # each step's range holds the ops its dispatch issued
+        ops = [e for e in dispatched if under(e, "engine.step") is s]
+        assert ops and all(s.time_range.start <= e.time_range.start <= e.time_range.end <= s.time_range.end
+                           for e in ops)
+
+
+def _ev(name, start, end, dev="CPU"):
+    tr = types.SimpleNamespace(start=start, end=end, elapsed_us=lambda: end - start)
+    return types.SimpleNamespace(name=name, device_type=types.SimpleNamespace(name=dev), time_range=tr)
+
+
+def test_idle_gaps_go_to_the_innermost_span_covering_half():
+    kernels = [_ev(f"k{i}", a, a + 10, "CUDA") for i, a in enumerate((0, 20, 50, 100))]
+    ranges = [_ev("engine.step", 0, 110, "CUDA"), _ev("moe_expert_loop", 0, 110, "CUDA"),  # no device work
+              _ev("engine.readback", 9, 14), _ev("engine.step", 12, 48), _ev("engine.retire", 31, 49),
+              _ev("engine.launch", 40, 49), _ev("engine.wait", 70, 80)]
+    gaps, covered = idle_by_span(kernels + ranges, {"engine.step", "engine.readback", "engine.retire",
+                                                    "engine.launch", "engine.wait"})
+    # (10, 20): the step covers 8; (30, 50): the retire's 18 of its 18 beat the step's;
+    # (60, 100): nothing covers half, the wait covers most
+    assert gaps == [(10, "engine.step"), (20, "engine.retire"), (40, "engine.wait")]
+    assert covered == 10 + 19 + 10
+    assert idle_by_span(kernels, set()) == ([(10, "no span"), (20, "no span"), (40, "no span")], 0.0)
