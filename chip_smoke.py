@@ -40,7 +40,14 @@ only when every phase passed):
               paged_decode (f32 and bf16), bf16 flash_attention,
               retrieval_topk (scores and ids, f32 and bf16) and ssd_chunk
               (f32 and bf16) must give outputs bitwise equal to the
-              parent's build.  Then, at qwen2-moe-a2.7b's heads (H = KV =
+              parent's build.  mixed_prefill is checked and timed in the
+              packed form the serving path launches (q (N, H, dh), a lane
+              offset a row), bitwise equal to the padded form over the same
+              rows: at the step's mix above, the warm admission and
+              qwen3-4b's admission step (32 / 8 heads of 128, one fill of
+              1,057 lanes beside 31 decode rows: the kernels line's row);
+              the padded form is timed at the step's mix as an extra row.
+              Then, at qwen2-moe-a2.7b's heads (H = KV =
               16, one query head per KV head), mixed prefill at the step's
               mix above, paged decode, the causal admit prefill and
               flash-decode, checked and timed the same way; and verify rows
@@ -64,7 +71,9 @@ only when every phase passed):
               to the parent's build;
 4. paged      ``CFedRAGSystem.serve`` on 16 queries at the full width of
               qwen3-0.6b (28 layers, bf16, random weights from a seed) on
-              the paged engine with the bag embedder; then retrieval
+              the paged engine with the bag embedder, its first mixed
+              dispatch's packed descriptors and tables recorded and
+              mixed prefill checked and timed at them; then retrieval
               against the CPU run of the same system and a smoke-width
               model against its CPU run;
 5. paper      the same serve with the paper's models at full width:
@@ -114,7 +123,9 @@ only when every phase passed):
               width (36 layers) served plain, then over the same parameter
               tensors with draft_k = 3 and a qwen3-0.6b drafter of another
               seed: tokens equal but at rounding ties, the accept rate
-              printed; (c) smoke width, f32: spec == plain, token for token,
+              printed, and four queries' first-token top-2 gaps beside how
+              far the step's shapes alone move those logits (the row alone,
+              beside companion rows, and chunked); (c) smoke width, f32: spec == plain, token for token,
               with and without the prefix cache;
 12. moe       the phase-4 federation serving qwen2-moe-a2.7b at full width
               (24 layers, d_model 2048, 16/16 heads of 128, 60 experts
@@ -155,8 +166,9 @@ only when every phase passed):
               exchange's host seconds; one rank_loss step of
               bge-reranker-base;
 17. sharded   the sharded paths with every shard on the one card
-              (``mesh=``): mixed_prefill's partials kernel at the phase-3
-              step's mix with an ``owned`` mask split row-affine over 4
+              (``mesh=``): mixed_prefill's partials kernel, packed, at the
+              phase-3 step's mix (bitwise the padded form's lanes) with an
+              ``owned`` mask split row-affine over 4
               shards against its plain version (m, l and o / l at the
               dtype's tolerance), the 4 shards' partials combined bitwise
               equal to 1 shard's, the rows of other shards exact zeros with
@@ -594,50 +606,87 @@ def read_launches(what: str, need) -> dict:
     return got
 
 
-def mixed_prefill_row(torch, timer, gen, desc_h: list, tables, n_pool: int, h: int, kv: int, dtype: str,
-                      label: str) -> dict:
-    """``mixed_prefill`` at the descriptors ``desc_h`` ((slot, q_start,
-    q_len, kv_len) by row) over a random pool of ``n_pool`` blocks of 32
-    positions and ``tables``, R = 8 rows of W = 256 lanes, ``h`` query and
-    ``kv`` KV heads of 128: checked against its plain version (dead lanes
-    exactly 0), then timed beside the plain version and SDPA over the
-    gathered views, with its bound from what these descriptors need."""
+def packed_row(torch, timer, gen, desc_h: list, tables, kp, vp, h: int, label: str, tables_host=None,
+               parent=None) -> dict:
+    """``mixed_prefill`` in the packed form the serving path launches, over
+    the rows of ``desc_h``: (slot, q_start, q_len, kv_len, q_off) as a step
+    hands them to the kernel, or (slot, q_start, q_len, kv_len), whose rows
+    with lanes are then packed back to back in order.  q (N, ``h``, dh)
+    drawn from ``gen``; pools ``kp`` / ``vp`` and ``tables`` as given.
+    Checked against its plain version (tolerance of the dtype) and bitwise
+    against the padded form over the same rows (q (R, W, H, dh), W the
+    longest row), then timed beside the plain version, SDPA over the
+    padded views (library), the padded form (``padded_ms``) and, with
+    ``parent``, the parent's padded build; the bound is what the packed
+    descriptors need (with ``tables_host``, an aliased position read
+    once)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.chunked_prefill import ops as cp
 
     dev = torch.device("cuda")
-    r, w, dh, bs = len(desc_h), 256, 128, 32
-    tdt = getattr(torch, dtype)
-    desc = torch.tensor(desc_h, dtype=torch.int32, device=dev)
-    q = torch.randn(r, w, h, dh, generator=gen, device=dev).to(tdt)
-    kp = torch.randn(n_pool, bs, kv, dh, generator=gen, device=dev).to(tdt)
-    vp = torch.randn(n_pool, bs, kv, dh, generator=gen, device=dev).to(tdt)
-    o = cp.mixed_prefill_attention(q, kp, vp, tables, desc)
-    err = (o.float() - cp.mixed_prefill_attention_plain(q, kp, vp, tables, desc).float()).abs().max().item()
-    check(f"mixed_prefill {label} H={h} KV={kv} {dtype}", err, dtype)
+    rows4 = [tuple(int(x) for x in d[:4]) for d in desc_h if d[2] > 0]
+    if len(desc_h[0]) == 5:
+        offs = [int(d[4]) for d in desc_h if d[2] > 0]
+    else:
+        offs = [sum(d[2] for d in rows4[:i]) for i in range(len(rows4))]
+    d5_h = [(*d, o) for d, o in zip(rows4, offs)]
+    n = max(o + d[2] for d, o in zip(rows4, offs))
+    r, w, dh, bs, kv = len(rows4), max(d[2] for d in rows4), kp.shape[3], kp.shape[1], kp.shape[2]
+    d4 = torch.tensor(rows4, dtype=torch.int32, device=dev)
+    d5 = torch.tensor(d5_h, dtype=torch.int32, device=dev)
+    q = torch.randn(n, h, dh, generator=gen, device=dev).to(kp.dtype)
+    o = cp.mixed_prefill_attention(q, kp, vp, tables, d5)
+    err = (o.float() - cp.mixed_prefill_attention_plain(q, kp, vp, tables, d5).float()).abs().max().item()
+    dtype = str(kp.dtype).removeprefix("torch.")
+    check(f"mixed_prefill packed, {label} {dtype}", err, dtype)
+    # the padded form over the same rows: row i's lanes at i * w
+    at_r = torch.tensor([i for i, d in enumerate(rows4) for _ in range(d[2])], device=dev)
+    at_j = torch.tensor([j for d in rows4 for j in range(d[2])], device=dev)
+    at_n = torch.tensor([o_ + j for d, o_ in zip(rows4, offs) for j in range(d[2])], device=dev)
+    qp = torch.zeros((r, w, h, dh), dtype=q.dtype, device=dev)
+    qp[at_r, at_j] = q[at_n]
+    op = cp.mixed_prefill_attention(qp, kp, vp, tables, d4)
+    if not torch.equal(op[at_r, at_j], o[at_n]):
+        fail(f"mixed_prefill packed, {label}: lanes differ from the padded form's over the same rows")
+    print(f"  mixed_prefill packed, {label}: N={n} lanes in {r} rows, bitwise equal to the padded form's "
+          f"(W={w})", flush=True)
+    tbl = tables.long()[d4[:, 0].long()]
+    s_pad = tbl.shape[1] * bs
     lane = torch.arange(w, device=dev)
-    if not bool((o[lane[None, :] >= desc[:, 2:3]] == 0).all()):
-        fail(f"mixed_prefill {label}: dead lanes are not exactly 0")
-    s_pad = tables.shape[1] * bs
     kpos = torch.arange(s_pad, device=dev)
-    qpos = desc[:, 1:2] + lane[None, :]
-    mask = (kpos[None, None, :] <= qpos[:, :, None]) & (kpos[None, None, :] < desc[:, 3, None, None])
+    qpos = d4[:, 1:2] + lane[None, :]
+    mask = (kpos[None, None, :] <= qpos[:, :, None]) & (kpos[None, None, :] < d4[:, 3, None, None])
     mask = (mask | (kpos[None, None, :] == 0))[:, None]  # keeps dead lanes finite
-    kv_k = kp[tables.long()].reshape(r, s_pad, kv, dh).permute(0, 2, 1, 3)
-    kv_v = vp[tables.long()].reshape(r, s_pad, kv, dh).permute(0, 2, 1, 3)
-    qt = q.permute(0, 2, 1, 3)
-    b_ms, b_by = bound_of(cp.cost(q, kp, vp, tables, desc, desc_host=desc_h))
-    return dict(
+    kv_k = kp[tbl].reshape(r, s_pad, kv, dh).permute(0, 2, 1, 3)
+    kv_v = vp[tbl].reshape(r, s_pad, kv, dh).permute(0, 2, 1, 3)
+    qt = qp.permute(0, 2, 1, 3)
+    b_ms, b_by = bound_of(cp.cost(q, kp, vp, tables, d5, desc_host=d5_h, tables_host=tables_host))
+    row = dict(
         **timer.turns(dict(
-            ms=lambda: cp.mixed_prefill_attention(q, kp, vp, tables, desc),
-            plain_ms=lambda: cp.mixed_prefill_attention_plain(q, kp, vp, tables, desc),
+            ms=lambda: cp.mixed_prefill_attention(q, kp, vp, tables, d5),
+            plain_ms=lambda: cp.mixed_prefill_attention_plain(q, kp, vp, tables, d5),
             library_ms=lambda: F.scaled_dot_product_attention(qt, kv_k, kv_v, attn_mask=mask, enable_gqa=True),
+            padded_ms=lambda: cp.mixed_prefill_attention(qp, kp, vp, tables, d4),
+            parent_ms=parent and (lambda: parent.mixed_prefill(qp, kp, vp, tables, d4)),
         )),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-        shape=f"{label}: R={r} W={w} H={h} KV={kv} dh={dh} bs={bs}, (q_start, q_len, kv_len) "
-              f"{[d[1:] for d in desc_h]} {dtype}",
+        shape=f"packed, {label}: N={n} R={r} H={h} KV={kv} dh={dh} bs={bs}, (q_start, q_len, kv_len) "
+              f"{[d[1:] for d in rows4] if r <= 8 else f'{r} rows, q_len {sorted({d[2] for d in rows4})}'} {dtype}",
     )
+    del qp, kv_k, kv_v, qt, mask
+    return row
+
+
+def mixed_prefill_row(torch, timer, gen, desc_h: list, tables, n_pool: int, h: int, kv: int, dtype: str,
+                      label: str, bs: int = 32, dh: int = 128) -> dict:
+    """``packed_row`` at the descriptors ``desc_h`` over a random pool of
+    ``n_pool`` blocks of ``bs`` positions of ``kv`` KV heads of ``dh``."""
+    dev = torch.device("cuda")
+    tdt = getattr(torch, dtype)
+    kp = torch.randn(n_pool, bs, kv, dh, generator=gen, device=dev).to(tdt)
+    vp = torch.randn(n_pool, bs, kv, dh, generator=gen, device=dev).to(tdt)
+    return packed_row(torch, timer, gen, desc_h, tables, kp, vp, h, f"{label} H={h} KV={kv}")
 
 
 def verify_lanes_check(torch, gen, h: int, kv: int, dtype: str) -> None:
@@ -925,7 +974,7 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         kv_v = vp[tables.long()].reshape(R, s_pad, KV, DH).permute(0, 2, 1, 3)
         qt = q.permute(0, 2, 1, 3)
         b_ms, b_by = bound_of(cp.cost(q, kp, vp, tables, desc, desc_host=desc_h))
-        rows["mixed_prefill", dtype] = dict(
+        rows["mixed_prefill", dtype, "padded"] = dict(
             **timer.turns(dict(
                 ms=lambda: cp.mixed_prefill_attention(q, kp, vp, tables, desc),
                 plain_ms=lambda: cp.mixed_prefill_attention_plain(q, kp, vp, tables, desc),
@@ -933,8 +982,10 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
                 parent_ms=parent and (lambda: parent.mixed_prefill(q, kp, vp, tables, desc)),
             )),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            shape=f"R={R} W={W} H={H} KV={KV} dh={DH} bs={BS} n_t={NT} {dtype}",
+            shape=f"padded (no serving path launches it): R={R} W={W} H={H} KV={KV} dh={DH} bs={BS} n_t={NT} {dtype}",
         )
+        rows["mixed_prefill", dtype, "step mix"] = packed_row(torch, timer, gen, desc_h, tables, kp, vp, H,
+                                                              "the step's mix above", parent=parent)
         b_ms, b_by = bound_of(da.paged_cost(qd, kp, vp, tables, lens, lengths_host=lens_h))
         rows["paged_decode", dtype] = dict(
             **timer.turns(dict(
@@ -978,9 +1029,6 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
     desc_w = torch.tensor(desc_w_h, dtype=torch.int32, device=dev)
     # K/V the rows need, each pool position read once however many rows alias it
     kv_pos = {(int(tables_w[r, p // BS]), p % BS) for r, _, _, kl in desc_w_h for p in range(kl)}
-    qpos_w = desc_w[:, 1:2] + lane[None, :]
-    mask_w = (kpos[None, None, :] <= qpos_w[:, :, None]) & (kpos[None, None, :] < desc_w[:, 3, None, None])
-    mask_w = (mask_w | (kpos[None, None, :] == 0))[:, None]
     print(f"  mixed_prefill warm admission: (q_start, q_len, kv_len) by row "
           f"{[d[1:] for d in desc_w_h]}, {len(kv_pos)} distinct K/V positions for "
           f"{sum(d[3] for d in desc_w_h)} read", flush=True)
@@ -1007,24 +1055,26 @@ def kernel_phase(torch, timer, parent: Parent | None) -> dict:
         print(f"  mixed_prefill warm admission {dtype}: dead lanes exactly 0; every suffix lane bitwise equal to "
               f"its position prefilled cold from 0", flush=True)
         del qc, oc
-        kv_k = kp[tables_w.long()].reshape(R, s_pad, KV, DH).permute(0, 2, 1, 3)
-        kv_v = vp[tables_w.long()].reshape(R, s_pad, KV, DH).permute(0, 2, 1, 3)
-        qt = q.permute(0, 2, 1, 3)
-        # K/V the rows need, each pool position read once however many rows alias it
-        b_ms, b_by = bound_of(cp.cost(q, kp, vp, tables_w, desc_w, desc_host=desc_w_h,
-                                      tables_host=tables_w.tolist()))
-        rows["mixed_prefill", dtype, "warm"] = dict(
-            **timer.turns(dict(
-                ms=lambda: cp.mixed_prefill_attention(q, kp, vp, tables_w, desc_w),
-                plain_ms=lambda: cp.mixed_prefill_attention_plain(q, kp, vp, tables_w, desc_w),
-                library_ms=lambda: F.scaled_dot_product_attention(qt, kv_k, kv_v, attn_mask=mask_w, enable_gqa=True),
-                parent_ms=parent and (lambda: parent.mixed_prefill(q, kp, vp, tables_w, desc_w)),
-            )),
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            shape=f"warm admission: R={R} W={W} H={H} KV={KV} dh={DH} bs={BS}, q_len 1-31, kv_len to 288, "
-                  f"aliased table entries {dtype}",
-        )
-        del q, kp, vp, kv_k, kv_v, qt
+        rows["mixed_prefill", dtype, "warm"] = packed_row(torch, timer, gen, desc_w_h, tables_w, kp, vp, H,
+                                                          "warm admission, aliased table entries",
+                                                          tables_host=tables_w.tolist(), parent=parent)
+        del q, kp, vp
+
+    # ---- packed mixed_prefill at qwen3-4b's admission step ----
+    # the benchmark's qwen3-4b cells (32 slots, token_budget 1,088): one
+    # fill of 1,057 lanes from position 0 beside 31 decode rows, 1,088
+    # lanes; H = 32, KV = 8, dh = 128, tables of 35 blocks of 32
+    B4, NT4, H4 = 32, 35, 32
+    n_pool4 = B4 * NT4 + 1
+    tables4 = torch.randperm(n_pool4 - 1, generator=torch.Generator().manual_seed(SEED))[: B4 * NT4]
+    tables4 = tables4.reshape(B4, NT4).to(torch.int32).to(dev)
+    desc4_h = [(0, 0, 1057, 1057)] + [(r, 1057 + (37 * r) % 63, 1, 1058 + (37 * r) % 63) for r in range(1, B4)]
+    kp = torch.randn(n_pool4, BS, KV, DH, generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn(n_pool4, BS, KV, DH, generator=gen, device=dev).to(torch.bfloat16)
+    rows["mixed_prefill", "bfloat16", "qwen3-4b admission"] = packed_row(
+        torch, timer, gen, desc4_h, tables4, kp, vp, H4, "qwen3-4b's admission step, one fill of 1,057 lanes "
+        "beside 31 decode rows (q_start 1,057-1,119)", parent=parent)
+    del kp, vp
 
     # ---- dense flash attention at the path shapes ----
     flash_cases = [
@@ -1527,31 +1577,59 @@ def small_model(torch, vocab: int, arch: str = "qwen3-0.6b"):
     return small, p_cpu, map_tree(lambda t: t.to("cuda"), p_cpu)
 
 
-def paged_phase(torch, smi: str) -> tuple[dict, list]:
+def one_row_step(torch, cfg, params, seq, cache, tables, bs: int, n_read: int, mesh=None, q_start: int = 0):
+    """``lm.mixed_step`` over one row carrying all of ``seq`` (1, n) from
+    position ``q_start`` through ``tables`` (1, n_t), its last ``n_read``
+    lanes read: logits (n_read, V)."""
+    from repro_torch.models import lm as LM
+
+    host = LM.pack_lanes([q_start], [seq.shape[1]], [n_read], tables.cpu().numpy(), bs)
+    lanes = LM.Lanes(*(torch.as_tensor(host[f], device=seq.device) for f in LM.Lanes._fields))
+    return LM.mixed_step(cfg, params, seq[0], cache, tables, lanes, **({} if mesh is None else {"mesh": mesh}))
+
+
+def paged_phase(torch, smi: str, timer, rows: dict) -> tuple[dict, list]:
     import numpy as np
 
     from repro_torch.launch.serve import full_width_system
     from repro_torch.models import lm as LM
     from repro_torch.serving.engine import ServeConfig, ServeEngine
 
-    # qwen3-0.6b at full width, 28 layers, bf16 activations and pool
+    # qwen3-0.6b at full width, 28 layers, bf16 activations and pool; the
+    # serve's first mixed dispatch's packed descriptors and tables are
+    # recorded for the kernel row
     sys_, engine, texts = full_width_system(16, "cuda", SEED)
     cfg, scfg = engine.cfg, engine.scfg
+    sys_.serve(texts[:2], max_new_tokens=2)  # warm-up, before the recorder
+    first: dict = {}
+    step = engine._mixed_rows
+
+    def record(st, d, drafts=None):
+        if not first:
+            first["desc"], first["tables"] = d["desc"].tolist(), d["tables"].clone()
+        return step(st, d, drafts)
+
+    engine._mixed_rows = record
     results, launches = serve_phase(
         torch, smi, sys_, engine, texts, "paged qwen3-0.6b full width bf16, bag embedder",
-        ("retrieval_topk", "mixed_prefill", "paged_decode"),
+        ("retrieval_topk", "mixed_prefill", "paged_decode"), warm_up=False,
     )
+    engine._mixed_rows = step
+    print(f"  the first mixed dispatch: (q_start, q_len, kv_len, q_off) by row {[d[1:] for d in first['desc']]}",
+          flush=True)
+    rows["mixed_prefill", "bfloat16", "first mixed"] = row = mixed_prefill_row(
+        torch, timer, torch.Generator(device="cuda").manual_seed(SEED), first["desc"], first["tables"],
+        engine._n_pool_blocks + 1, cfg.n_heads, cfg.n_kv_heads, "bfloat16", "the paged serve's first mixed dispatch",
+        scfg.block_size, cfg.resolved_head_dim)
+    print_row("mixed_prefill", row)
 
     # logits of the full-width model on the first prompt: finite, right shape
     prompt = torch.as_tensor(np.asarray(results[0]["prompt"]).reshape(1, -1), device="cuda")
     bpp = -(-prompt.shape[1] // scfg.block_size)
     cache = LM.init_paged_cache(cfg, bpp + 1, scfg.block_size, dtype=torch.bfloat16, device="cuda")
     tables = torch.arange(bpp, dtype=torch.int32, device="cuda")[None, :]
-    logits = LM.mixed_step(
-        cfg, engine.params, prompt, cache, tables, torch.tensor([0], device="cuda"),
-        torch.tensor([prompt.shape[1]], device="cuda"), scfg.block_size,
-    )
-    if tuple(logits.shape) != (1, prompt.shape[1], cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+    logits = one_row_step(torch, cfg, engine.params, prompt, cache, tables, scfg.block_size, prompt.shape[1])
+    if tuple(logits.shape) != (prompt.shape[1], cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         fail(f"full-width logits: shape {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
     print(f"  full-width logits {tuple(logits.shape)} all finite", flush=True)
     del cache, logits
@@ -1720,18 +1798,47 @@ def mamba2_phase(torch, smi: str) -> dict:
 # --------------------------------------------------------------------- #
 
 
+def beside_step(torch, cfg, params, seq, bs: int, rows, mesh=None):
+    """``lm.mixed_step`` with ``seq`` (1, n) from position 0 as the first
+    row, its last lane read, beside companion ``rows`` of (q_len, n_read)
+    (``seq``'s tokens over again, each row from position 0 in blocks of its
+    own, its last ``n_read`` lanes read), so that the step packs N = n +
+    the companions' lanes through the layers' matmuls and 1 + their reads
+    through the head's: the first row's logits (V,)."""
+    from repro_torch.models import lm as LM
+
+    q_len = [seq.shape[1]] + [q for q, _ in rows]
+    nt = max(-(-(n + 1) // bs) for n in q_len)
+    tables = torch.arange(len(q_len) * nt, dtype=torch.int32).reshape(len(q_len), nt)
+    cache = LM.init_paged_cache(cfg, len(q_len) * nt + 1, bs, dtype=torch.bfloat16, device="cuda", mesh=mesh)
+    host = LM.pack_lanes([0] * len(q_len), q_len, [1] + [r for _, r in rows], tables.numpy(), bs)
+    lanes = LM.Lanes(*(torch.as_tensor(host[f], device=seq.device) for f in LM.Lanes._fields))
+    tok = torch.cat([seq[0]] + [seq[0].repeat(-(-n // seq.shape[1]))[:n] for n, _ in rows])
+    return LM.mixed_step(cfg, params, tok, cache, tables.to(seq.device), lanes,
+                         **({} if mesh is None else {"mesh": mesh}))[0]
+
+
 def rounding_tie(torch, engine, prompt, prefix, contiguous: bool = False,
-                 sharded: bool = False) -> tuple[bool, float, float]:
-    """Whether the token after ``prompt + prefix`` is decided by rounding on
-    the card: its logits, computed the ways the engines compute a decode
-    token (a lane of one mixed step over the whole sequence; a decode step
-    after a mixed step over the rest; with ``contiguous``, also the
-    contiguous engine's: a prefill over the prompt padded to
+                 sharded: bool = False) -> tuple[float, float, float, dict]:
+    """How far rounding on the card moves the token after ``prompt +
+    prefix``: its logits computed the ways the engines compute a decode
+    token (a lane of one mixed step over the whole sequence, alone and
+    beside companion rows that change the step's shapes: a decode row, 7
+    decode rows, 7 verify rows of 4 lanes read whole, and a fill to the
+    token budget read whole, so N, the layers' matmul rows, and the head's
+    rows; and chunked as the engine chunks a fill, the last 1, 7 or 33
+    tokens alone in a second mixed step of that N; a decode step after a
+    mixed step over the rest; with ``contiguous``,
+    also the contiguous engine's: a prefill over the prompt padded to
     ``max_prompt_len`` for the first token, a contiguous decode step after
     a prefill of the rest for a later one; with ``sharded``, also the two
     paged ways over a one-shard pool, through the partials kernel and the
-    combine), differ by at least half their top-2 gap.  Returns (tie, gap,
-    largest difference)."""
+    combine).  Returns (top-2 gap, largest difference between the mixed
+    steps of other shapes, largest difference between any two ways, each
+    way's largest difference from the first).
+    Fails where the companions move the row's logits by more than 32 of
+    bf16's units in the last place of its largest logit: rounding moves
+    them by a few, a lane that reads another row's data by far more."""
     import numpy as np
 
     from repro_torch.models import lm as LM
@@ -1742,24 +1849,34 @@ def rounding_tie(torch, engine, prompt, prefix, contiguous: bool = False,
     nb = -(-(n + 1) // bs)
     i32 = dict(dtype=torch.int32, device="cuda")
     tables = torch.arange(nb, **i32)[None, :]
-    zero = torch.zeros((1,), **i32)
     with torch.no_grad():
         cache = LM.init_paged_cache(cfg, nb + 1, bs, dtype=torch.bfloat16, device="cuda")
-        a = LM.mixed_step(cfg, params, seq, cache, tables, zero, torch.tensor([n], **i32), bs)[0, n - 1].float()
+        a = one_row_step(torch, cfg, params, seq, cache, tables, bs, 1)[0].float()
+        fill = max(1, engine._token_budget - n)
+        named = {"alone": a}
+        for tag, rows in (("+1 decode", ((1, 1),)), ("+7 decode", ((1, 1),) * 7), ("+7 verify", ((4, 4),) * 7),
+                          ("+fill", ((fill, fill),))):
+            named[tag] = beside_step(torch, cfg, params, seq, bs, rows).float()
+        for k in (1, 7, 33):
+            if k < n:
+                cache = LM.init_paged_cache(cfg, nb + 1, bs, dtype=torch.bfloat16, device="cuda")
+                one_row_step(torch, cfg, params, seq[:, : n - k], cache, tables, bs, 0)
+                named[f"last {k} chunked"] = one_row_step(torch, cfg, params, seq[:, n - k :], cache, tables, bs, 1,
+                                                          q_start=n - k)[0].float()
+        by_n = list(named.values())
         cache = LM.init_paged_cache(cfg, nb + 1, bs, dtype=torch.bfloat16, device="cuda")
-        LM.mixed_step(cfg, params, seq[:, : n - 1], cache, tables, zero, torch.tensor([n - 1], **i32), bs)
-        b = LM.decode_step(cfg, params, cache, seq[:, n - 1 :], torch.tensor([n - 1], **i32),
-                           block_tables=tables, block_size=bs)[0, -1].float()
-        ways = [a, b]
+        one_row_step(torch, cfg, params, seq[:, : n - 1], cache, tables, bs, 0)
+        named["decode"] = b = LM.decode_step(cfg, params, cache, seq[:, n - 1 :], torch.tensor([n - 1], **i32),
+                                             block_tables=tables, block_size=bs)[0, -1].float()
+        ways = by_n + [b]
         if sharded:
             from repro_torch.runtime.compat import make_mesh
 
             mesh = make_mesh(["cuda:0"])
             cache = LM.init_paged_cache(cfg, nb + 1, bs, dtype=torch.bfloat16, device="cuda", mesh=mesh)
-            ways.append(LM.mixed_step(cfg, params, seq, cache, tables, zero, torch.tensor([n], **i32), bs,
-                                      mesh)[0, n - 1].float())
+            ways.append(one_row_step(torch, cfg, params, seq, cache, tables, bs, 1, mesh)[0].float())
             cache = LM.init_paged_cache(cfg, nb + 1, bs, dtype=torch.bfloat16, device="cuda", mesh=mesh)
-            LM.mixed_step(cfg, params, seq[:, : n - 1], cache, tables, zero, torch.tensor([n - 1], **i32), bs, mesh)
+            one_row_step(torch, cfg, params, seq[:, : n - 1], cache, tables, bs, 0, mesh)
             ways.append(LM.decode_step(cfg, params, cache, seq[:, n - 1 :], torch.tensor([n - 1], **i32),
                                        block_tables=tables, block_size=bs, mesh=mesh)[0, -1].float())
         if contiguous:
@@ -1773,23 +1890,32 @@ def rounding_tie(torch, engine, prompt, prefix, contiguous: bool = False,
             else:
                 ways.append(LM.decode_step(cfg, params, cache, seq[:, n - 1 :], torch.tensor([n - 1], **i32))[0, -1].float())
     top = torch.topk(a, 2).values
-    gap = (top[0] - top[1]).item()
-    diff = max((x - y).abs().max().item() for i, x in enumerate(ways) for y in ways[i + 1 :])
-    return gap <= 2 * diff, gap, diff
+
+    def spread(xs):
+        return max((x - y).abs().max().item() for i, x in enumerate(xs) for y in xs[i + 1 :])
+
+    d_n, ulp = spread(by_n), 2.0 ** (math.floor(math.log2(a.abs().max().item())) - 7)
+    if d_n > 32 * ulp:
+        fail(f"one row's logits move by {d_n:.4e} beside companion rows, past rounding (32 x {ulp:.4e})")
+    return (top[0] - top[1]).item(), d_n, spread(ways), {k: (v - a).abs().max().item() for k, v in named.items()}
 
 
 def same_answers(want: list, got: list, what: str, engine=None, contiguous: bool = False,
                  sharded: bool = False) -> None:
     """Every query's answer tokens equal; prints, then fails on, the queries
     that differ, each with its first differing place.  With ``engine`` (runs
-    whose engine steps were composed differently, so that a row's decode
-    token may come from a mixed step in one run and a decode step in the
-    other) a query may differ from a later place than its first token,
-    where ``rounding_tie`` finds the token decided by rounding; with
+    whose engine steps were composed differently: a row's decode token may
+    come from a mixed step in one run and a decode step in the other, and a
+    mixed step packs the live tokens of other rows, whose count N sets the
+    matmuls' shapes, and its head runs over every read lane of the step) a
+    query may differ where ``rounding_tie`` finds the token decided by
+    rounding: its top-2 gap at most twice the largest difference between
+    the ways.  At the first token, which both runs take from a mixed step,
+    only the mixed steps of other shapes count, unless
     ``contiguous`` (one of the runs on the contiguous engine, whose first
-    token comes from a packed prefill) or ``sharded`` (one of the runs on a
-    sharded pool, every token through the partials form) at its first token
-    too."""
+    token comes from a padded prefill) or ``sharded`` (one of the runs on
+    a sharded pool, every token through the partials form) add those
+    ways."""
     import numpy as np
     import torch
 
@@ -1801,15 +1927,19 @@ def same_answers(want: list, got: list, what: str, engine=None, contiguous: bool
     print(f"  {what}: {len(want) - len(diff)}/{len(want)} queries' tokens equal"
           + (f"; first differing place by query {diff}" if diff else ""), flush=True)
     for i, j in diff.items():
-        if engine is None or (j == 0 and not (contiguous or sharded)):
+        if engine is None:
             fail(f"{what}: answer tokens differ")
         prompt = np.asarray(want[i]["prompt"]).reshape(-1)
-        tie, gap, d = rounding_tie(torch, engine, prompt, np.asarray(want[i]["answer_tokens"][:j]), contiguous,
-                                   sharded)
-        print(f"    query {i}, place {j}: top-2 gap {gap:.4e}, the two step kinds' logits differ by up to "
-              f"{d:.4e}: {'decided by rounding' if tie else 'NOT a rounding tie'}", flush=True)
+        gap, d_n, d, by_way = rounding_tie(torch, engine, prompt, np.asarray(want[i]["answer_tokens"][:j]),
+                                           contiguous, sharded)
+        bound = d_n if j == 0 and not (contiguous or sharded) else d
+        tie = gap <= 2 * bound
+        print(f"    query {i}, place {j}: top-2 gap {gap:.4e}; the mixed steps of other shapes differ by up to {d_n:.4e}, "
+              f"all the ways by up to {d:.4e}: {'decided by rounding' if tie else 'NOT a rounding tie'}; each way "
+              f"against the row alone {({k: f'{v:.3e}' for k, v in by_way.items()})}", flush=True)
         if not tie:
-            fail(f"{what}: query {i} differs at place {j} where its top-2 gap ({gap:.4e}) exceeds rounding ({d:.4e})")
+            fail(f"{what}: query {i} differs at place {j} where its top-2 gap ({gap:.4e}) exceeds rounding "
+                 f"({bound:.4e})")
 
 
 def prefix_phase(torch, smi: str, cold: list) -> list[dict]:
@@ -2074,16 +2204,14 @@ def spec_phase(torch, smi: str, cold: list, timer, rows: dict) -> list[dict]:
     # dispatch's descriptors and tables are recorded for the kernel row
     sys_, engine, texts = full_width_system(16, "cuda", SEED, draft_k=3)
     first: dict = {}
-    step = engine._spec_mixed_rows
+    step = engine._mixed_rows
 
-    def record(st, tok, q_start_h, q_len, is_spec, drafts, row_len, b_new, tables):
-        if not first and bool((is_spec & (q_len > 1)).any()):
-            q_start = torch.where(is_spec, st[1] + st[2] - 1, q_start_h)
-            first["desc"] = [(i, a, n, a + n) for i, (a, n) in enumerate(zip(q_start.tolist(), q_len.tolist()))]
-            first["tables"] = tables.clone()
-        return step(st, tok, q_start_h, q_len, is_spec, drafts, row_len, b_new, tables)
+    def record(st, d, drafts=None):
+        if not first and drafts is not None and bool(((d["is_dec"] != 0) & (d["q_len"] > 1)).any()):
+            first["desc"], first["tables"] = d["desc"].tolist(), d["tables"].clone()
+        return step(st, d, drafts)
 
-    engine._spec_mixed_rows = record
+    engine._mixed_rows = record
     res, launches = serve_phase(torch, smi, sys_, engine, texts, "self-speculation, qwen3-0.6b full width bf16, "
                                 "draft_k 3", ("retrieval_topk", "mixed_prefill"))
     runs.append(launches)
@@ -2100,7 +2228,8 @@ def spec_phase(torch, smi: str, cold: list, timer, rows: dict) -> list[dict]:
     print("  self-speculation contexts equal to phase 4's", flush=True)
     # verify lanes are mixed-step lanes where phase 4 decoded with decode steps
     same_answers(cold, res, "self-speculation against phase 4 (plain)", engine)
-    print(f"  the first verify dispatch: (q_start, q_len, kv_len) by row {[d[1:] for d in first['desc']]}", flush=True)
+    print(f"  the first verify dispatch: (q_start, q_len, kv_len, q_off) by row {[d[1:] for d in first['desc']]}",
+          flush=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows["mixed_prefill", "bfloat16", "verify"] = row = mixed_prefill_row(
         torch, timer, gen, first["desc"], first["tables"], engine._n_pool_blocks + 1, 16, 8, "bfloat16",
@@ -2134,6 +2263,12 @@ def spec_phase(torch, smi: str, cold: list, timer, rows: dict) -> list[dict]:
     if not (st["spec_rounds"] > 0 and st["decode_dispatches"] == 0):
         fail(f"qwen3-4b speculation gauges: {st}")
     same_answers(plain, spec, "qwen3-4b speculative against plain", plain_eng)
+    # what the step's shapes alone move: a query's first-token logits, its
+    # row alone against beside companion rows
+    gaps = [rounding_tie(torch, plain_eng, np.asarray(r["prompt"]).reshape(-1), np.zeros((0,), np.int32))
+            for r in plain[:4]]
+    print(f"  qwen3-4b first tokens of queries 0-3: top-2 gaps {[f'{g[0]:.4e}' for g in gaps]}; the mixed steps of "
+          f"other shapes differ by up to {[f'{g[1]:.4e}' for g in gaps]}", flush=True)
     del sys_, spec_eng, plain_eng, spec_gen, dparams, plain, spec
     free_device(torch)
 
@@ -2194,9 +2329,9 @@ def moe_phase(torch, smi: str, cold: list) -> list[dict]:
     bs = engine.scfg.block_size
     bpp = -(-prompt.shape[1] // bs)
     cache = LM.init_paged_cache(cfg, bpp + 1, bs, dtype=torch.bfloat16, device="cuda")
-    logits = LM.mixed_step(cfg, engine.params, prompt, cache, torch.arange(bpp, dtype=torch.int32, device="cuda")[None],
-                           torch.tensor([0], device="cuda"), torch.tensor([prompt.shape[1]], device="cuda"), bs)
-    if tuple(logits.shape) != (1, prompt.shape[1], cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+    logits = one_row_step(torch, cfg, engine.params, prompt, cache,
+                          torch.arange(bpp, dtype=torch.int32, device="cuda")[None], bs, prompt.shape[1])
+    if tuple(logits.shape) != (prompt.shape[1], cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         fail(f"qwen2-moe full-width logits: shape {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
     print(f"  qwen2-moe full-width mixed_step logits {tuple(logits.shape)} all finite", flush=True)
     del cache, logits
@@ -2705,17 +2840,28 @@ def sharded_kernels(torch, timer, rows: dict) -> None:
             tables_h[r][e] = s * n_local + slot * NT + e
     tables = torch.tensor(tables_h, dtype=torch.int32, device=dev)
     desc = torch.tensor(desc_h, dtype=torch.int32, device=dev)
+    # the packed form the sharded dispatch launches: the live rows' lanes
+    # back to back (row r's from q_off), and each lane's padded (row, lane)
+    live = [d for d in desc_h if d[2] > 0]
+    d5_h = [(*d, sum(x[2] for x in live[:i])) for i, d in enumerate(live)]
+    d5 = torch.tensor(d5_h, dtype=torch.int32, device=dev)
+    at_r = torch.tensor([d[0] for d in live for _ in range(d[2])], device=dev)
+    at_j = torch.tensor([j for d in live for j in range(d[2])], device=dev)
     owned_1 = (tables // (N_SH * n_local)) == 0  # one shard: every block but the trash
     s_pad, lane, kpos = NT * BS, torch.arange(W, device=dev), torch.arange(NT * BS, device=dev)
     mask = (kpos[None, None, :] <= (desc[:, 1:2] + lane[None, :])[:, :, None]) & (kpos[None, None, :] < desc[:, 3, None, None])
     mask = (mask | (kpos[None, None, :] == 0))[:, None]  # keeps dead lanes finite
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
-        q = torch.randn(R, W, H, DH, generator=gen, device=dev).to(tdt)
+        q_pad = torch.randn(R, W, H, DH, generator=gen, device=dev).to(tdt)
+        q = q_pad[at_r, at_j].contiguous()
         kp = torch.randn(N_SH * n_local + 1, BS, KV, DH, generator=gen, device=dev).to(tdt)
         vp = torch.randn(N_SH * n_local + 1, BS, KV, DH, generator=gen, device=dev).to(tdt)
-        got = cp.mixed_prefill_partials(q, kp, vp, tables, desc, owned=owned_1)
-        err = partials_err(got, cp.mixed_prefill_partials_plain(q, kp, vp, tables, desc, owned=owned_1))
+        got = cp.mixed_prefill_partials(q, kp, vp, tables, d5, owned=owned_1)
+        err = partials_err(got, cp.mixed_prefill_partials_plain(q, kp, vp, tables, d5, owned=owned_1))
+        padded = cp.mixed_prefill_partials(q_pad, kp, vp, tables, desc, owned=owned_1)
+        if not all(torch.equal(t.permute(0, 3, 1, 2, 4)[at_r, at_j], g) for t, g in zip(padded, got)):
+            fail(f"mixed_prefill partials {dtype}: packed lanes differ from the padded form's over the same rows")
         # each shard's own pool (its blocks, a trash block poisoned with NaN
         # and 1e4), local table and mask
         shard = []
@@ -2724,43 +2870,47 @@ def sharded_kernels(torch, timer, rows: dict) -> None:
             kl[-1], vl[-1] = float("nan"), 1e4
             owned = (tables // n_local) == s
             shard.append((kl, vl, torch.where(owned, tables % n_local, n_local), owned))
-        parts = [cp.mixed_prefill_partials(q, kl, vl, loc, desc, owned=own) for kl, vl, loc, own in shard]
+        parts = [cp.mixed_prefill_partials(q, kl, vl, loc, d5, owned=own) for kl, vl, loc, own in shard]
         for s, ((kl, vl, loc, own), part) in enumerate(zip(shard, parts)):
-            err = max(err, partials_err(part, cp.mixed_prefill_partials_plain(q, kl.nan_to_num(0.0), vl, loc, desc,
+            err = max(err, partials_err(part, cp.mixed_prefill_partials_plain(q, kl.nan_to_num(0.0), vl, loc, d5,
                                                                               owned=own)))
-            rows_s = [r for r in range(R) if r % N_SH != s]
-            if not (bool((part[0][rows_s] == 0).all()) and bool((part[2][rows_s] == 0).all())
-                    and bool((part[1][rows_s] == -1e30).all())):
-                fail(f"mixed_prefill partials {dtype}: shard {s}'s rows of other shards are not exact zeros")
-        check(f"mixed_prefill partials, owned over {N_SH} shards (row-affine), m / l / o over l, {dtype}", err, dtype)
+            lanes_s = at_r % N_SH != s
+            if not (bool((part[0][lanes_s] == 0).all()) and bool((part[2][lanes_s] == 0).all())
+                    and bool((part[1][lanes_s] == -1e30).all())):
+                fail(f"mixed_prefill partials {dtype}: shard {s}'s lanes of other shards' rows are not exact zeros")
+        check(f"mixed_prefill partials packed, owned over {N_SH} shards (row-affine), m / l / o over l, {dtype}", err,
+              dtype)
         four = combine_partials(*map(list, zip(*parts)))
         one = combine_partials(*[[t] for t in got])
         if not (torch.equal(four, one) and bool(torch.isfinite(four).all())):
             fail(f"mixed_prefill partials {dtype}: {N_SH} shards combined differ from 1 shard combined")
-        print(f"  mixed_prefill partials {dtype}: {N_SH} shards combined == 1 shard combined bitwise; the "
-              f"non-owner rows exact zeros with m = -1e30 (trash blocks poisoned with NaN and 1e4)", flush=True)
+        print(f"  mixed_prefill partials packed {dtype}: bitwise the padded form's lanes; {N_SH} shards combined == "
+              f"1 shard combined bitwise; the non-owner lanes exact zeros with m = -1e30 (trash blocks poisoned "
+              f"with NaN and 1e4)", flush=True)
         kv_k = kp[tables.long()].reshape(R, s_pad, KV, DH).permute(0, 2, 1, 3)
         kv_v = vp[tables.long()].reshape(R, s_pad, KV, DH).permute(0, 2, 1, 3)
-        qt = q.permute(0, 2, 1, 3)
+        qt = q_pad.permute(0, 2, 1, 3)
         # q of live lanes in; o, m, l of every lane out (f32)
-        b_ms, b_by = bound_of(cp.cost(q, kp, vp, tables, desc, owned_1, partials=True, desc_host=desc_h))
+        b_ms, b_by = bound_of(cp.cost(q, kp, vp, tables, d5, owned_1, partials=True, desc_host=d5_h))
         row = dict(
             **timer.turns(dict(
-                ms=lambda: cp.mixed_prefill_partials(q, kp, vp, tables, desc, owned=owned_1),
-                plain_ms=lambda: cp.mixed_prefill_partials_plain(q, kp, vp, tables, desc, owned=owned_1),
+                ms=lambda: cp.mixed_prefill_partials(q, kp, vp, tables, d5, owned=owned_1),
+                plain_ms=lambda: cp.mixed_prefill_partials_plain(q, kp, vp, tables, d5, owned=owned_1),
                 library_ms=lambda: F.scaled_dot_product_attention(qt, kv_k, kv_v, attn_mask=mask, enable_gqa=True),
-                four_shards_ms=lambda: [cp.mixed_prefill_partials(q, kl, vl, loc, desc, owned=own)
+                padded_ms=lambda: cp.mixed_prefill_partials(q_pad, kp, vp, tables, desc, owned=owned_1),
+                four_shards_ms=lambda: [cp.mixed_prefill_partials(q, kl, vl, loc, d5, owned=own)
                                         for kl, vl, loc, own in shard],
             )),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            shape=f"partials, owned: R={R} W={W} H={H} KV={KV} dh={DH} bs={BS} n_t={NT}, the phase-3 step's mix, "
-                  f"one shard owning every block (four_shards_ms: the {N_SH} row-affine shards' calls) {dtype}",
+            shape=f"partials packed, owned: N={q.shape[0]} lanes of the phase-3 step's mix, H={H} KV={KV} dh={DH} "
+                  f"bs={BS} n_t={NT}, one shard owning every block (four_shards_ms: the {N_SH} row-affine shards' "
+                  f"calls; padded_ms: the padded form, R={R} W={W}) {dtype}",
         )
         rows["mixed_prefill", dtype, "partials_owned"] = row
         print_row("mixed_prefill", row)
         print(f"  mixed_prefill partials {dtype}: the {N_SH} shards' calls in turn {row['four_shards_ms']:.4f} ms",
               flush=True)
-        del q, kp, vp, shard, parts, kv_k, kv_v, qt
+        del q, q_pad, kp, vp, shard, parts, kv_k, kv_v, qt, padded
 
     # flash-decode over a cache split in 4 along the sequence (the phase-6
     # decode shape): one shard's exact-zero partials timed; dist_decode over 2
@@ -3583,7 +3733,7 @@ def main() -> int:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
         return out
 
-    launches, cold = phase("[4] end to end: paged engine, bag embedder", paged_phase)
+    launches, cold = phase("[4] end to end: paged engine, bag embedder", paged_phase, timer, rows)
     runs = [launches]
     runs += phase("[5] end to end: the paper's models", paper_phase)
     runs.append(phase("[6] end to end: contiguous engine", contiguous_phase))
@@ -3622,7 +3772,7 @@ def main() -> int:
     # further path shapes beside it; launches are summed over the
     # main-path runs of phases 4-20
     path_row = {
-        "retrieval_topk": ("retrieval_topk", "float32"), "mixed_prefill": ("mixed_prefill", "bfloat16"),
+        "retrieval_topk": ("retrieval_topk", "float32"), "mixed_prefill": ("mixed_prefill", "bfloat16", "qwen3-4b admission"),
         "paged_decode": ("paged_decode", "bfloat16"), "flash_attention": ("flash_attention", "bfloat16", "rerank"),
         "flash_decode": ("flash_decode", "bfloat16"), "ssd_chunk": ("ssd_chunk", "bfloat16"),
     }
@@ -3640,7 +3790,8 @@ def main() -> int:
         # qwen2-moe's heads (one query head per KV head), HuBERT's head_dim
         # 80 and the training backward (plain recompute; fwd_ms the forward
         # kernel at its shape), beside the path row
-        for tag, key in (("warm_admission", "warm"), ("verify", "verify"), ("one_head_per_kv_head", "G=1"),
+        for tag, key in (("step_mix", "step mix"), ("first_mixed_dispatch", "first mixed"), ("padded", "padded"),
+                         ("warm_admission", "warm"), ("verify", "verify"), ("one_head_per_kv_head", "G=1"),
                          ("head_dim_80", "dh80"), ("backward_train", "backward train"),
                          ("backward_hubert", "backward hubert"), ("backward_contriever", "backward contriever"),
                          ("partials_owned", "partials_owned"), ("partials_empty_zero", "partials_empty_zero"),
@@ -3649,7 +3800,7 @@ def main() -> int:
             if extra is not None:
                 kernels[-1][tag] = {k: extra[k] for k in (
                     "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "fwd_ms",
-                    "four_shards_ms") if k in extra}
+                    "four_shards_ms", "padded_ms", "parent_ms") if extra.get(k) is not None}
     if any(not math.isfinite(k["ms"]) for k in kernels):
         fail("a kernel time is not finite")
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)

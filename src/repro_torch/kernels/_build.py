@@ -49,12 +49,12 @@ SIGNATURES = {
         "retrieval_topk_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     },
     "mixed_prefill": {
-        # q, k_pool, v_pool, tables, desc, out, r, w, h, kv, dh, bs, n_t,
-        # is_bf16, stream
-        "mixed_prefill_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
-        # q, k_pool, v_pool, tables, desc, owned, o, m, l, r, w, h, kv, dh,
-        # bs, n_t, is_bf16, stream
-        "mixed_prefill_partials_launch": [P] * 9 + [I] * 8 + [P],
+        # q, k_pool, v_pool, tables, desc, out, r, w (0: packed), n, h, kv,
+        # dh, bs, n_t, is_bf16, stream
+        "mixed_prefill_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+        # q, k_pool, v_pool, tables, desc, owned, o, m, l, r, w (0:
+        # packed), n, h, kv, dh, bs, n_t, is_bf16, stream
+        "mixed_prefill_partials_launch": [P] * 9 + [I] * 9 + [P],
     },
     "paged_decode": {
         # q, k_pool, v_pool, tables, lengths, out, o_part, m_part, l_part,

@@ -12,9 +12,17 @@ an ``owned`` mask marks (``mixed_prefill_partials_plain`` on the CPU).
 FLOPs and bytes, which a cost counter records (``_build.counted``).
 
 Descriptor contract (one row per ``desc[r] = (slot, q_start, q_len,
-kv_len)``): lane ``j`` of row ``r`` attends pool position ``kpos`` of
-``block_tables[slot]`` iff ``kpos <= q_start + j`` and ``kpos < kv_len``;
-lanes ``j >= q_len`` output exactly 0.
+kv_len[, q_off])``): lane ``j`` of row ``r`` attends pool position
+``kpos`` of ``block_tables[slot]`` iff ``kpos <= q_start + j`` and ``kpos
+< kv_len``.  Two layouts of the lanes, one kernel body:
+
+* packed (the serving path): q ``(N, H, dh)`` and ``desc`` ``(R, 5)``;
+  row ``r``'s ``q_len`` lanes lie back to back from lane ``q_off`` of the
+  one lane axis, the rows in ``q_off`` order and disjoint.  The output is
+  ``(N, H, dh)``; a lane that is no row's is not written by the kernel
+  (0 from the plain version);
+* padded: q ``(R, W, H, dh)`` and ``desc`` ``(R, 4)``, the case ``q_off
+  = r * W``; lanes ``j >= q_len`` output exactly 0.
 
 Serving only: an input that requires grad under grad mode raises, since
 the kernel has no backward and would cut the autograd graph silently.
@@ -33,12 +41,38 @@ launches = 0
 _HEAD_DIMS = (16, 32, 64, 128)
 
 
+def _as_padded(q, desc):
+    """A packed call as the padded one: q (N, H, dh) laid out as (R, W, H,
+    dh), W the longest row, and each (row, lane)'s packed index and
+    whether the lane is live (R, W)."""
+    desc = desc.long()
+    q_len, q_off = desc[:, 2], desc[:, 4]
+    w = int(q_len.max()) if len(desc) else 0
+    lane = torch.arange(w, device=q.device)
+    live = lane[None, :] < q_len[:, None]
+    idx = torch.where(live, q_off[:, None] + lane[None, :], 0)
+    return q[idx], idx, live
+
+
+def _as_packed(out_pad, idx, live, n: int, fill: float = 0.0):
+    """The live lanes of a padded (R, W, ...) output at their packed
+    indices of an (N, ...) tensor, ``fill`` elsewhere."""
+    out = torch.full((n,) + out_pad.shape[2:], fill, dtype=out_pad.dtype, device=out_pad.device)
+    out[idx[live]] = out_pad[live]
+    return out
+
+
 def mixed_prefill_attention_plain(q, k_pool, v_pool, block_tables, desc):
     """Gather each row's contiguous pool view, dense masked softmax, and
     re-zero probabilities under the mask (dead lanes give exact 0).
 
-    q (R, W, H, dh); pools (n_pool, bs, KV, dh); block_tables (B, n_t);
-    desc (R, 4) -> (R, W, H, dh) in q's dtype."""
+    Padded: q (R, W, H, dh), desc (R, 4) -> (R, W, H, dh); packed: q (N,
+    H, dh), desc (R, 5) -> (N, H, dh), in q's dtype.  Pools (n_pool, bs,
+    KV, dh); block_tables (B, n_t)."""
+    if q.dim() == 3:
+        qp, idx, live = _as_padded(q, desc)
+        out = mixed_prefill_attention_plain(qp, k_pool, v_pool, block_tables, desc[:, :4])
+        return _as_packed(out, idx, live, q.shape[0])
     r, w, h, dh = q.shape
     bs, kv = k_pool.shape[1], k_pool.shape[2]
     desc = desc.long()
@@ -70,8 +104,16 @@ def mixed_prefill_partials_plain(q, k_pool, v_pool, block_tables, desc, owned=No
     the table entries it marks), stopped before the normalisation.
     Returns f32 ``o`` (R, KV, G, W, dh), the un-normalised weighted
     values, and ``m``, ``l`` (R, KV, G, W, 1), each row's max logit and
-    partition sum.  A row that sees no key gives exactly ``m = -1e30``,
-    ``l = 0``, ``o = 0``; ``owned=None`` means every entry is owned."""
+    partition sum; packed (q (N, H, dh), desc (R, 5)), ``o`` (N, KV, G,
+    dh) and ``m``, ``l`` (N, KV, G, 1).  A row that sees no key gives
+    exactly ``m = -1e30``, ``l = 0``, ``o = 0``; ``owned=None`` means
+    every entry is owned."""
+    if q.dim() == 3:
+        qp, idx, live = _as_padded(q, desc)
+        parts = mixed_prefill_partials_plain(qp, k_pool, v_pool, block_tables, desc[:, :4], owned)
+        n = q.shape[0]
+        return tuple(_as_packed(t.permute(0, 3, 1, 2, 4), idx, live, n, fill)
+                     for t, fill in zip(parts, (0.0, -1e30, 0.0)))
     r, w, h, dh = q.shape
     bs, kv = k_pool.shape[1], k_pool.shape[2]
     desc = desc.long()
@@ -99,13 +141,22 @@ def mixed_prefill_partials_plain(q, k_pool, v_pool, block_tables, desc, owned=No
     return torch.einsum("rkgws,rskd->rkgwd", e, v_view), m, e.sum(dim=-1, keepdim=True)
 
 
+def _lanes(q, desc):
+    """(R, W, N) of a call: W the padded form's lanes a row, 0 packed; N
+    the lanes of q's lane axis."""
+    if q.dim() == 3:
+        return desc.shape[0], 0, q.shape[0]
+    return q.shape[0], q.shape[1], q.shape[0] * q.shape[1]
+
+
 def _check_mixed(name, q, k_pool, v_pool, block_tables, desc) -> None:
     """The shapes, dtypes and devices both forms of the kernel take; raises."""
-    r, w, h, dh = q.shape
+    r, w, _ = _lanes(q, desc)
+    h, dh = q.shape[-2:]
     n_pool, bs, kv, dh_k = k_pool.shape
     if (
         v_pool.shape != k_pool.shape or dh_k != dh or h % kv or dh not in _HEAD_DIMS
-        or desc.shape != (r, 4) or block_tables.dim() != 2
+        or q.dim() not in (3, 4) or desc.shape != (r, 5 if w == 0 else 4) or block_tables.dim() != 2
     ):
         raise ValueError(
             f"{name}: q {tuple(q.shape)}, pools {tuple(k_pool.shape)}, "
@@ -134,17 +185,20 @@ def cost(q, k_pool, v_pool, block_tables, desc, owned=None, partials: bool = Fal
     entries (and ``owned`` mask bytes) read once, every lane's output (the
     f32 ``(o, m, l)`` with ``partials``) written once; Q.K and P.V over
     each live lane's visible keys.  ``desc_host`` (the descriptors as a
-    list of ``(slot, q_start, q_len, kv_len)``) is what the data needs,
-    and with ``tables_host`` (the tables as lists) a position that several
-    rows' entries alias is read once; None takes every lane live and
-    seeing its whole table span, all the shapes tell."""
-    r, w, h, dh = q.shape
+    list of ``(slot, q_start, q_len, kv_len[, q_off])``) is what the data
+    needs, and with ``tables_host`` (the tables as lists) a position that
+    several rows' entries alias is read once; None takes every lane live
+    and seeing its whole table span, all the shapes tell (packed: the N
+    lanes spread over the R rows)."""
+    r, w, lanes = _lanes(q, desc)
+    h, dh = q.shape[-2:]
     bs, kv = k_pool.shape[1], k_pool.shape[2]
     span = block_tables.shape[1] * bs
     if desc_host is None:
-        desc_host = [(i, 0, w, span) for i in range(r)]
-        flops = 4 * h * dh * r * w * span
+        desc_host = [(i, 0, lanes // r + (i < lanes % r), span) for i in range(r)]
+        flops = 4 * h * dh * lanes * span
     else:
+        desc_host = [d[:4] for d in desc_host]
         flops = sum(4 * h * dh * min(q0 + j + 1, kl) for _, q0, ql, kl in desc_host for j in range(ql))
     n_q = sum(ql for _, _, ql, _ in desc_host)
     n_kv = [min(kl, q0 + ql) if ql > 0 else 0 for _, q0, ql, kl in desc_host]
@@ -153,9 +207,9 @@ def cost(q, k_pool, v_pool, block_tables, desc, owned=None, partials: bool = Fal
     else:
         positions = len({(tables_host[d[0]][p // bs], p % bs) for d, n in zip(desc_host, n_kv) for p in range(n)})
     es = q.element_size()
-    out = r * w * h * (dh + 2) * 4 if partials else r * w * h * dh * es
+    out = lanes * h * (dh + 2) * 4 if partials else lanes * h * dh * es
     entry = 5 if owned is not None else 4
-    nbytes = (n_q * h * dh * es + out + 2 * positions * kv * dh * es + r * 4 * 4
+    nbytes = (n_q * h * dh * es + out + 2 * positions * kv * dh * es + r * (5 if w == 0 else 4) * 4
               + sum(-(-n // bs) for n in n_kv) * entry)
     return _build.flops((flops, q.dtype)), nbytes
 
@@ -173,15 +227,18 @@ def mixed_prefill_partials(q, k_pool, v_pool, block_tables, desc, owned=None):
 def _partials(q, k_pool, v_pool, block_tables, desc, owned):
     if q.device.type == "cpu":
         return _build.fresh(mixed_prefill_partials_plain(q, k_pool, v_pool, block_tables, desc, owned))
-    if q.device.type == "meta":
-        r, w, h, dh = q.shape
-        g = (r, k_pool.shape[2], h // k_pool.shape[2], w)
-        return tuple(torch.empty(g + (n,), dtype=torch.float32, device=q.device) for n in (dh, 1, 1))
-    if q.device.type != "cuda":
+    if q.device.type not in ("meta", "cuda"):
         raise ValueError(f"mixed_prefill_partials: tensor on {q.device}")
-    _check_mixed("mixed_prefill_partials", q, k_pool, v_pool, block_tables, desc)
-    r, w, h, dh = q.shape
+    r, w, n = _lanes(q, desc)
+    h, dh = q.shape[-2:]
     kv = k_pool.shape[2]
+    lead = (n, kv, h // kv) if w == 0 else (r, kv, h // kv, w)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o = torch.empty(lead + (dh,), **f32)
+    m, l = (torch.empty(lead + (1,), **f32) for _ in range(2))
+    if q.device.type == "meta":
+        return o, m, l
+    _check_mixed("mixed_prefill_partials", q, k_pool, v_pool, block_tables, desc)
     if owned is not None and (owned.shape != block_tables.shape or owned.device != q.device):
         raise ValueError(f"mixed_prefill_partials: owned {tuple(owned.shape)} on {owned.device}, "
                          f"tables {tuple(block_tables.shape)}")
@@ -189,16 +246,13 @@ def _partials(q, k_pool, v_pool, block_tables, desc, owned):
     tables = block_tables.to(torch.int32).contiguous()
     desc = desc.to(torch.int32).contiguous()
     own = None if owned is None else owned.to(torch.uint8).contiguous()
-    f32 = dict(dtype=torch.float32, device=q.device)
-    o = torch.empty((r, kv, h // kv, w, dh), **f32)
-    m, l = (torch.empty((r, kv, h // kv, w, 1), **f32) for _ in range(2))
-    if r == 0 or w == 0:
+    if r == 0 or n == 0:
         return o, m, l
     lib = _build.load("mixed_prefill")
     err = lib.mixed_prefill_partials_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(), desc.data_ptr(),
         0 if own is None else own.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-        r, w, h, kv, dh, k_pool.shape[1], tables.shape[1], int(q.dtype == torch.bfloat16),
+        r, w, n, h, kv, dh, k_pool.shape[1], tables.shape[1], int(q.dtype == torch.bfloat16),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     _build.check(err, "mixed_prefill_partials")
@@ -223,18 +277,19 @@ def _attention(q, k_pool, v_pool, block_tables, desc):
     if q.device.type != "cuda":
         raise ValueError(f"mixed_prefill_attention: tensor on {q.device}")
     _check_mixed("mixed_prefill_attention", q, k_pool, v_pool, block_tables, desc)
-    r, w, h, dh = q.shape
+    r, w, n = _lanes(q, desc)
+    h, dh = q.shape[-2:]
     kv, bs = k_pool.shape[2], k_pool.shape[1]
     q, k_pool, v_pool = _aligned(q, k_pool, v_pool)
     tables = block_tables.to(torch.int32).contiguous()
     desc = desc.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    if r == 0 or w == 0:
+    if r == 0 or n == 0:
         return out
     lib = _build.load("mixed_prefill")
     err = lib.mixed_prefill_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        desc.data_ptr(), out.data_ptr(), r, w, h, kv, dh, bs, tables.shape[1],
+        desc.data_ptr(), out.data_ptr(), r, w, n, h, kv, dh, bs, tables.shape[1],
         int(q.dtype == torch.bfloat16),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )

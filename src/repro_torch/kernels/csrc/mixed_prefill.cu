@@ -3,10 +3,17 @@
 //
 // Replaces the TPU kernel mixed_prefill_attention_pallas (_mixed_kernel,
 // src/repro/kernels/chunked_prefill/kernel.py).  Row r of the batch is
-// described by desc[r] = (slot, q_start, q_len, kv_len): query lane j
-// sees key position kpos iff kpos <= q_start + j and kpos < kv_len, and
-// lanes j >= q_len output an exact 0.  K/V are read from the shared
-// block pool through block_tables[slot].
+// described by desc[r] = (slot, q_start, q_len, kv_len[, q_off]): query
+// lane j sees key position kpos iff kpos <= q_start + j and kpos <
+// kv_len.  K/V are read from the shared block pool through
+// block_tables[slot].  Where the lanes live:
+//   * packed (w == 0, the serving path): q and the output are (n, h, dh),
+//     row r's q_len lanes back to back from lane q_off = desc[r][4]; only
+//     those lanes are read and written;
+//   * padded (w > 0): q and the output are (r, w, h, dh), the special case
+//     q_off = r * w, and lanes q_len <= j < w output an exact 0.
+// Rows lie in the lane axis in the order of desc (q_off ascending, no two
+// overlapping), which is what maps a block to its row below.
 //
 // What bounds it on an H100: bytes.  Each (row, kv head) reads the q
 // rows of its live lanes, the K/V of the positions its lanes can see,
@@ -16,8 +23,13 @@
 // them and the loads are in flight while they do.
 //
 // Both versions tile the lane axis: a block takes one (row, KV head) and
-// 64 flattened rows i = lane * G + group.  The TPU kernel holds all W*G
-// lanes x group heads of a (row, kv head) in one VMEM block; at W*G = 512
+// 64 flattened rows i = lane * G + group of that row.  Row r's lane tiles
+// take the tile slots from tile0(r) = q_off(r) * G / 64 + r on, at least
+// as many as it has tiles, so the grid is (n * G / 64 + R) slots x KV
+// whatever the rows' lengths: a block finds its row by counting the rows
+// whose first slot is at or before its own (one __syncthreads_count per
+// 128 or 256 rows), and a slot past its row's last tile exits at once.
+// The TPU kernel holds all W*G lanes x group heads of a (row, kv head) in one VMEM block; at W*G = 512
 // and head_dim 128 that is 256 KiB of q alone, beyond the 227 KB of
 // shared memory a Hopper block may have.  The block reads desc and the
 // block table itself (Hopper has no scalar prefetch) and walks key
@@ -43,13 +55,14 @@
 //     reach the tensor cores, where a NaN would pass through 0 x NaN.
 //   * A row sees the keys pos < min(n_kv, q_start + lane + 1), a dead
 //     lane none.
-//   * Blocks are numbered last lane tile first, so that the tiles with
-//     the longest walks start first.
+//   * Blocks are numbered last tile slot first, so that within a row the
+//     tiles with the longest walks start first.
 //
 // Partials (mixed_prefill_partials_launch, the per-shard half of the
 // sharded engine's dispatch): the same walk, stopped before the
 // normalisation.  It stores f32 o (un-normalised), m (natural units) and
-// l at (r, kv head, group, lane), and takes an optional (B, n_t) uint8
+// l at (lane, kv head, group) of the packed axis, or (r, kv head, group,
+// lane) in the padded form, and takes an optional (B, n_t) uint8
 // `owned` table: a key in a block whose entry is 0 is masked like a key
 // past kv_len, and its K/V copies are zero-filled, so a block this shard
 // does not own (another shard's id mapped to the local trash) is never
@@ -82,18 +95,63 @@ constexpr int TQ = 64;  // flattened (lane, group) rows per block
 
 using repro::attn::kWgThreads;
 
+// The block's row and lane tile.  Row r's first tile slot is tile0(r) =
+// q_off(r) * g / TQ + r; the block's row is the last whose first slot is
+// at or before the block's slot t, counted over the block's threads.
+struct Row {
+  int r, slot, q_start, q_len, kv_len, q_off;
+  int rows_total;  // flattened (lane, group) rows the row owns: its lanes x g
+  int i0;          // the block's first flattened row
+
+  // false: slot t lies past its row's last tile (or before the first
+  // row), and the block has nothing to do.  Called by all the block's
+  // threads; every thread gets the same answer.
+  __device__ __forceinline__ bool find(const int* desc, int nr, int w, int g, int t) {
+    auto off = [&](int e) { return w ? e * w : desc[e * 5 + 4]; };
+    auto tile0 = [&](int e) { return (int)((long long)off(e) * g / TQ) + e; };
+    r = -1;
+    for (int base = 0; base < nr; base += blockDim.x) {
+      const int e = base + (int)threadIdx.x;
+      r += __syncthreads_count(e < nr && tile0(e) <= t);
+    }
+    if (r < 0) return false;
+    const int* d = desc + r * (w ? 4 : 5);
+    slot = d[0], q_start = d[1], q_len = d[2], kv_len = d[3];
+    q_off = off(r);
+    rows_total = (w ? w : q_len) * g;
+    i0 = (t - tile0(r)) * TQ;
+    return i0 < rows_total;
+  }
+  // key positions any live lane of the tile can see (never past the n_t *
+  // bs positions the block table addresses)
+  __device__ __forceinline__ int n_kv(int g, int n_t, int bs) const {
+    const int first_lane = i0 / g;
+    const int last_lane = min((min(rows_total, i0 + TQ) - 1) / g, q_len - 1);
+    return first_lane < q_len ? max(0, min(min(kv_len, n_t * bs), q_start + last_lane + 1)) : 0;
+  }
+  // the row's (lane 0, head kvh * g) in the partials, and a lane's and a
+  // group's strides there: (n, KV, G) packed, (R, KV, G, W) padded
+  __device__ __forceinline__ size_t part0(int w, int h, int kv, int kvh, int g) const {
+    return w ? ((size_t)r * kv + kvh) * g * w : (size_t)q_off * h + (size_t)kvh * g;
+  }
+};
+
+// the blocks: tile slots (n * g / TQ + nr) x kv, the last slot first
+inline int tile_slots(int n, int g, int nr) { return (int)((long long)n * g / TQ) + nr; }
+
 // rows i0 + row = lane * g + group of (batch row r, KV head kvh); keys
 // through the block table entries staged in shared memory (with PART, a
 // block this shard does not own staged as -1)
 template <int DH, bool PART>
 struct PagedSrc {
   static constexpr bool kPartials = PART;
-  const __nv_bfloat16* q;  // at (r, 0, kvh * g) of the (R, W, H, dh) q
+  const __nv_bfloat16* q;  // at (q_off, kvh * g) of the (lanes, H, dh) q
   const __nv_bfloat16 *kp, *vp;
-  __nv_bfloat16* out;      // at (r, 0, kvh * g) of the output
-  float *o_part, *m_part, *l_part;  // at (r, kvh) of the (R, KV, G, W[, dh]) partials
+  __nv_bfloat16* out;      // at (q_off, kvh * g) of the output
+  float *o_part, *m_part, *l_part;  // at the row's part0 of the partials
   const int* tbl_s;        // tables[slot, :] in shared memory
   int i0, g, h, kv, kvh, rows_total, q_start, q_len, bs, n_kv;
+  int ps_lane, ps_group;   // a lane's and a group's strides in the partials
 
   __device__ __forceinline__ const __nv_bfloat16* q_row(int row, bool& ok) const {
     const int i = i0 + row, lane = i / g;
@@ -117,7 +175,7 @@ struct PagedSrc {
   }
   __device__ __forceinline__ int part_index(int row) const {
     const int i = i0 + row, lane = i / g;
-    return i < rows_total ? (i - lane * g) * (rows_total / g) + lane : -1;
+    return i < rows_total ? (i - lane * g) * ps_group + lane * ps_lane : -1;
   }
 };
 
@@ -132,25 +190,17 @@ mixed_prefill_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
                    const int* __restrict__ desc, const uint8_t* __restrict__ owned,
                    __nv_bfloat16* __restrict__ out, float* __restrict__ o_part,
                    float* __restrict__ m_part, float* __restrict__ l_part, int nr, int w, int h,
-                   int kv, int bs, int n_t, int n_lt, float scale_log2) {
+                   int kv, int bs, int n_t, int n_slots, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   int* tbl_s = reinterpret_cast<int*>(smem_raw + repro::attn::Tile<DH>::SMEM);  // [n_t]
-  // lane tiles in descending order: the longest walks start first
-  const int lt = n_lt - 1 - blockIdx.x / (nr * kv), rest = blockIdx.x % (nr * kv);
-  const int r = rest / kv, kvh = rest - r * kv;
-  const int g = h / kv;
-  const int rows_total = w * g;
-  const int i0 = lt * TQ;
-  const int slot = desc[r * 4 + 0], q_start = desc[r * 4 + 1];
-  const int q_len = desc[r * 4 + 2], kv_len = desc[r * 4 + 3];
-  const int first_lane = i0 / g;
-  const int last_lane = min((min(rows_total, i0 + TQ) - 1) / g, q_len - 1);
-  int n_kv =
-      first_lane < q_len ? max(0, min(min(kv_len, n_t * bs), q_start + last_lane + 1)) : 0;
+  const int g = h / kv, kvh = blockIdx.x % kv;
+  Row row;
+  if (!row.find(desc, nr, w, g, n_slots - 1 - blockIdx.x / kv)) return;
+  int n_kv = row.n_kv(g, n_t, bs);
 
   const int n_e = (n_kv + bs - 1) / bs;  // table entries the walk reaches
   for (int e = threadIdx.x; e < n_e; e += kWgThreads) {
-    const size_t a = (size_t)slot * n_t + e;
+    const size_t a = (size_t)row.slot * n_t + e;
     tbl_s[e] = PART && owned != nullptr && owned[a] == 0 ? -1 : tables[a];
   }
   __syncthreads();
@@ -162,29 +212,30 @@ mixed_prefill_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     while (e >= 0 && tbl_s[e] < 0) --e;
     n_kv = min(n_kv, (e + 1) * bs);
   }
-  const size_t row0 = ((size_t)r * w * h + (size_t)kvh * g) * DH;
-  const size_t part0 = ((size_t)r * kv + kvh) * g * w;  // (r, kvh, 0, 0) of the partials
+  const size_t row0 = ((size_t)row.q_off * h + (size_t)kvh * g) * DH;
+  const size_t part0 = row.part0(w, h, kv, kvh, g);
   const PagedSrc<DH, PART> src{q + row0, kp, vp, PART ? out : out + row0,
                                PART ? o_part + part0 * DH : o_part, PART ? m_part + part0 : m_part,
-                               PART ? l_part + part0 : l_part, tbl_s, i0, g, h, kv, kvh,
-                               rows_total, q_start, q_len, bs, n_kv};
+                               PART ? l_part + part0 : l_part, tbl_s, row.i0, g, h, kv, kvh,
+                               row.rows_total, row.q_start, row.q_len, bs, n_kv,
+                               w ? 1 : h, w ? w : 1};
   repro::attn::attend_tile<DH>(src, smem_raw, n_kv, scale_log2);
 }
 
 template <int DH, bool PART>
 cudaError_t launch_bf16(const void* q, const void* kp, const void* vp, const int* tables,
                         const int* desc, const uint8_t* owned, void* out, float* o_part,
-                        float* m_part, float* l_part, int r, int w, int h, int kv, int bs, int n_t,
-                        cudaStream_t st) {
+                        float* m_part, float* l_part, int r, int w, int n, int h, int kv, int bs,
+                        int n_t, cudaStream_t st) {
   const size_t smem = repro::attn::Tile<DH>::SMEM + sizeof(int) * ((size_t)n_t + (PART ? kTblSlack : 0));
   static size_t allowed = 0;
   cudaError_t e = repro::allow_smem(mixed_prefill_bf16<DH, PART>, smem, allowed);
   if (e != cudaSuccess) return e;
-  const int n_lt = (w * (h / kv) + TQ - 1) / TQ;
-  mixed_prefill_bf16<DH, PART><<<r * n_lt * kv, kWgThreads, smem, st>>>(
+  const int n_slots = tile_slots(n, h / kv, r);
+  mixed_prefill_bf16<DH, PART><<<n_slots * kv, kWgThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
       static_cast<const __nv_bfloat16*>(vp), tables, desc, owned, static_cast<__nv_bfloat16*>(out),
-      o_part, m_part, l_part, r, w, h, kv, bs, n_t, n_lt, 1.4426950408889634f / sqrtf((float)DH));
+      o_part, m_part, l_part, r, w, h, kv, bs, n_t, n_slots, 1.4426950408889634f / sqrtf((float)DH));
   return cudaGetLastError();
 }
 
@@ -205,8 +256,8 @@ __global__ void __launch_bounds__(kThreads)
 mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
               const int* __restrict__ tables, const int* __restrict__ desc,
               const uint8_t* __restrict__ owned, T* __restrict__ out, float* __restrict__ o_part,
-              float* __restrict__ m_part, float* __restrict__ l_part, int w, int h, int kv, int bs,
-              int n_t, float scale) {
+              float* __restrict__ m_part, float* __restrict__ l_part, int nr, int w, int h, int kv,
+              int bs, int n_t, int n_slots, float scale) {
   constexpr int LD = DH + 1;  // padded rows: no shared-memory bank conflicts
   constexpr int PLD = KC + 1;
   constexpr int NC = DH / 4;  // output columns per thread
@@ -217,20 +268,13 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
   float* p_s = v_s + KC * LD;   // [TQ][PLD]
   int* own_s = reinterpret_cast<int*>(p_s + TQ * PLD);  // [KC]: the chunk's key is owned
 
-  const int r = blockIdx.x, kvh = blockIdx.y;
-  const int g = h / kv;
-  const int rows_total = w * g;
-  const int i0 = blockIdx.z * TQ;
-  const int slot = desc[r * 4 + 0], q_start = desc[r * 4 + 1];
-  const int q_len = desc[r * 4 + 2], kv_len = desc[r * 4 + 3];
+  const int g = h / kv, kvh = blockIdx.x % kv;
+  Row rw;
+  if (!rw.find(desc, nr, w, g, n_slots - 1 - blockIdx.x / kv)) return;
+  const int slot = rw.slot, q_start = rw.q_start, q_len = rw.q_len, kv_len = rw.kv_len;
+  const int rows_total = rw.rows_total, i0 = rw.i0;
   const int tid = threadIdx.x, row = tid >> 2, part = tid & 3;
-
-  // key positions any live lane of this tile can see
-  const int first_lane = i0 / g;
-  const int last_lane = min((min(rows_total, i0 + TQ) - 1) / g, q_len - 1);
-  // (never past the n_t * bs positions the block table addresses)
-  int n_kv =
-      first_lane < q_len ? max(0, min(min(kv_len, n_t * bs), q_start + last_lane + 1)) : 0;
+  int n_kv = rw.n_kv(g, n_t, bs);
   if (PART && owned != nullptr) {  // up to the last owned block, as in the bf16 body
     int e = (n_kv + bs - 1) / bs - 1;
     while (e >= 0 && owned[(size_t)slot * n_t + e] == 0) --e;
@@ -242,7 +286,7 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
     float x = 0.f;
     if (i < rows_total) {
       const int lane = i / g, gg = i - lane * g;
-      x = to_f(q[(((size_t)r * w + lane) * h + kvh * g + gg) * DH + col]);
+      x = to_f(q[(((size_t)rw.q_off + lane) * h + kvh * g + gg) * DH + col]);
     }
     q_s[rr * LD + col] = x;
   }
@@ -314,8 +358,8 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
 
   if (i < rows_total) {
     const int gg = i - my_lane * g;
-    if (PART) {  // f32 partials at (r, kvh, gg, lane); m already in natural units
-      const size_t pi = (((size_t)r * kv + kvh) * g + gg) * w + my_lane;
+    if (PART) {  // f32 partials, m already in natural units
+      const size_t pi = rw.part0(w, h, kv, kvh, g) + (w ? (size_t)gg * w + my_lane : (size_t)my_lane * h + gg);
 #pragma unroll
       for (int c = 0; c < NC; ++c) o_part[pi * DH + c * 4 + part] = acc[c];
       if (part == 0) {
@@ -323,7 +367,7 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
         l_part[pi] = l;
       }
     } else {
-      T* o = out + (((size_t)r * w + my_lane) * h + kvh * g + gg) * DH;
+      T* o = out + (((size_t)rw.q_off + my_lane) * h + kvh * g + gg) * DH;
       const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
       for (int c = 0; c < NC; ++c) o[c * 4 + part] = from_f<T>(acc[c] / denom);
@@ -334,16 +378,16 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
 template <typename T, int DH, bool PART>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tables,
                    const int* desc, const uint8_t* owned, void* out, float* o_part, float* m_part,
-                   float* l_part, int r, int w, int h, int kv, int bs, int n_t, cudaStream_t st) {
+                   float* l_part, int r, int w, int n, int h, int kv, int bs, int n_t,
+                   cudaStream_t st) {
   const size_t smem = smem_bytes<DH>();
   static size_t allowed = 0;
   cudaError_t e = repro::allow_smem(mixed_prefill<T, DH, PART>, smem, allowed);
   if (e != cudaSuccess) return e;
-  const int g = h / kv;
-  dim3 grid(r, kv, (w * g + TQ - 1) / TQ);
-  mixed_prefill<T, DH, PART><<<grid, kThreads, smem, st>>>(
+  const int n_slots = tile_slots(n, h / kv, r);
+  mixed_prefill<T, DH, PART><<<n_slots * kv, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), tables,
-      desc, owned, static_cast<T*>(out), o_part, m_part, l_part, w, h, kv, bs, n_t,
+      desc, owned, static_cast<T*>(out), o_part, m_part, l_part, r, w, h, kv, bs, n_t, n_slots,
       1.0f / sqrtf((float)DH));
   return cudaGetLastError();
 }
@@ -351,8 +395,8 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tab
 template <bool PART>
 cudaError_t dispatch(const void* q, const void* kp, const void* vp, const void* tables,
                      const void* desc, const void* owned, void* out, void* o_part, void* m_part,
-                     void* l_part, int r, int w, int h, int kv, int dh, int bs, int n_t, int is_bf16,
-                     cudaStream_t st) {
+                     void* l_part, int r, int w, int n, int h, int kv, int dh, int bs, int n_t,
+                     int is_bf16, cudaStream_t st) {
   const int* tb = static_cast<const int*>(tables);
   const int* ds = static_cast<const int*>(desc);
   const uint8_t* ow = static_cast<const uint8_t*>(owned);
@@ -361,33 +405,36 @@ cudaError_t dispatch(const void* q, const void* kp, const void* vp, const void* 
   float* lp = static_cast<float*>(l_part);
   return repro::with_head_dim(dh, [&](auto d) {
     constexpr int DH = decltype(d)::value;
-    return is_bf16 ? launch_bf16<DH, PART>(q, kp, vp, tb, ds, ow, out, op, mp, lp, r, w, h, kv, bs, n_t, st)
-                   : launch<float, DH, PART>(q, kp, vp, tb, ds, ow, out, op, mp, lp, r, w, h, kv, bs, n_t, st);
+    return is_bf16 ? launch_bf16<DH, PART>(q, kp, vp, tb, ds, ow, out, op, mp, lp, r, w, n, h, kv, bs, n_t, st)
+                   : launch<float, DH, PART>(q, kp, vp, tb, ds, ow, out, op, mp, lp, r, w, n, h, kv, bs, n_t, st);
   });
 }
 
 }  // namespace
 
-// q (r, w, h, dh); k_pool / v_pool (n_pool, bs, kv, dh); tables (B, n_t)
-// int32; desc (r, 4) int32; out (r, w, h, dh).  q, pools and out share
-// one dtype (f32 or bf16).  dh in {16, 32, 64, 128}.  bf16: q and the
-// pools 16-byte aligned (the 16-byte copies).
+// Packed (w == 0): q (n, h, dh), desc (r, 5) int32, out (n, h, dh), of
+// which only the rows' lanes are written.  Padded (w > 0): q (r, w, h,
+// dh), desc (r, 4) int32, out (r, w, h, dh), n = r * w.  k_pool / v_pool
+// (n_pool, bs, kv, dh); tables (B, n_t) int32.  q, pools and out share one
+// dtype (f32 or bf16).  dh in {16, 32, 64, 128}.  bf16: q and the pools
+// 16-byte aligned (the 16-byte copies).
 extern "C" int mixed_prefill_launch(const void* q, const void* kp, const void* vp,
                                     const void* tables, const void* desc, void* out, int r,
-                                    int w, int h, int kv, int dh, int bs, int n_t, int is_bf16,
-                                    void* stream) {
+                                    int w, int n, int h, int kv, int dh, int bs, int n_t,
+                                    int is_bf16, void* stream) {
   return (int)dispatch<false>(q, kp, vp, tables, desc, nullptr, out, nullptr, nullptr, nullptr, r, w,
-                              h, kv, dh, bs, n_t, is_bf16, static_cast<cudaStream_t>(stream));
+                              n, h, kv, dh, bs, n_t, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // The partials form: as mixed_prefill_launch, with owned (B, n_t) uint8
 // (0: the block is not this shard's; null: every block is) and, in place
-// of out, o (r, kv, h / kv, w, dh), m and l (r, kv, h / kv, w), all f32.
+// of out, o (n, kv, h / kv, dh), m and l (n, kv, h / kv) packed, or o (r,
+// kv, h / kv, w, dh), m and l (r, kv, h / kv, w) padded, all f32.
 extern "C" int mixed_prefill_partials_launch(const void* q, const void* kp, const void* vp,
                                              const void* tables, const void* desc,
                                              const void* owned, void* o, void* m, void* l, int r,
-                                             int w, int h, int kv, int dh, int bs, int n_t,
+                                             int w, int n, int h, int kv, int dh, int bs, int n_t,
                                              int is_bf16, void* stream) {
-  return (int)dispatch<true>(q, kp, vp, tables, desc, owned, nullptr, o, m, l, r, w, h, kv, dh, bs,
+  return (int)dispatch<true>(q, kp, vp, tables, desc, owned, nullptr, o, m, l, r, w, n, h, kv, dh, bs,
                              n_t, is_bf16, static_cast<cudaStream_t>(stream));
 }

@@ -12,9 +12,10 @@ through ``kernels/flash_attention``.  The cache-writing attention
 functions update their cache IN PLACE (the JAX package returns a new
 one): ``attn_decode`` writes each row's fresh K/V into its contiguous
 stripe, then attends through ``kernels/decode_attention``'s contiguous
-flash-decode; the paged functions scatter every live lane's K/V into its
+flash-decode; the paged functions scatter every token's K/V into its
 pool slot first, then attend through ``kernels/chunked_prefill`` (mixed
-steps) or ``kernels/decode_attention``'s paged kernel (decode steps).  A
+steps, on the live tokens packed onto one axis) or
+``kernels/decode_attention``'s paged kernel (decode steps).  A
 sharded pool (a list of per-shard pools, one per device of a
 ``runtime.compat.Mesh``) runs the distributed dispatch instead, decode as
 its one-lane case: ``_paged_attn_sharded``.
@@ -22,6 +23,8 @@ On CUDA tensors the kernel ops launch the hand-written kernels; on CPU
 tensors they run their plain versions.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -59,10 +62,18 @@ def rope_freqs(head_dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) * 2.0 / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``rope_freqs`` on ``device``, uploaded once: a host-to-device copy
+    waits for the stream to drain, so one a layer would hold the host to
+    the device's pace at every layer of every step."""
+    return torch.as_tensor(rope_freqs(head_dim, theta), device=device)
+
+
 def apply_rope(x, positions, theta: float):
     """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
     hd = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(hd, theta), device=x.device)
+    freqs = _rope_freqs_on(hd, theta, x.device)
     angles = positions.float()[..., None] * freqs  # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
@@ -207,89 +218,69 @@ def attn_decode(cfg: ModelConfig, p, x, k_cache, v_cache, pos):
     return _out_proj(out, p["wo"])
 
 
-def _paged_attn_sharded(q, k_new, v_new, k_pools, v_pools, block_tables, q_start, q_len,
-                        block_size: int, mesh=None):
-    """Distributed write-then-attend over a sharded block pool.
+def _paged_attn_sharded(q, k_new, v_new, k_pools, v_pools, block_tables, block, offset, desc, mesh=None):
+    """Distributed write-then-attend over a sharded block pool, on packed
+    lanes.
 
     ``k_pools`` / ``v_pools``: one pool per shard, ``(n_local + 1,
     block_size, KV, hd)`` on that shard's device, its trash block at local
-    index ``n_local``.  ``block_tables`` (B, n_t) holds GLOBAL block ids:
-    block ``b`` is local block ``b % n_local`` of shard ``b // n_local``,
-    and the global trash id ``n_shards * n_local`` belongs to no shard.
+    index ``n_local``.  ``block_tables`` (B, n_t) and ``block`` (N,) hold
+    GLOBAL block ids: block ``b`` is local block ``b % n_local`` of shard
+    ``b // n_local``, and the global trash id ``n_shards * n_local``
+    belongs to no shard.  ``q`` (N, H, hd), ``k_new`` / ``v_new`` (N, KV,
+    hd) and ``desc`` (R, 5) are a packed step's (``lm.Lanes``); token
+    ``t``'s K/V go to ``offset[t]`` of ``block[t]``.
 
-    Each shard scatters only the fresh lanes whose target block it owns
-    (every other lane lands in its local trash) and runs the
-    ``mixed_prefill`` partials over its own table entries, ``owned =
-    (tables // n_local) == s``, the others pointed at its trash and masked
-    to exact zeros.  The pool's row affinity puts all of a row's blocks on
-    one shard, so ``dist_decode.combine_partials`` on the lead device (q's)
-    passes the owner's partials through bitwise: an N-shard run equals the
-    1-shard run bit for bit.  Only q, the fresh lanes and the per-shard
-    tables go to a shard's device, and only ``(o, m, l)`` comes back.
-    ``mesh``, when given, must list the pools' devices.
+    Each shard scatters only the tokens whose target block it owns (every
+    other token lands in its local trash) and runs the ``mixed_prefill``
+    partials over its own table entries, ``owned = (tables // n_local) ==
+    s``, the others pointed at its trash and masked to exact zeros.  The
+    pool's row affinity puts all of a row's blocks on one shard, so
+    ``dist_decode.combine_partials`` on the lead device (q's) passes the
+    owner's partials through bitwise: an N-shard run equals the 1-shard
+    run bit for bit.  Only q, the fresh tokens and the per-shard tables go
+    to a shard's device, and only ``(o, m, l)`` comes back.  ``mesh``,
+    when given, must list the pools' devices.
 
-    Returns ``(B, W, H, hd)`` in q's dtype (the ``wo`` projection is the
+    Returns ``(N, H, hd)`` in q's dtype (the ``wo`` projection is the
     caller's); the pools are updated in place."""
     devices = [t.device for t in k_pools]
     if mesh is not None and list(mesh.devices) != devices:
         raise ValueError(f"sharded pool on {devices}, mesh over {list(mesh.devices)}")
-    b, w, h, dh = q.shape
-    kv = k_pools[0].shape[2]
+    n, h, dh = q.shape
     n_local = k_pools[0].shape[0] - 1
-    s_pad = block_tables.shape[1] * block_size
-    rows = torch.arange(b, device=q.device)
-    lane = torch.arange(w, device=q.device)
-    live = lane[None, :] < q_len[:, None]  # (B, W)
-    pos_c = torch.clamp(q_start[:, None] + lane[None, :], max=s_pad - 1).long()
-    tables = block_tables.long()
-    bid_g = tables[rows[:, None], pos_c // block_size]  # (B, W) global target blocks
-    off = pos_c % block_size
-    desc = torch.stack([rows, q_start, q_len, q_start + q_len], dim=1).to(torch.int32)
+    tables, bid_g, off = block_tables.long(), block.long(), offset.long()
     parts = []
     for s, (dev, kp, vp) in enumerate(zip(devices, k_pools, v_pools)):
-        mine = live & ((bid_g // n_local) == s)
+        mine = (bid_g // n_local) == s
         bid = torch.where(mine, bid_g % n_local, n_local).to(dev)
         owned = (tables // n_local) == s
         loc_tbl = torch.where(owned, tables % n_local, n_local).to(dev)
         kp[bid, off.to(dev)] = k_new.to(dev, kp.dtype)
         vp[bid, off.to(dev)] = v_new.to(dev, vp.dtype)
         parts.append(mixed_prefill_partials(q.to(dev), kp, vp, loc_tbl, desc.to(dev), owned=owned.to(dev)))
-    out = combine_partials(*map(list, zip(*parts)))  # (B, KV, G, W, hd) f32 on q's device
-    return out.permute(0, 3, 1, 2, 4).reshape(b, w, kv * (h // kv), dh).to(q.dtype)
+    out = combine_partials(*map(list, zip(*parts)))  # (N, KV, G, hd) f32 on q's device
+    return out.reshape(n, h, dh).to(q.dtype)
 
 
-def attn_mixed_paged(cfg: ModelConfig, p, x, k_pool, v_pool, positions, block_tables,
-                     block_size: int, q_len, mesh=None):
-    """Unified mixed prefill + decode attention against the paged pool.
+def attn_mixed_paged(cfg: ModelConfig, p, x, k_pool, v_pool, lanes, block_tables, mesh=None):
+    """Unified mixed prefill + decode attention against the paged pool, on
+    a packed step's live tokens.
 
-    ``x`` (B, W, d): row ``b`` carries ``q_len[b]`` live lanes at absolute
-    positions ``positions[b] = q_start[b] + lane``.  Live lanes' K/V land
-    in ``pool[table[pos // bs], pos % bs]`` first (dead lanes write the
-    trash block, the pool's last index); then every lane attends through
-    the pool.  A sharded pool (lists of per-shard pools, over ``mesh``)
-    runs ``_paged_attn_sharded``.  Returns ``(B, W, d)``; the pools are
-    updated in place."""
-    b, w = x.shape[0], x.shape[1]
-    q, k_new, v_new = attn_qkv(cfg, p, x, positions)
+    ``x`` (N, d): the tokens ``lanes`` (an ``lm.Lanes``) lays out, row
+    after row, each at its absolute position ``lanes.pos``.  Their K/V
+    land in ``pool[lanes.block, lanes.offset]`` first; then every token
+    attends through the pool.  A sharded pool (lists of per-shard pools,
+    over ``mesh``) runs ``_paged_attn_sharded``.  Returns ``(N, d)``; the
+    pools are updated in place."""
+    q, k_new, v_new = attn_qkv(cfg, p, x, lanes.pos)
     if isinstance(k_pool, list):
-        out = _paged_attn_sharded(q, k_new, v_new, k_pool, v_pool, block_tables, positions[:, 0], q_len,
-                                  block_size, mesh)
+        out = _paged_attn_sharded(q, k_new, v_new, k_pool, v_pool, block_tables, lanes.block, lanes.offset,
+                                  lanes.desc, mesh)
         return _out_proj(out, p["wo"])
-    s_pad = block_tables.shape[1] * block_size
-    lane = torch.arange(w, device=x.device)
-    live = lane[None, :] < q_len[:, None]  # (B, W)
-    pos_c = torch.clamp(positions, max=s_pad - 1).long()
-    rows = torch.arange(b, device=x.device)[:, None]
-    bid = torch.where(live, block_tables.long()[rows, pos_c // block_size], k_pool.shape[0] - 1)
-    off = pos_c % block_size
-    k_pool[bid, off] = k_new.to(k_pool.dtype)
-    v_pool[bid, off] = v_new.to(v_pool.dtype)
-    q_start = positions[:, 0]
-    desc = torch.stack(
-        [torch.arange(b, device=x.device), q_start, q_len, q_start + q_len], dim=1
-    ).to(torch.int32)
-    out = mixed_prefill_attention(q, k_pool, v_pool, block_tables, desc)  # (B, W, H, hd)
-    return _out_proj(out, p["wo"])
+    k_pool[lanes.block, lanes.offset] = k_new.to(k_pool.dtype)
+    v_pool[lanes.block, lanes.offset] = v_new.to(v_pool.dtype)
+    return _out_proj(mixed_prefill_attention(q, k_pool, v_pool, block_tables, lanes.desc), p["wo"])
 
 
 def attn_decode_paged(cfg: ModelConfig, p, x, k_pool, v_pool, pos, block_tables, block_size: int,
@@ -302,15 +293,17 @@ def attn_decode_paged(cfg: ModelConfig, p, x, k_pool, v_pool, pos, block_tables,
     are updated in place."""
     b = x.shape[0]
     q, k_new, v_new = attn_qkv(cfg, p, x, pos[:, None])
-    if isinstance(k_pool, list):
-        one = torch.ones((b,), dtype=torch.int32, device=x.device)
-        out = _paged_attn_sharded(q, k_new, v_new, k_pool, v_pool, block_tables, pos, one, block_size, mesh)
-        return _out_proj(out, p["wo"])
     s_pad = block_tables.shape[1] * block_size
     pos_c = torch.clamp(pos, max=s_pad - 1).long()
     rows = torch.arange(b, device=x.device)
     bid = block_tables.long()[rows, pos_c // block_size]
     off = pos_c % block_size
+    if isinstance(k_pool, list):
+        one = torch.ones_like(pos)
+        desc = torch.stack([rows.to(pos.dtype), pos, one, pos + 1, rows.to(pos.dtype)], dim=1)
+        out = _paged_attn_sharded(q[:, 0], k_new[:, 0], v_new[:, 0], k_pool, v_pool, block_tables, bid, off, desc,
+                                  mesh)
+        return _out_proj(out[:, None], p["wo"])
     k_pool[bid, off] = k_new[:, 0].to(k_pool.dtype)
     v_pool[bid, off] = v_new[:, 0].to(v_pool.dtype)
     out = paged_decode_attention(q[:, 0], k_pool, v_pool, block_tables, pos + 1)[:, None]

@@ -8,7 +8,9 @@ batch and fills the contiguous cache ``init_cache`` builds, and
 ``decode_step`` without block tables then decodes from those per-row
 stripes (the contiguous engine and the lock-step baseline).
 ``mixed_step`` is the paged unified engine step (any mix of prompt
-chunks and decode rows, one pass over the layer stack), and
+chunks and decode rows, one pass over the layer stack) on the step's
+live tokens alone, packed onto one axis (``Lanes``, built on the host
+by ``pack_lanes``), with the head applied only to the lanes read, and
 ``decode_step`` with block tables decodes one token per row through the
 pool that ``init_paged_cache`` builds; ``paged_copy_block`` copies one
 pool block, the copy-on-write half of the engine's prefix cache;
@@ -48,8 +50,9 @@ through the same kernels.  The encoders (``dual_encoder``,
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -371,49 +374,91 @@ def encoder_stack(cfg: ModelConfig, params, h):
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
 
 
-def mixed_step(cfg: ModelConfig, params, tokens, cache, block_tables, q_start, q_len,
-               block_size: int, mesh=None):
-    """Unified engine step.  ``tokens`` (B, W): row ``b`` carries
-    ``q_len[b]`` live tokens from absolute position ``q_start[b]`` (a
-    decode row has ``q_len == 1``, an idle slot ``q_len == 0``).  Earlier
-    positions must already be in the pool blocks of ``block_tables``.  On
-    a sharded cache (over ``mesh``) each attention layer is the
-    distributed dispatch and everything else runs once, on the tokens'
-    device.  Returns logits (B, W, V); ``cache`` is updated in place.
-    Attention models only."""
+class Lanes(NamedTuple):
+    """The live lanes of a packed paged step, on the device: the N tokens
+    of the rows with ``q_len > 0``, row after row (``pack_lanes``)."""
+
+    pos: torch.Tensor  # (N,) int32: each token's absolute position
+    block: torch.Tensor  # (N,) int32: the pool block its K/V goes to
+    offset: torch.Tensor  # (N,) int32: its place in that block
+    desc: torch.Tensor  # (R, 5) int32: (slot, q_start, q_len, kv_len, q_off) a row
+    reads: torch.Tensor  # (n_read,) int32: the lanes whose logits the step returns
+
+
+def ragged(starts, counts) -> np.ndarray:
+    """``starts[i] .. starts[i] + counts[i] - 1`` for each i, one after the
+    other."""
+    starts, counts = np.asarray(starts, np.int64), np.asarray(counts, np.int64)
+    return np.repeat(starts - (np.cumsum(counts) - counts), counts) + np.arange(int(counts.sum()))
+
+
+def pack_lanes(q_start, q_len, n_read, tables, block_size: int) -> dict[str, np.ndarray]:
+    """Host side of a packed step: the ``Lanes`` fields as int32 arrays.
+    Row ``b`` (of the (B,) ``q_start``, ``q_len``, ``n_read``) carries
+    ``q_len[b]`` tokens from position ``q_start[b]``; the rows with
+    ``q_len > 0`` take lanes back to back in row order, and the last
+    ``n_read[b]`` lanes of each are read.  ``tables`` (B, n_t) are the
+    rows' block tables on the host, which address the K/V writes (a
+    position past them writes the table's last position)."""
+    q_start, q_len, n_read = (np.asarray(a, np.int64).reshape(-1) for a in (q_start, q_len, n_read))
+    rows = np.flatnonzero(q_len > 0)
+    lens, starts = q_len[rows], q_start[rows]
+    ends = np.cumsum(lens)
+    off = ends - lens
+    row_of = np.repeat(rows, lens)
+    pos = ragged(starts, lens)
+    pos_c = np.minimum(pos, np.shape(tables)[1] * block_size - 1)
+    k = n_read[rows]
+    reads = ragged(ends - k, k)
+    i32 = lambda a: np.asarray(a, np.int32)  # noqa: E731
+    return {
+        "pos": i32(pos),
+        "block": i32(np.asarray(tables)[row_of, pos_c // block_size]),
+        "offset": i32(pos_c % block_size),
+        "desc": i32(np.stack([rows, starts, lens, starts + lens, off], axis=1).reshape(-1, 5)),
+        "reads": i32(reads),
+    }
+
+
+def mixed_step(cfg: ModelConfig, params, tokens, cache, block_tables, lanes: Lanes, mesh=None):
+    """Unified engine step on the live tokens alone.  ``tokens`` (N,) are
+    the rows' tokens back to back as ``lanes`` lays them out: row ``r`` of
+    ``lanes.desc`` carries ``q_len`` of them from absolute position
+    ``q_start`` (a decode row has ``q_len == 1``; an idle slot has no
+    row).  Earlier positions must already be in the pool blocks of
+    ``block_tables`` (whose block size ``pack_lanes`` was given).  Every
+    layer runs on the (N, d) activations, the final norm and the head only
+    on the ``lanes.reads`` lanes.  On a sharded cache (over ``mesh``) each
+    attention layer is the distributed dispatch and everything else runs
+    once, on the tokens' device.  Returns logits (n_read, V); ``cache`` is
+    updated in place.  Attention models only."""
     _check_attention(cfg, "the unified mixed step")
-    b, w = tokens.shape
     h = L.embed_apply(cfg, params["embed"], tokens)
-    q_start = q_start.to(torch.int32)
-    q_len = q_len.to(torch.int32)
-    positions = q_start[:, None] + torch.arange(w, dtype=torch.int32, device=tokens.device)[None, :]
     for i in range(cfg.n_blocks):
         for j in range(cfg.scan_period):
             pp = _layer_params(params, i, j)
             c = cache[f"pos{j}"]
             x = L.rmsnorm(h, pp["mixer_norm"], cfg.norm_eps)
             h = h + L.attn_mixed_paged(
-                cfg, pp["attn"], x, _layer_pool(c["k"], i), _layer_pool(c["v"], i), positions, block_tables,
-                block_size, q_len, mesh,
+                cfg, pp["attn"], x, _layer_pool(c["k"], i), _layer_pool(c["v"], i), lanes, block_tables, mesh
             )
             h, _ = _ffn(cfg, pp, h)
-    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    h = L.rmsnorm(h[lanes.reads], params["final_norm"], cfg.norm_eps)
     return L.head_apply(cfg, params, h)
 
 
-def verify_step(cfg: ModelConfig, params, tokens, cache, block_tables, q_start, q_len,
-                block_size: int, mesh=None):
+def verify_step(cfg: ModelConfig, params, tokens, cache, block_tables, lanes: Lanes, mesh=None):
     """The speculative target pass: ``mixed_step`` over verify rows.  A
-    speculating row ``b`` carries ``q_len[b] <= k + 1`` lanes from its last
-    committed position ``q_start[b]``: lane 0 its last committed token,
-    lanes 1.. the drafter's proposals.  Each layer writes the lanes' K/V
-    into the pool before attending, so lane ``j``'s logits are what a
-    1-token decode would give after emitting lanes ``< j``; the engine's
-    greedy accept-prefix then keeps the output equal to plain decode.
-    Rejected lanes need no rollback: the next round's window starts at the
-    new committed position and rewrites every stale position before any
-    lane reads it.  Returns logits (B, W, V)."""
-    return mixed_step(cfg, params, tokens, cache, block_tables, q_start, q_len, block_size, mesh)
+    speculating row carries ``q_len <= k + 1`` lanes from its last
+    committed position ``q_start``: lane 0 its last committed token, lanes
+    1.. the drafter's proposals, all of them read.  Each layer writes the
+    lanes' K/V into the pool before attending, so lane ``j``'s logits are
+    what a 1-token decode would give after emitting lanes ``< j``; the
+    engine's greedy accept-prefix then keeps the output equal to plain
+    decode.  Rejected lanes need no rollback: the next round's window
+    starts at the new committed position and rewrites every stale
+    position before any lane reads it.  Returns logits (n_read, V)."""
+    return mixed_step(cfg, params, tokens, cache, block_tables, lanes, mesh)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos, block_tables=None,

@@ -306,22 +306,23 @@ def _moe_a2a(cfg: ModelConfig, pol, p, x2d):
 
 
 def moe_apply(cfg: ModelConfig, p, x, pol=None):
-    """x (B, S, d) -> (out (B, S, d), aux loss): the routed experts plus the
-    gated shared experts.  Without a policy whose mesh has a ``model``
-    axis over more than one device, the tp = 1 path at the capacity of B *
-    S tokens; with one, the expert-parallel form ``cfg.moe_impl`` names
-    (``a2a`` only where B * S divides over the mesh, else ``psum``), x
-    being the whole batch over ``pol.mesh``."""
-    b, s, d = x.shape
-    x2d = x.reshape(b * s, d)
+    """x (..., d), T tokens (B, S, d for a batch, N, d for a packed
+    serving step) -> (out of x's shape, aux loss): the routed experts plus
+    the gated shared experts.  Without a policy whose mesh has a ``model``
+    axis over more than one device, the tp = 1 path at the capacity of T
+    tokens; with one, the expert-parallel form ``cfg.moe_impl`` names
+    (``a2a`` only where T divides over the mesh, else ``psum``), x being
+    the whole batch over ``pol.mesh``."""
+    x2d = x.reshape(-1, x.shape[-1])
+    t = x2d.shape[0]
     mesh = pol.mesh if pol is not None else None
     if mesh is None or "model" not in mesh.shape or mesh.size == 1:
-        out, aux = _local_moe(cfg, _capacity(cfg, b * s, 1), p, x2d)
-    elif cfg.moe_impl == "a2a" and (b * s) % mesh.size == 0:
+        out, aux = _local_moe(cfg, _capacity(cfg, t, 1), p, x2d)
+    elif cfg.moe_impl == "a2a" and t % mesh.size == 0:
         out, aux = _moe_a2a(cfg, pol, p, x2d)
     else:
         out, aux = _moe_psum(cfg, pol, p, x2d)
-    out = out.reshape(b, s, d)
+    out = out.reshape(x.shape)
     if cfg.n_shared_experts:
         shared = mlp_apply(cfg, p["shared"], x)
         gate = torch.sigmoid((x @ p["shared_gate"].to(x.dtype)).float())

@@ -22,7 +22,10 @@ Serving modes (all share the slot-state contract):
     ``(q_start, q_len)`` descriptors: decode rows take one query lane
     each, and the prompts of admitted requests stream in FIFO through the
     remaining lanes of the ``token_budget``, so a long prompt never stalls
-    the rows already decoding.  When no prompt is in flight, the loop runs
+    the rows already decoding.  The step runs the live lanes alone,
+    packed back to back on the host (``lm.pack_lanes``, one upload a
+    dispatch), and the head only the lanes the engine reads: a row's last
+    lane, or every lane of a verify row.  When no prompt is in flight, the loop runs
     a fused decode chunk of up to ``sched_chunk`` ``decode_step``s
     instead.  ``mixed_dispatches`` and ``decode_dispatches`` count the
     two.
@@ -104,6 +107,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import EOS, PAD
 from repro_torch.models import lm as LM
 from repro_torch.models.layers import torch_dtype
+from repro_torch.models.lm import Lanes, pack_lanes, ragged
 from repro_torch.runtime import trace
 from repro_torch.runtime.compat import Mesh, make_mesh
 from repro_torch.serving.kv_cache import BlockPool, BlockTable, HostBlockStore, PrefixIndex, blocks_for
@@ -162,6 +166,14 @@ def _stamp_first_tokens(slots: list, rows, em_h) -> None:
         req = slots[i]
         if req is not None and req.first_token_at is None and em_h[i] >= 1:
             mark_first_token(req, now)
+
+
+def _targets(logits, read_dst, b: int, width: int):
+    """The read lanes' argmaxes at their places ``read_dst`` of a (b,
+    width) grid, 0 elsewhere."""
+    tgt = torch.zeros(b * width, dtype=torch.int32, device=logits.device)
+    tgt[read_dst] = torch.argmax(logits, -1).to(torch.int32)
+    return tgt.view(b, width)
 
 
 def _decode_lanes(em_before, em_after, rows, b: int) -> dict:
@@ -386,68 +398,89 @@ class ServeEngine:
     def _dev(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
 
-    def _mixed_rows(self, st, tok, q_start_h, q_len, is_decode, row_len, b_new, tables):
-        """ONE unified engine step: every row (mid-prompt fill, fill
-        completion, or 1-token decode) advances through a single
-        ``mixed_step``.  Decode rows read their token from ``cur`` at
-        position ``lengths + emitted - 1``; a fill row touches slot state
-        only on the chunk that reaches ``row_len`` (``completes``), which
-        seeds the slot with the chunk's last-lane argmax.  Rows with
-        ``q_len == 0`` are inert."""
+    def _upload(self, *groups: dict) -> list[dict[str, torch.Tensor]]:
+        """Every host array of one dispatch (int32 values), in ``groups`` of
+        named arrays, in one host-to-device copy, split back on the device
+        into views of each array's own shape: a dict of views a group."""
+        flat = [np.asarray(a, np.int32).reshape(-1) for g in groups for a in g.values()]
+        buf = self._dev(np.concatenate(flat))
+        out, at = [], 0
+        for g in groups:
+            views = {}
+            for name, a in g.items():
+                n = int(np.size(a))
+                views[name] = buf[at : at + n].view(np.shape(a))
+                at += n
+            out.append(views)
+        return out
+
+    def _step_arrays(self, q_start_h, q_len_h, n_read_h, feed_h, prompt, width: int, tables_h) -> dict:
+        """The host arrays of one packed step over the rows with ``q_len_h >
+        0``: its lanes (``pack_lanes``; the last ``n_read_h[b]`` lanes of row
+        ``b`` read), ``tok`` (N,) holding each row's ``prompt`` chunk (or
+        zeros), ``feed_dst`` / ``feed_src`` (lane ``j < feed_h[b]`` of row
+        ``b`` takes ``src[b * width + j]`` of a (B, width) token grid on the
+        device), ``read_dst`` (row ``b``'s ``j``-th read lands at ``b * width
+        + j``) and ``tables``."""
+        a = pack_lanes(q_start_h, q_len_h, n_read_h, tables_h, self.scfg.block_size)
+        rows, off = a["desc"][:, 0], a["desc"][:, 4]
+        tok = np.zeros(a["pos"].shape, np.int32)
+        for r, o in zip(rows, off):
+            if prompt[r] is not None:
+                tok[o : o + len(prompt[r])] = prompt[r]
+        a.update(tok=tok, feed_dst=ragged(off, feed_h[rows]), feed_src=ragged(rows * width, feed_h[rows]),
+                 read_dst=ragged(rows * width, n_read_h[rows]), tables=tables_h)
+        return a
+
+    @staticmethod
+    def _lanes_of(views: dict) -> Lanes:
+        return Lanes(*(views[f] for f in Lanes._fields))
+
+    def _target_step(self, is_dec, prompt, q_start_h, q_len_h, row_len_h, b_new_h, width: int):
+        """The host arrays of one ``_mixed_rows`` dispatch and its head
+        lanes: a decode or verify row (``is_dec``) feeds its lanes from the
+        device and reads every one; a fill row carries its ``prompt`` chunk
+        and reads its last lane, and ``completes`` where the chunk reaches
+        ``row_len``."""
+        fed = np.where(is_dec, q_len_h, 0)
+        n_read = np.where(is_dec, q_len_h, q_len_h > 0)
+        up = self._step_arrays(q_start_h, q_len_h, n_read, fed, prompt, width, self._tables_h)
+        up.update(is_dec=is_dec, q_len=q_len_h, row_len=row_len_h, b_new=b_new_h,
+                  completes=~is_dec & (q_len_h > 0) & (q_start_h + q_len_h >= row_len_h))
+        return up, int(n_read.sum())
+
+    def _mixed_rows(self, st, d, drafts=None):
+        """ONE unified engine step over the live lanes alone (``d``: the
+        step's uploaded ``_target_step`` arrays): fill chunks, 1-token
+        decode rows and, with ``drafts`` (B, draft_k), speculative verify
+        rows, through one packed ``mixed_step`` (``verify_step`` with
+        drafts).  A decode or verify row (``is_dec``) runs from ``q_start =
+        lengths + emitted - 1``: lane 0 carries ``cur``, lanes 1..q_len-1 the
+        drafts.  ``accept_prefix`` commits the longest run of drafts that
+        the per-lane argmaxes match, plus one target token (a decode row's
+        one token), at the row's own ``emitted`` offsets.  Rollback is
+        positional: only ``emitted`` advances, and the next window rewrites
+        every rejected position before any lane reads it.  A fill row
+        touches slot state only on the chunk that reaches ``row_len``
+        (``completes``), which seeds the slot with its last lane's argmax.
+        Slots with no lane are inert."""
         cur, lengths, emitted, done, budget, out = st
         b, t_cap = self.scfg.max_batch, self.scfg.max_new_tokens
+        if drafts is None:
+            drafts = torch.zeros((b, 0), dtype=torch.int32, device=self.device)
+        kd = drafts.shape[1]
         rows = torch.arange(b, device=self.device)
-        q_start = torch.where(is_decode, lengths + emitted - 1, q_start_h)
-        tok[:, 0] = torch.where(is_decode, cur, tok[:, 0])
-        logits = LM.mixed_step(
-            self.cfg, self.params, tok, self._cache, tables, q_start, q_len, self.scfg.block_size, **self._mesh_kw
-        )
-        last = logits[rows, torch.clamp(q_len - 1, min=0).long()]
-        nxt = torch.argmax(last, -1).to(torch.int32)
-        completes = (~is_decode) & (q_len > 0) & (q_start + q_len >= row_len)
-        emit_dec = is_decode & (q_len > 0) & ~done
-        idx = torch.clamp(emitted, max=t_cap).long()
-        out[rows, idx] = torch.where(emit_dec, nxt, out[rows, idx])
-        seeded = torch.zeros_like(out)
-        seeded[:, 0] = nxt
-        out = torch.where(completes[:, None], seeded, out)
-        cur = torch.where(completes | emit_dec, nxt, cur)
-        lengths = torch.where(completes, row_len, lengths)
-        budget = torch.where(completes, b_new, budget)
-        emitted = torch.where(completes, torch.ones_like(emitted), emitted + emit_dec.to(torch.int32))
-        done = torch.where(
-            completes,
-            (nxt == EOS) | (b_new <= 1),
-            done | (emit_dec & ((nxt == EOS) | (emitted >= budget))),
-        )
-        return cur, lengths, emitted, done, budget, out
-
-    def _spec_mixed_rows(self, st, tok, q_start_h, q_len, is_spec, drafts, row_len, b_new, tables):
-        """ONE target step in speculative mode: fill chunks advance as in
-        ``_mixed_rows``; each speculating row (``is_spec``) is a verify row
-        from ``q_start = lengths + emitted - 1`` whose lane 0 carries
-        ``cur`` and lanes 1..q_len-1 the drafts.  The per-lane argmaxes go
-        through ``accept_prefix``, and the committed run lands at the row's
-        own ``emitted`` offsets.  Rollback is positional: only ``emitted``
-        advances, and the next window rewrites every rejected position
-        before any lane reads it."""
-        cur, lengths, emitted, done, budget, out = st
-        b, t_cap, kd = self.scfg.max_batch, self.scfg.max_new_tokens, self.scfg.draft_k
-        rows = torch.arange(b, device=self.device)
-        q_start = torch.where(is_spec, lengths + emitted - 1, q_start_h)
-        tok[:, 0] = torch.where(is_spec, cur, tok[:, 0])
-        tok[:, 1 : kd + 1] = torch.where(is_spec[:, None], drafts, tok[:, 1 : kd + 1])
-        logits = LM.verify_step(
-            self.cfg, self.params, tok, self._cache, tables, q_start, q_len, self.scfg.block_size, **self._mesh_kw
-        )
-        # fill rows: the next token off the chunk's last live lane
-        nxt = torch.argmax(logits[rows, torch.clamp(q_len - 1, min=0).long()], -1).to(torch.int32)
-        completes = (~is_spec) & (q_len > 0) & (q_start + q_len >= row_len)
-        # verify rows: per-lane targets, greedy accept-prefix
-        tgt = torch.argmax(logits[:, : kd + 1, :], -1).to(torch.int32)
-        n_emit, can = accept_prefix(drafts, tgt, q_len=q_len, rem=budget - emitted, done=done)
-        n_emit = torch.where(is_spec, n_emit, torch.zeros_like(n_emit))
-        can = can & is_spec[:, None]
+        is_dec, completes, row_len, b_new = d["is_dec"].bool(), d["completes"].bool(), d["row_len"], d["b_new"]
+        tok = d["tok"]
+        tok[d["feed_dst"]] = torch.cat([cur[:, None], drafts], dim=1).reshape(-1)[d["feed_src"]]
+        step = LM.verify_step if kd else LM.mixed_step
+        logits = step(self.cfg, self.params, tok, self._cache, d["tables"], self._lanes_of(d), **self._mesh_kw)
+        # decode and verify rows: per-lane targets; fill rows: their last lane's, in column 0
+        tgt = _targets(logits, d["read_dst"], b, kd + 1)
+        nxt = tgt[:, 0]
+        n_emit, can = accept_prefix(drafts, tgt, q_len=d["q_len"], rem=budget - emitted, done=done)
+        n_emit = torch.where(is_dec, n_emit, torch.zeros_like(n_emit))
+        can = can & is_dec[:, None]
         # a lane clamped to the spare column t_cap never commits (j < rem),
         # so every write there puts back the value it read
         j = torch.arange(kd + 1, device=self.device)
@@ -470,33 +503,34 @@ class ServeEngine:
         )
         return cur, lengths, emitted, done, budget, out
 
-    def _draft_tokens(self, cur, dec_pos, d_dec_tables):
+    def _draft_tokens(self, cur, tables, ks: list):
         """The drafter's ``draft_k`` greedy proposals per row (B, draft_k):
-        q_len=1 mixed steps from ``dec_pos`` (each writes the fed token's
-        K/V, then attends), then a trailing write-only step for the k-th
-        proposal's K/V: a full accept moves the committed position past it,
-        and a hole there would corrupt every later draft of the row.  Rows
-        with an all-trash ``d_dec_tables`` row write into the trash block."""
-        b, kd, bs = self.scfg.max_batch, self.scfg.draft_k, self.scfg.block_size
+        q_len=1 mixed steps over every row, step ``t`` at the lanes ``ks[t]``
+        (position ``dec_pos + t``, through ``tables``; each writes the fed
+        token's K/V, then attends), then a trailing write-only step at
+        ``ks[draft_k]`` that reads nothing, for the k-th proposal's K/V: a
+        full accept moves the committed position past it, and a hole there
+        would corrupt every later draft of the row.  Rows with an all-trash
+        ``tables`` row write into the trash block."""
+        b, kd = self.scfg.max_batch, self.scfg.draft_k
         dcfg, dparams, dcache = self._draft_cfg, self._draft_params, self._draft_cache
-        one = torch.ones((b,), dtype=torch.int32, device=self.device)
         drafts = torch.zeros((b, max(kd, 1)), dtype=torch.int32, device=self.device)
         tok = cur
         for t in range(kd):
-            logits = LM.mixed_step(dcfg, dparams, tok[:, None], dcache, d_dec_tables, dec_pos + t, one, bs,
-                                   **self._mesh_kw)
-            tok = torch.argmax(logits[:, -1, :], -1).to(torch.int32)
+            logits = LM.mixed_step(dcfg, dparams, tok, dcache, tables, ks[t], **self._mesh_kw)
+            tok = torch.argmax(logits, -1).to(torch.int32)
             drafts[:, t] = tok
-        LM.mixed_step(dcfg, dparams, tok[:, None], dcache, d_dec_tables, dec_pos + kd, one, bs, **self._mesh_kw)
+        LM.mixed_step(dcfg, dparams, tok, dcache, tables, ks[kd], **self._mesh_kw)
         return drafts
 
-    def _draft_rows(self, d_tok, d_q_start, d_q_len, cur, dec_pos, d_tables, d_dec_tables):
+    def _draft_rows(self, cur, fill: dict, tables, ks: list):
         """The drafter's fill chunks (rows still streaming their prompt into
-        the drafter pool; q_len == 0 rows are inert), then ``_draft_tokens``:
-        one drafter dispatch."""
-        LM.mixed_step(self._draft_cfg, self._draft_params, d_tok, self._draft_cache, d_tables,
-                      d_q_start, d_q_len, self.scfg.block_size, **self._mesh_kw)
-        return self._draft_tokens(cur, dec_pos, d_dec_tables)
+        the drafter pool: ``fill``, the uploaded ``_step_arrays`` of those
+        rows; their logits are not read), then ``_draft_tokens``: one
+        drafter dispatch."""
+        LM.mixed_step(self._draft_cfg, self._draft_params, fill["tok"], self._draft_cache, fill["tables"],
+                      self._lanes_of(fill), **self._mesh_kw)
+        return self._draft_tokens(cur, tables, ks)
 
     def _decode_chunk(self, st, n_steps: int, cache, tables=None):
         """Fused decode of up to ``n_steps`` tokens across all slots, until
@@ -992,9 +1026,10 @@ class ServeEngine:
             d_tables_h[i, :] = self._trash_block
             d_fills[i] = None
 
-        def take_fills(runnable, tok, q_start_h, q_len_h, row_len_h, b_new_h, lanes):
-            """Fill chunks of the runnable rows, FIFO, into the lanes left;
-            returns the lanes still free."""
+        def take_fills(runnable, prompt, q_start_h, q_len_h, row_len_h, b_new_h, lanes):
+            """Fill chunks of the runnable rows, FIFO, into the lanes left
+            (``prompt[i]``: row ``i``'s chunk); returns the lanes still
+            free."""
             for i in runnable:
                 if lanes <= 0:
                     break
@@ -1008,7 +1043,7 @@ class ServeEngine:
                     pool.free([src])
                     fl["cow"] = None
                 take = min(fl["length"] - fl["pos"], lanes)
-                tok[i, :take] = fl["p"][fl["pos"] : fl["pos"] + take]
+                prompt[i] = fl["p"][fl["pos"] : fl["pos"] + take]
                 q_start_h[i] = fl["pos"]
                 q_len_h[i] = take
                 row_len_h[i] = fl["length"]
@@ -1195,32 +1230,38 @@ class ServeEngine:
                     # rows excluded from drafting write into the trash block
                     d_dec_tab = np.full_like(d_tables_h, self._trash_block)
                     d_dec_tab[draft_ok] = d_tables_h[draft_ok]
-                    dec_pos = self._dev(ln_h + em_h - 1)
+                    dec_pos = ln_h + em_h - 1
                     cur = st[0]
                     drafts = None
                     if d_fill_rows or draft_ok:
                         with trace.span("engine.step", kind="draft") as sp:
-                            d_ql = np.zeros((B,), np.int32)
+                            # the k-loop's q_len=1 steps run over every row (all
+                            # but the trailing write-only step read each row's
+                            # lane), the fill step over the fill lanes alone
+                            ones = np.ones((B,), np.int64)
+                            ks = [pack_lanes(dec_pos + t, ones, ones * (t < kd), d_dec_tab, bs)
+                                  for t in range(kd + 1)]
+                            d_ql = np.zeros((B,), np.int64)
                             if d_fill_rows:
-                                d_tok = np.zeros((B, W), np.int32)
-                                d_qs = np.zeros((B,), np.int32)
+                                d_qs = np.zeros((B,), np.int64)
+                                d_prompt: list = [None] * B
                                 d_lanes = W
                                 for i in d_fill_rows:
                                     if d_lanes <= 0:
                                         break
                                     fl = d_fills[i]
                                     take = min(fl["length"] - fl["pos"], d_lanes)
-                                    d_tok[i, :take] = fl["p"][fl["pos"] : fl["pos"] + take]
+                                    d_prompt[i] = fl["p"][fl["pos"] : fl["pos"] + take]
                                     d_qs[i], d_ql[i] = fl["pos"], take
                                     d_lanes -= take
                                     fl["pos"] += take
                                     if fl["pos"] >= fl["length"]:
                                         d_fills[i] = None
+                                none = np.zeros((B,), np.int64)
+                                fill = self._step_arrays(d_qs, d_ql, none, none, d_prompt, 1, d_tables_h)
                                 with trace.span("engine.launch"):
-                                    drafts = self._draft_rows(
-                                        self._dev(d_tok), self._dev(d_qs), self._dev(d_ql), cur, dec_pos,
-                                        self._dev(d_tables_h), self._dev(d_dec_tab),
-                                    )
+                                    tab, fill, *ks = self._upload({"t": d_dec_tab}, fill, *ks)
+                                    drafts = self._draft_rows(cur, fill, tab["t"], [self._lanes_of(k) for k in ks])
                                 # a dispatch that only streams drafter prompt chunks
                                 # is admission cost (the drafter's prefill), not a round's
                                 if draft_ok:
@@ -1229,20 +1270,20 @@ class ServeEngine:
                                     self.draft_fill_dispatches += 1
                             else:
                                 with trace.span("engine.launch"):
-                                    drafts = self._draft_tokens(cur, dec_pos, self._dev(d_dec_tab))
+                                    tab, *ks = self._upload({"t": d_dec_tab}, *ks)
+                                    drafts = self._draft_tokens(cur, tab["t"], [self._lanes_of(k) for k in ks])
                                 self.draft_dispatches += 1
-                            # the k-loop's q_len=1 steps run over every row, the
-                            # fill step (when there is one) over every lane
                             rows = sorted(set(np.flatnonzero(d_ql).tolist()) | set(draft_ok))
                             sp.attrs.update(rows=len(rows), rids=[slots[i].rid for i in rows],
                                             lanes_live=int(d_ql.sum()) + (kd + 1) * len(draft_ok),
-                                            lanes_run=(B * W if d_fill_rows else 0) + B * (kd + 1), fill_lanes=0)
-                    tok = np.zeros((B, W), np.int32)
-                    q_start_h = np.zeros((B,), np.int32)
-                    q_len_h = np.zeros((B,), np.int32)
+                                            lanes_run=int(d_ql.sum()) + B * (kd + 1), fill_lanes=0,
+                                            head_lanes=B * kd)
+                    prompt: list = [None] * B
+                    q_start_h = np.zeros((B,), np.int64)
+                    q_len_h = np.zeros((B,), np.int64)
                     is_spec = np.zeros((B,), bool)
-                    row_len_h = np.zeros((B,), np.int32)
-                    b_new_h = np.ones((B,), np.int32)
+                    row_len_h = np.zeros((B,), np.int64)
+                    b_new_h = np.ones((B,), np.int64)
                     oom = np.zeros((B,), bool)
                     lanes = W
                     # verify lanes first (fills absorb the wait), drafted rows
@@ -1259,23 +1300,22 @@ class ServeEngine:
                         if not self._grow(i, need, oom, dn_h, oom_slots):
                             continue
                         is_spec[i] = True
+                        q_start_h[i] = ln_h[i] + em_h[i] - 1
                         q_len_h[i] = v
                         lanes -= v
-                    fill = lanes - take_fills(runnable, tok, q_start_h, q_len_h, row_len_h, b_new_h, lanes)
+                    fill = lanes - take_fills(runnable, prompt, q_start_h, q_len_h, row_len_h, b_new_h, lanes)
                     st = mark_oom(st, oom)
                     if is_spec.any() or q_len_h.any():
                         rows = np.flatnonzero(q_len_h).tolist()
+                        up, head = self._target_step(is_spec, prompt, q_start_h, q_len_h, row_len_h, b_new_h, kd + 1)
                         with trace.span("engine.step", kind="spec", rows=len(rows), rids=[slots[i].rid for i in rows],
-                                        lanes_live=int(q_len_h.sum()), lanes_run=B * W, fill_lanes=fill):
+                                        lanes_live=int(q_len_h.sum()), lanes_run=int(q_len_h.sum()), fill_lanes=fill,
+                                        head_lanes=head):
                             em_before = em_h.copy()
                             if drafts is None:
                                 drafts = torch.zeros((B, kd), dtype=torch.int32, device=dev)
                             with trace.span("engine.launch"):
-                                st = self._spec_mixed_rows(
-                                    st, self._dev(tok), self._dev(q_start_h), self._dev(q_len_h),
-                                    self._dev(is_spec, torch.bool), drafts,
-                                    self._dev(row_len_h), self._dev(b_new_h), self._dev(tables_h),
-                                )
+                                st = self._mixed_rows(st, self._upload(up)[0], drafts)
                             em_h, dn_h = self._readback(st)
                         self.mixed_dispatches += 1
                         steps += 1
@@ -1289,12 +1329,12 @@ class ServeEngine:
                 elif runnable:
                     # ---- ONE mixed dispatch: decode lanes + fill chunks ----
                     with trace.span("engine.step", kind="mixed") as sp:
-                        tok = np.zeros((B, W), np.int32)
-                        q_start_h = np.zeros((B,), np.int32)
-                        q_len_h = np.zeros((B,), np.int32)
+                        prompt: list = [None] * B
+                        q_start_h = np.zeros((B,), np.int64)
+                        q_len_h = np.zeros((B,), np.int64)
                         is_dec = np.zeros((B,), bool)
-                        row_len_h = np.zeros((B,), np.int32)
-                        b_new_h = np.ones((B,), np.int32)
+                        row_len_h = np.zeros((B,), np.int64)
+                        b_new_h = np.ones((B,), np.int64)
                         oom = np.zeros((B,), bool)
                         lanes = W
                         for i in dec_rows:  # decode first: fills absorb the wait
@@ -1304,19 +1344,18 @@ class ServeEngine:
                             if not self._grow(i, need, oom, dn_h, oom_slots):
                                 continue
                             is_dec[i] = True
+                            q_start_h[i] = ln_h[i] + em_h[i] - 1
                             q_len_h[i] = 1
                             lanes -= 1
-                        fill = lanes - take_fills(runnable, tok, q_start_h, q_len_h, row_len_h, b_new_h, lanes)
+                        fill = lanes - take_fills(runnable, prompt, q_start_h, q_len_h, row_len_h, b_new_h, lanes)
                         rows = np.flatnonzero(q_len_h).tolist()
+                        up, head = self._target_step(is_dec, prompt, q_start_h, q_len_h, row_len_h, b_new_h, 1)
                         sp.attrs.update(rows=len(rows), rids=[slots[i].rid for i in rows],
-                                        lanes_live=int(q_len_h.sum()), lanes_run=B * W, fill_lanes=fill)
+                                        lanes_live=int(q_len_h.sum()), lanes_run=int(q_len_h.sum()), fill_lanes=fill,
+                                        head_lanes=head)
                         st = mark_oom(st, oom)
                         with trace.span("engine.launch"):
-                            st = self._mixed_rows(
-                                st, self._dev(tok), self._dev(q_start_h), self._dev(q_len_h),
-                                self._dev(is_dec, torch.bool), self._dev(row_len_h),
-                                self._dev(b_new_h), self._dev(tables_h),
-                            )
+                            st = self._mixed_rows(st, self._upload(up)[0])
                         em_h, dn_h = self._readback(st)
                     self.mixed_dispatches += 1
                     steps += 1

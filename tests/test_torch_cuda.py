@@ -23,6 +23,7 @@ from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.retrieval_topk import ops as rt_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ss_ops  # noqa: E402
+from _lanes import pack_rows  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -172,6 +173,54 @@ def test_mixed_prefill_matches_plain(cuda_device, b, w, h, kv, dh, bs, n_t, dtyp
     np.testing.assert_allclose(o.float().cpu().numpy(), o_p.float().cpu().numpy(), rtol=tol, atol=tol)
     dead = torch.arange(w, device=cuda_device)[None, :] >= args[4][:, 2:3]
     assert (o[dead] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,w,h,kv,dh,bs,n_t", [(5, 6, 8, 4, 32, 16, 4), (6, 4, 4, 4, 16, 4, 3), (8, 256, 16, 8, 128, 32, 9)]
+)
+def test_mixed_prefill_packed_matches_plain_and_padded(cuda_device, b, w, h, kv, dh, bs, n_t, dtype):
+    """The packed form: the rows' live lanes back to back, at offsets that
+    are no multiple of a tile, one-lane rows and a zero-length row among
+    them; against its plain version, and bitwise the padded form's output
+    at every live lane (one kernel body)."""
+    rng = np.random.default_rng(b * w + n_t)
+    args = _mixed_case(rng, b, w, h, kv, dh, bs, n_t, dtype, cuda_device)
+    qp, d5, rows, lanes = pack_rows(args[0], args[4])
+    o = cp_ops.mixed_prefill_attention(qp, *args[1:4], d5)
+    o_p = cp_ops.mixed_prefill_attention_plain(qp, *args[1:4], d5)
+    pad = cp_ops.mixed_prefill_attention(*args)
+    torch.cuda.synchronize()
+    tol = _tol(dtype)
+    np.testing.assert_allclose(o.float().cpu().numpy(), o_p.float().cpu().numpy(), rtol=tol, atol=tol)
+    assert torch.equal(o, pad[torch.as_tensor(rows), torch.as_tensor(lanes)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixed_prefill_packed_at_the_serving_mix(cuda_device, dtype):
+    """qwen3-4b's admission step: H = 32, KV = 8, dh = 128, bs = 32, one
+    fill of 1,057 lanes beside 31 decode rows, packed at 1,088 lanes; the
+    plain version within tolerance, the padded form bitwise."""
+    rng = np.random.default_rng(27)
+    b, w, h, kv, dh, bs, n_t = 32, 1057, 32, 8, 128, 32, 35
+    n_pool = b * n_t + 1
+    q = torch.as_tensor(rng.standard_normal((b, w, h, dh)), dtype=torch.float32).to(dtype).to(cuda_device)
+    kp, vp = (torch.as_tensor(rng.standard_normal((n_pool, bs, kv, dh)), dtype=torch.float32).to(dtype)
+              .to(cuda_device) for _ in range(2))
+    tables = torch.as_tensor(rng.permutation(n_pool - 1)[: b * n_t].reshape(b, n_t), dtype=torch.int32,
+                             device=cuda_device)
+    desc = np.array([(i, int(p), 1, int(p) + 1) for i, p in enumerate(rng.integers(1057, 1120, size=b))], np.int32)
+    desc[5] = (5, 0, 1057, 1057)
+    desc = torch.as_tensor(desc, device=cuda_device)
+    qp, d5, rows, lanes = pack_rows(q, desc)
+    assert qp.shape[0] == 1088
+    o = cp_ops.mixed_prefill_attention(qp, kp, vp, tables, d5)
+    o_p = cp_ops.mixed_prefill_attention_plain(qp, kp, vp, tables, d5)
+    pad = cp_ops.mixed_prefill_attention(q, kp, vp, tables, desc)
+    torch.cuda.synchronize()
+    tol = _tol(dtype)
+    np.testing.assert_allclose(o.float().cpu().numpy(), o_p.float().cpu().numpy(), rtol=tol, atol=tol)
+    assert torch.equal(o, pad[torch.as_tensor(rows), torch.as_tensor(lanes)])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1163,6 +1212,29 @@ def test_mixed_prefill_partials_match_plain(cuda_device, g, dh, dtype):
         o, m, l = got
         empty = (want[2] == 0)[..., 0]
         assert bool((m[empty] == -1e30).all()) and bool((l[empty] == 0).all()) and bool((o[empty] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("g", [1, 2])
+def test_mixed_prefill_packed_partials_match_plain_and_padded(cuda_device, g, dh, dtype):
+    """The packed partials ((N, KV, G, dh), (N, KV, G, 1) twice) against
+    their plain version under each mask, and bitwise the padded partials
+    at every live lane."""
+    q, kp, vp, tables, desc, n_local = _sharded_case(np.random.default_rng(g * dh + 1), cuda_device, dtype, g, dh)
+    qp, d5, rows, lanes = pack_rows(q, desc)
+    rng = np.random.default_rng(4)
+    masks = [None, torch.as_tensor(rng.random(tuple(tables.shape)) < 0.5, device=cuda_device)]
+    masks += [(tables // n_local) == s for s in range(4)]
+    at = (torch.as_tensor(rows), slice(None), slice(None), torch.as_tensor(lanes))
+    for owned in masks:
+        got = cp_ops.mixed_prefill_partials(qp, kp, vp, tables, d5, owned=owned)
+        want = cp_ops.mixed_prefill_partials_plain(qp, kp, vp, tables, d5, owned=owned)
+        pad = cp_ops.mixed_prefill_partials(q, kp, vp, tables, desc, owned=owned)
+        torch.cuda.synchronize()
+        assert all(t.dtype == torch.float32 and t.shape == u.shape for t, u in zip(got, want))
+        _partials_close(got, want, _tol(dtype))
+        assert all(torch.equal(t, u[at]) for t, u in zip(got, pad))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -265,8 +265,9 @@ def test_paged_path_refuses_hybrid(bridged_served):
     cache = TLM.init_cache(tcfg, 1, 8, dtype=torch.float32, device="cpu")
     tok = T(np.zeros((1, 4), np.int32))
     tables = T(np.zeros((1, 1), np.int32))
+    lanes = TLM.Lanes(*(T(a) for a in TLM.pack_lanes([0], [4], [1], np.zeros((1, 1), np.int32), 8).values()))
     with pytest.raises(NotImplementedError, match="attention"):
-        TLM.mixed_step(tcfg, tparams, tok, cache, tables, T([0]), T([4]), 8)
+        TLM.mixed_step(tcfg, tparams, tok[0], cache, tables, lanes)
     with pytest.raises(NotImplementedError, match="attention"):
         TLM.decode_step(tcfg, tparams, cache, tok[:, :1], T([0]), block_tables=tables, block_size=8)
 

@@ -31,6 +31,7 @@ from repro.kernels.retrieval_topk.ref import retrieval_topk_ref  # noqa: E402
 from repro.kernels.ssd_scan.kernel import ssd_chunk_pallas  # noqa: E402
 from repro.kernels.ssd_scan.ref import ssd_chunk_ref  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from _lanes import pack_rows  # noqa: E402
 from repro_torch.kernels.chunked_prefill import ops as cp_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -204,6 +205,23 @@ def test_mixed_prefill_plain_matches_pallas_and_ref(b, w, h, kv, dh, bs, n_t):
     np.testing.assert_allclose(o, o_r, rtol=2e-5, atol=2e-5)
     dead = np.arange(w)[None, :] >= args[4][:, 2][:, None]
     assert (o[dead] == 0).all()
+
+
+@pytest.mark.parametrize(
+    "b,w,h,kv,dh,bs,n_t", [(5, 6, 8, 4, 32, 16, 4), (6, 4, 4, 4, 16, 4, 3), (3, 8, 16, 2, 64, 8, 2)]
+)
+def test_mixed_prefill_packed_plain_matches_ref_at_live_lanes(b, w, h, kv, dh, bs, n_t):
+    """The packed form (the rows' live lanes back to back, at offsets that
+    are no multiple of a tile; a zero-length row carries no lane) gives
+    the reference's padded output at every live lane."""
+    rng = np.random.default_rng(b * w + n_t)
+    args = _mixed_case(rng, b, w, h, kv, dh, bs, n_t)
+    qp, d5, rows, lanes = pack_rows(args[0], args[4])
+    assert (d5[:, 2] == 1).any() and (d5[:, 4] % 2).any()
+    o = cp_ops.mixed_prefill_attention(*map(T, (qp, *args[1:4], d5))).numpy()
+    o_r = np.asarray(mixed_prefill_attention_ref(*map(jnp.asarray, args)))
+    assert o.shape == qp.shape
+    np.testing.assert_allclose(o, o_r[rows, lanes], rtol=2e-5, atol=2e-5)
 
 
 def test_mixed_prefill_trash_poison_never_leaks():

@@ -173,7 +173,8 @@ def test_paged_steps_refuse_ssm():
         TLM.init_paged_cache(tcfg, 4, 8, dtype=torch.float32, device="cpu")
     cache = TLM.init_cache(tcfg, 1, 8, dtype=torch.float32, device="cpu")
     tok = T(np.zeros((1, 4), np.int32))
+    lanes = TLM.Lanes(*(T(a) for a in TLM.pack_lanes([0], [4], [1], np.zeros((1, 1), np.int32), 8).values()))
     with pytest.raises(NotImplementedError, match="attention"):
-        TLM.mixed_step(tcfg, tparams, tok, cache, T(np.zeros((1, 1), np.int32)), T([0]), T([4]), 8)
+        TLM.mixed_step(tcfg, tparams, tok[0], cache, T(np.zeros((1, 1), np.int32)), lanes)
     with pytest.raises(NotImplementedError, match="attention"):
         TLM.decode_step(tcfg, tparams, cache, tok[:, :1], T([0]), block_tables=T(np.zeros((1, 1), np.int32)), block_size=8)

@@ -1,8 +1,9 @@
 """The port's dense LM against the reference, with the reference's own
 weights carried over by ``params.from_reference``.
 
-``mixed_step``, ``forward``, ``prefill`` and ``decode_step`` (paged and
-contiguous) logits and updated caches are held to ``repro.models.lm`` run
+``mixed_step`` (on packed lanes, at the lanes it reads), ``forward``,
+``prefill`` and ``decode_step`` (paged and contiguous) logits and updated
+caches are held to ``repro.models.lm`` run
 with ``attn_impl="pallas"`` (interpret mode on the CPU) at atol 1e-4 in
 f32, for qwen3-0.6b (qk-norm, tied embeddings) and llama3-8b (untied
 head) at smoke width; the port's whole-sequence attention also against
@@ -23,6 +24,7 @@ from repro_torch.configs import get_config as t_get, smoke_config as t_smoke  # 
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import lm as TLM  # noqa: E402
 from repro_torch.models.params import ParamTree, from_reference, init_params, leaves  # noqa: E402
+from _lanes import packed  # noqa: E402
 
 POL = ShardingPolicy(rules=base_rules(False), mesh=None)
 T = torch.as_tensor
@@ -42,11 +44,12 @@ def test_mixed_then_decode_match_reference(name):
     assert ("head" in tparams) == (not tcfg.tie_embeddings)
     bs, n_pool = 4, 13
     rng = np.random.default_rng(0)
-    # rows: a cold prompt chunk, a decode row, an idle slot; unallocated
-    # table entries point at the trash block (index n_pool - 1)
-    tables = np.array([[0, 1, 2, 3], [4, 5, 6, 12], [7, 8, 12, 12]], np.int32)
-    tok = rng.integers(0, cfg.vocab_size, size=(3, 5)).astype(np.int32)
-    q_start, q_len = np.array([0, 3, 2], np.int32), np.array([5, 1, 0], np.int32)
+    # rows: a full-width cold prompt chunk, a decode row, an idle slot and
+    # a mid-prompt chunk; unallocated table entries point at the trash
+    # block (index n_pool - 1)
+    tables = np.array([[0, 1, 2, 3], [4, 5, 6, 12], [7, 8, 12, 12], [9, 10, 11, 12]], np.int32)
+    tok = rng.integers(0, cfg.vocab_size, size=(4, 5)).astype(np.int32)
+    q_start, q_len = np.array([0, 3, 2, 4], np.int32), np.array([5, 1, 0, 3], np.int32)
     cache = RLM.init_paged_cache(cfg, n_pool, bs, 0, dtype=jnp.float32)
     cache = jax.tree.map(lambda x: jnp.asarray(rng.standard_normal(x.shape), jnp.float32), cache)
     tcache = {k: {kk: T(np.array(v)) for kk, v in d.items()} for k, d in cache.items()}
@@ -55,15 +58,22 @@ def test_mixed_then_decode_match_reference(name):
         cfg, POL, params, jnp.asarray(tok), cache, jnp.asarray(tables),
         jnp.asarray(q_start), jnp.asarray(q_len), bs,
     )
-    lt = TLM.mixed_step(tcfg, tparams, T(tok), tcache, T(tables), T(q_start), T(q_len), bs)
-    np.testing.assert_allclose(lt.numpy(), np.asarray(lr), rtol=0, atol=1e-4)
+    # every live lane read, then the engine's reads: each row's last lane
+    ptok, lanes, at = packed(tok, q_start, q_len, tables, bs)
+    t_all = {k: {kk: v.clone() for kk, v in d.items()} for k, d in tcache.items()}
+    lt = TLM.mixed_step(tcfg, tparams, ptok, t_all, T(tables), lanes)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lr)[at], rtol=0, atol=1e-4)
+    ptok, lanes, at = packed(tok, q_start, q_len, tables, bs, n_read=np.minimum(q_len, 1))
+    lt = TLM.mixed_step(tcfg, tparams, ptok, tcache, T(tables), lanes)
+    assert lt.shape == (3, cfg.vocab_size) and list(at[0]) == [0, 1, 3]
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lr)[at], rtol=0, atol=1e-4)
     for k in cache:
         for kk in cache[k]:
             live = np.asarray(cache[k][kk])[:, :-1]  # the trash block's content is unspecified
             np.testing.assert_allclose(tcache[k][kk].numpy()[:, :-1], live, rtol=0, atol=1e-4)
 
-    pos = np.array([5, 4, 2], np.int32)
-    dtok = rng.integers(0, cfg.vocab_size, size=(3, 1)).astype(np.int32)
+    pos = np.array([5, 4, 2, 7], np.int32)
+    dtok = rng.integers(0, cfg.vocab_size, size=(4, 1)).astype(np.int32)
     lr2, cache = RLM.decode_step(
         cfg, POL, params, cache, jnp.asarray(dtok), jnp.asarray(pos),
         block_tables=jnp.asarray(tables), block_size=bs,
@@ -100,9 +110,10 @@ def test_forward_and_prefill_match_reference(name, attn_impl):
 
     bs = 8
     pool = TLM.init_paged_cache(tcfg, 2 * 6 + 1, bs, dtype=torch.float32, device="cpu")
-    tables = T(np.arange(12, dtype=np.int32).reshape(2, 6))
-    lm = TLM.mixed_step(tcfg, tparams, T(tok), pool, tables, T([0, 0]), T([48, 48]), bs)
-    np.testing.assert_allclose(lm.numpy(), lt.numpy(), rtol=0, atol=1e-4)
+    tables = np.arange(12, dtype=np.int32).reshape(2, 6)
+    ptok, lanes, _ = packed(tok, [0, 0], [48, 48], tables, bs)
+    lm = TLM.mixed_step(tcfg, tparams, ptok, pool, T(tables), lanes)
+    np.testing.assert_allclose(lm.numpy().reshape(2, 48, -1), lt.numpy(), rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("per_row", [True, False], ids=["per_row_pos", "scalar_pos"])
@@ -214,3 +225,19 @@ def test_prefill_decode_matches_forward_and_reference(name):
     for t in range(p, p + 3):
         lg = TLM.decode_step(tcfg, tparams, tcache, T(tok[:, t : t + 1]), T(t))
         np.testing.assert_allclose(lg[:, 0].numpy(), full_t[:, t].numpy(), rtol=2e-3, atol=2e-3)
+
+
+def test_pack_lanes_lays_live_rows_back_to_back():
+    """Rows with lanes take them in row order; a row of ``q_len`` 0 has no
+    descriptor; each token's K/V goes to its position's table entry (a
+    position past the table writes the table's last position); the last
+    ``n_read`` lanes of each row are read."""
+    tables = np.array([[3, 4], [5, 6], [7, 8], [9, 10]])
+    host = TLM.pack_lanes([2, 0, 5, 7], [3, 0, 1, 2], [1, 0, 1, 0], tables, block_size=4)
+    np.testing.assert_array_equal(TLM.ragged([2, 5, 7], [3, 1, 2]), [2, 3, 4, 5, 7, 8])
+    np.testing.assert_array_equal(host["pos"], [2, 3, 4, 5, 7, 8])
+    np.testing.assert_array_equal(host["block"], [3, 3, 4, 8, 10, 10])
+    np.testing.assert_array_equal(host["offset"], [2, 3, 0, 1, 3, 3])
+    np.testing.assert_array_equal(host["desc"], [[0, 2, 3, 5, 0], [2, 5, 1, 6, 3], [3, 7, 2, 9, 4]])
+    np.testing.assert_array_equal(host["reads"], [2, 3])
+    assert all(a.dtype == np.int32 for a in host.values())

@@ -7,8 +7,8 @@ including capacity drops at slack 0.25; ``_capacity`` equal over a grid;
 gates renormalised and padded experts never routed.  Smoke-width
 qwen2-moe-a2.7b (H = KV = 4 heads, so one query head per KV head; 8
 experts allocated as 16, top-4, one shared expert): ``forward`` with its
-aux loss, ``prefill``, ``mixed_step`` and ``decode_step`` within 2e-5 in
-f32; the paged, contiguous and lock-step engines token-exact within the
+aux loss, ``prefill``, ``mixed_step`` (on packed lanes, at the lanes it
+reads) and ``decode_step`` within 2e-5 in f32; the paged, contiguous and lock-step engines token-exact within the
 port and equal to the reference engine's tokens (or first different where
 the reference's top-2 margin is under 1e-4).
 """
@@ -32,6 +32,7 @@ from repro_torch.models import lm as TLM  # noqa: E402
 from repro_torch.models import moe as TMOE  # noqa: E402
 from repro_torch.models.params import from_reference  # noqa: E402
 from repro_torch.serving import engine as TE  # noqa: E402
+from _lanes import packed  # noqa: E402
 
 POL = ShardingPolicy(rules=base_rules(False), mesh=None)
 T = torch.as_tensor
@@ -135,21 +136,23 @@ def test_mixed_then_decode_match_reference(bridged):
     cfg, tcfg, params, tparams = bridged
     bs, n_pool = 4, 13
     rng = np.random.default_rng(0)
-    tables = np.array([[0, 1, 2, 3], [4, 5, 6, 12], [7, 8, 12, 12]], np.int32)
-    tok = rng.integers(0, cfg.vocab_size, size=(3, 5)).astype(np.int32)
-    q_start, q_len = np.array([0, 3, 2], np.int32), np.array([5, 1, 0], np.int32)
+    # a full-width cold chunk, a decode row, an idle slot, a mid-prompt chunk
+    tables = np.array([[0, 1, 2, 3], [4, 5, 6, 12], [7, 8, 12, 12], [9, 10, 11, 12]], np.int32)
+    tok = rng.integers(0, cfg.vocab_size, size=(4, 5)).astype(np.int32)
+    q_start, q_len = np.array([0, 3, 2, 4], np.int32), np.array([5, 1, 0, 3], np.int32)
     cache = RLM.init_paged_cache(cfg, n_pool, bs, 0, dtype=jnp.float32)
     cache = jax.tree.map(lambda x: jnp.asarray(rng.standard_normal(x.shape), jnp.float32), cache)
     tcache = {k: {kk: T(np.array(v)) for kk, v in d.items()} for k, d in cache.items()}
     lr, cache = RLM.mixed_step(cfg, POL, params, jnp.asarray(tok), cache, jnp.asarray(tables),
                                jnp.asarray(q_start), jnp.asarray(q_len), bs)
-    lt = TLM.mixed_step(tcfg, tparams, T(tok), tcache, T(tables), T(q_start), T(q_len), bs)
-    np.testing.assert_allclose(lt.numpy(), np.asarray(lr), rtol=0, atol=2e-5)
-    lv = TLM.verify_step(tcfg, tparams, T(tok), {k: {kk: v.clone() for kk, v in d.items()} for k, d in tcache.items()},
-                         T(tables), T(q_start), T(q_len), bs)
+    ptok, lanes, at = packed(tok, q_start, q_len, tables, bs)
+    lt = TLM.mixed_step(tcfg, tparams, ptok, tcache, T(tables), lanes)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lr)[at], rtol=0, atol=2e-5)
+    lv = TLM.verify_step(tcfg, tparams, ptok, {k: {kk: v.clone() for kk, v in d.items()} for k, d in tcache.items()},
+                         T(tables), lanes)
     assert torch.equal(lv, lt)  # verify_step is mixed_step
-    pos = np.array([5, 4, 2], np.int32)
-    dtok = rng.integers(0, cfg.vocab_size, size=(3, 1)).astype(np.int32)
+    pos = np.array([5, 4, 2, 7], np.int32)
+    dtok = rng.integers(0, cfg.vocab_size, size=(4, 1)).astype(np.int32)
     lr2, cache = RLM.decode_step(cfg, POL, params, cache, jnp.asarray(dtok), jnp.asarray(pos),
                                  block_tables=jnp.asarray(tables), block_size=bs)
     lt2 = TLM.decode_step(tcfg, tparams, tcache, T(dtok), T(pos), T(tables), bs)

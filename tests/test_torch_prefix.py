@@ -240,21 +240,20 @@ def test_shared_chunks_written_before_read(bridged):
     real_mixed, real_copy = TLM.mixed_step, TLM.paged_copy_block
     checked = [0]
 
-    def mixed(cfg, params, tokens, cache, tables, q_start, q_len, bs):
-        t = tables.cpu().numpy()
-        qs, ql = q_start.cpu().numpy(), q_len.cpu().numpy()
-        for r in range(len(ql)):
-            if ql[r] == 0:
-                continue
-            for pos in range(qs[r]):
+    def mixed(cfg, params, tokens, cache, tables, lanes):
+        t, bs = tables.cpu().numpy(), eng.scfg.block_size
+        desc = lanes.desc.cpu().numpy()
+        for r, qs, ql, _, _ in desc:
+            assert ql > 0  # the packed step carries live rows only
+            for pos in range(qs):
                 key = (int(t[r, pos // bs]), pos % bs)
                 assert key in written and written[key] < step[0], (r, pos, key)
                 checked[0] += 1
-        for r in range(len(ql)):
-            for pos in range(qs[r], qs[r] + ql[r]):
+        for r, qs, ql, _, _ in desc:
+            for pos in range(qs, qs + ql):
                 written[(int(t[r, pos // bs]), pos % bs)] = step[0]
         step[0] += 1
-        return real_mixed(cfg, params, tokens, cache, tables, q_start, q_len, bs)
+        return real_mixed(cfg, params, tokens, cache, tables, lanes)
 
     def decode(cfg, params, cache, tokens, pos, block_tables=None, block_size=0):
         t, ps = block_tables.cpu().numpy(), pos.cpu().numpy()

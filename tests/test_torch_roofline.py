@@ -174,6 +174,11 @@ def _warm_case():
     return desc, tables
 
 
+# qwen3-4b's admission step, packed: one fill of 1,057 lanes beside 31 decode rows
+DESC4 = [(0, 0, 1057, 1057)] + [(r, 1057 + (37 * r) % 63, 1, 1058 + (37 * r) % 63) for r in range(1, 32)]
+DESC4 = [(*d, 0 if r == 0 else 1057 + r - 1) for r, d in enumerate(DESC4)]
+
+
 def _ssd(b, l, h, hd, ds, g, dtype=torch.bfloat16):
     x = _m(b, l, h, hd, dtype=dtype)
     bg = _m(b, l, g, ds, dtype=dtype)
@@ -196,6 +201,8 @@ HOOK_ROWS = [
     ("mixed_prefill warm admission", (0.003455, "bytes"),
      lambda: cp.cost(_m(R, W, 16, 128), _m(73, BS, 8, 128), None, _m(R, NT), _m(R, 4),
                      desc_host=_warm_case()[0], tables_host=_warm_case()[1])),
+    ("mixed_prefill packed, qwen3-4b admission", (0.047895, "bytes"),
+     lambda: cp.cost(_m(1088, 32, 128), _m(1121, BS, 8, 128), None, _m(32, 35), _m(32, 5), desc_host=DESC4)),
     ("mixed_prefill partials, owned", (0.007192, "bytes"),
      lambda: cp.cost(_m(R, W, 16, 128), _m(73, BS, 8, 128), None, _m(R, NT), _m(R, 4), owned=_m(R, NT),
                      partials=True, desc_host=DESC)),

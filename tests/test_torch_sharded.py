@@ -31,6 +31,7 @@ from repro.models import lm as RLM  # noqa: E402
 from repro.models.params import init_params as r_init  # noqa: E402
 from repro.runtime.sharding import ShardingPolicy, base_rules  # noqa: E402
 from repro.serving.engine import ServeConfig as RServe, ServeEngine as REngine  # noqa: E402
+from _lanes import pack_rows  # noqa: E402
 from repro_torch.configs import get_config as t_get, smoke_config as t_smoke  # noqa: E402
 from repro_torch.core.retrieval import federated_topk, federated_topk_jit  # noqa: E402
 from repro_torch.kernels.chunked_prefill.ops import (  # noqa: E402
@@ -108,6 +109,28 @@ def test_mixed_prefill_partials_plain_matches_reference(owned_kind):
     again = mixed_prefill_partials(*(torch.as_tensor(a) for a in (q, kp, vp, tables, desc)),
                                    owned=None if owned is None else torch.as_tensor(owned))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("owned_kind", ["none", "parity", "row_affine", "nothing"])
+def test_mixed_prefill_packed_partials_plain_match_reference_at_live_lanes(owned_kind):
+    """The packed partials ((N, KV, G, dh), (N, KV, G, 1) twice) equal the
+    reference's padded partials at every live lane (1e-5)."""
+    q, kp, vp, tables, desc = _mixed_inputs()
+    owned = {
+        "none": None,
+        "parity": tables % 2 == 0,
+        "row_affine": np.array([[True], [False], [True]]) & np.ones_like(tables, bool),
+        "nothing": np.zeros_like(tables, bool),
+    }[owned_kind]
+    want = r_partials(*(jnp.asarray(a) for a in (q, kp, vp, tables, desc)),
+                      owned=None if owned is None else jnp.asarray(owned))
+    qp, d5, rows, lanes = pack_rows(q, desc)
+    got = mixed_prefill_partials(*(torch.as_tensor(a) for a in (qp, kp, vp, tables, d5)),
+                                 owned=None if owned is None else torch.as_tensor(owned))
+    for g_, w_ in zip(got, want):
+        w_ = np.moveaxis(np.asarray(w_), 3, 1)[rows, lanes]  # (R, W, KV, G, .) at the live lanes
+        assert g_.dtype == torch.float32 and tuple(g_.shape) == w_.shape
+        np.testing.assert_allclose(g_.numpy(), w_, rtol=1e-5, atol=1e-5)
 
 
 def test_mixed_prefill_partials_combine_to_the_normalised_output():

@@ -77,12 +77,12 @@ class FakeLM:
         return FakeLM._logits(tokens, params)
 
     @staticmethod
-    def mixed_step(cfg, params, tokens, cache, block_tables, q_start, q_len, block_size):
-        return FakeLM._logits(tokens, params)
+    def mixed_step(cfg, params, tokens, cache, block_tables, lanes):
+        return FakeLM._logits(tokens[lanes.reads.long()], params)
 
     @staticmethod
-    def verify_step(cfg, params, tokens, cache, block_tables, q_start, q_len, block_size):
-        return FakeLM.mixed_step(cfg, params, tokens, cache, block_tables, q_start, q_len, block_size)
+    def verify_step(cfg, params, tokens, cache, block_tables, lanes):
+        return FakeLM.mixed_step(cfg, params, tokens, cache, block_tables, lanes)
 
 
 def make_fake_engine(monkeypatch, max_batch=2, max_new_tokens=6, sched_chunk=3, **scfg_kw):

@@ -1,7 +1,8 @@
 """The port's flight recorder (``repro_torch/runtime/trace.py``): the ring,
 the span tree and its sync counts; and what the serving path records on a
-tiny CPU engine: each mixed step's lanes add up to the engine's computed
-prefill tokens, a decode chunk of n tokens checks its stop at most n
+tiny CPU engine: each mixed step runs its live lanes alone, which add
+up to the engine's computed prefill tokens, and the head sees only the
+lanes the engine reads; a decode chunk of n tokens checks its stop at most n
 times, every request's first token lies between its admission and its
 finish on the paged, speculative and contiguous paths and is filed before
 the request finishes, and the profiler
@@ -18,6 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.launch.profile_serve import idle_by_span
+from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
 from repro_torch.models.params import init_params
 from repro_torch.runtime import trace
@@ -77,19 +79,77 @@ def test_spans_nest_and_count_the_reads_inside_them():
     assert [s.name for s in rec.spans()] == ["inner", "outer", "after"] and rec.names() == {"inner", "outer", "after"}
 
 
-def test_mixed_steps_fill_lanes_add_up_to_the_computed_prefill():
+def _model_calls(monkeypatch):
+    """Each ``mixed_step`` call's (tokens run, the rows' summed q_len), and
+    the rows of each ``head_apply`` call made inside one, in call order."""
+    steps, heads, inside = [], [], [False]
+    mixed_step, head_apply = LM.mixed_step, L.head_apply
+
+    def mixed(cfg, params, tokens, cache, tables, lanes, *a, **kw):
+        steps.append((tokens.shape[0], int(lanes.desc[:, 2].sum())))
+        inside[0] = True
+        try:
+            return mixed_step(cfg, params, tokens, cache, tables, lanes, *a, **kw)
+        finally:
+            inside[0] = False
+
+    def head(cfg, params, x):
+        if inside[0]:
+            heads.append(x.shape[0])
+        return head_apply(cfg, params, x)
+
+    monkeypatch.setattr(LM, "mixed_step", mixed)
+    monkeypatch.setattr(L, "head_apply", head)
+    return steps, heads
+
+
+def test_mixed_steps_fill_lanes_add_up_to_the_computed_prefill(monkeypatch):
     eng = _engine(paged=True, block_size=4, prefix_cache=True, token_budget=BUDGET)
     prompts = _prompts()
+    calls, _ = _model_calls(monkeypatch)
     for _ in range(2):  # the second serve finds the prefixes cached
         pt, ps = eng.prefill_tokens_total, eng.prefill_tokens_saved
+        del calls[:]
         _, spans = _serve(eng, prompts)
         steps = [s for s in spans if s.name == "engine.step"]
         mixed = [s for s in steps if s.attrs["kind"] == "mixed"]
-        assert mixed and all(s.attrs["lanes_run"] == B * BUDGET for s in mixed)
+        assert mixed and len(mixed) == len(calls)
+        assert all(s.attrs["lanes_run"] == s.attrs["lanes_live"] == n == q for s, (n, q) in zip(mixed, calls))
+        assert any(s.attrs["lanes_run"] < B * BUDGET for s in mixed)
         assert all(0 <= s.attrs["fill_lanes"] <= s.attrs["lanes_live"] <= s.attrs["lanes_run"] for s in steps)
         assert sum(s.attrs["fill_lanes"] for s in steps) == (eng.prefill_tokens_total - pt) - (
             eng.prefill_tokens_saved - ps)
     assert eng.prefill_tokens_saved > 0
+
+
+@pytest.mark.parametrize("draft_k", [0, 2], ids=["mixed", "spec"])
+def test_the_head_sees_only_the_lanes_the_engine_reads(monkeypatch, draft_k):
+    """A mixed step applies the head to one lane a row with lanes (B when
+    every slot is busy), a verify step to at most draft_k + 1 lanes a
+    verify row plus one a fill row, the drafter's k-loop to every row's
+    lane but in its trailing write-only step, and the drafter's fill pass
+    to none; each step's ``head_lanes`` says how many."""
+    eng = _engine(paged=True, block_size=4, token_budget=BUDGET, draft_k=draft_k)
+    _, heads = _model_calls(monkeypatch)
+    _, spans = _serve(eng, _prompts())
+    steps = [s for s in spans if s.name == "engine.step" and s.attrs["kind"] != "decode"]
+    assert steps and sum(heads) == sum(s.attrs["head_lanes"] for s in steps)
+    for s in steps:
+        kind, rows = s.attrs["kind"], s.attrs["rows"]
+        assert s.attrs["lanes_run"] >= s.attrs["lanes_live"]
+        if kind == "mixed":
+            assert s.attrs["head_lanes"] == rows <= B
+        elif kind == "spec":
+            assert rows <= s.attrs["head_lanes"] <= rows * (draft_k + 1) and s.attrs["lanes_run"] == s.attrs["lanes_live"]
+        else:
+            assert kind == "draft" and s.attrs["head_lanes"] == B * draft_k
+    if draft_k:
+        assert {s.attrs["kind"] for s in steps} == {"spec", "draft"}
+        # B rows a k-loop step; none for the fill pass or the trailing write
+        n_draft = sum(s.attrs["kind"] == "draft" for s in steps)
+        assert heads.count(B) >= n_draft * draft_k and heads.count(0) >= n_draft
+    else:
+        assert max(heads) == B and {s.attrs["kind"] for s in steps} == {"mixed"}
 
 
 @pytest.mark.parametrize("paged", [True, False])
