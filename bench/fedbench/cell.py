@@ -7,9 +7,15 @@ entry names its file under ``bench/configs/``) and a traffic mix
 ``bench/limits/<workload>.json``, whose keys are the numbers the cell
 compares; each metric is read by
 ``bench/metrics/<metric>.py``, or, for a metric ``<quantity>.<split>``
-without a file of its own, by ``bench/metrics/<quantity>.py``.  A later
-cell, configuration, mix or metric adds files and entries and edits
-none.
+without a file of its own, by ``bench/metrics/<quantity>.py``.  The
+configuration's ``generator`` block may name the generator's own plain
+reference (``"reference"``, a file under ``bench/reference/`` with
+``decoder_logits(cfg, params, tokens, n_last, prec)``; ``models.py`` when
+absent) and FLOP count (``"flops"``, a file under ``bench/fedbench/`` with
+``prefill_flops`` and ``decode_flops``; ``flops.py`` when absent), and
+its CPU tests' cut (``"smoke"``, see ``testing.py``).  A later cell,
+configuration, architecture, mix or metric adds files and entries and
+edits none.
 
 A run: the corpus, the questions and the schedule from the seed; the
 system with weights made on the card from the seed; a warm-up through
@@ -20,7 +26,6 @@ on a sample of what the window finished.
 from __future__ import annotations
 
 import gc
-import importlib.util
 import json
 import sys
 import time
@@ -28,6 +33,7 @@ from pathlib import Path
 
 import numpy as np
 
+from fedbench import load_file
 from fedbench.check import NAMES
 
 BENCH = Path(__file__).resolve().parents[1]
@@ -40,19 +46,29 @@ def load_spec(root: Path = ROOT) -> dict:
     return json.loads((root / "BENCHMARK.json").read_text())
 
 
+def generator_files(config: dict, bench: Path = BENCH) -> dict:
+    """The files that reference and count a configuration's generator."""
+    g = config["generator"]
+    return {"reference": bench / "reference" / g.get("reference", "models.py"),
+            "flops": bench / "fedbench" / g.get("flops", "flops.py")}
+
+
 def resolve(spec: dict, workload: str, bench: Path = BENCH) -> dict:
-    """The workload's entry with its configuration, traffic and limits read."""
+    """The workload's entry with its configuration, traffic and limits read,
+    and its generator's reference and FLOP files found."""
     cells = {w["name"]: w for w in spec["workloads"]}
     if workload not in cells:
         raise SystemExit(f"unknown workload {workload!r}; known: {sorted(cells)}")
     cell = cells[workload]
     conf = {c["name"]: c for c in spec["configs"]}[cell["config"]]
+    config = json.loads((bench.parent / conf["file"]).read_text())
     limits = bench / "limits" / f"{workload}.json"
     return {
         "cell": cell,
-        "config": json.loads((bench.parent / conf["file"]).read_text()),
+        "config": config,
         "traffic": json.loads((bench / "traffic" / f"{cell['traffic']}.json").read_text()),
         "limits": json.loads(limits.read_text()) if limits.exists() else None,
+        **generator_files(config, bench),
     }
 
 
@@ -74,10 +90,7 @@ def load_reader(name: str, bench: Path = BENCH):
     path = bench / "metrics" / f"{name}.py"
     if not path.exists():
         path = bench / "metrics" / f"{name.split('.')[0]}.py"
-    mod_spec = importlib.util.spec_from_file_location(f"bench_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod.read
+    return load_file(path, f"bench_metric_{name.replace('.', '_')}").read
 
 
 def forbidden_modules() -> list[str]:
@@ -134,7 +147,7 @@ def execute(resolved: dict, seed: int, seconds: float, trace: bool, device: str 
         slicer.engine = slicer.prof = None
     found = forbidden_modules()
     data = RunData(seconds=seconds, setup_s=window.t_open - t_start, window=window, slice=sl,
-                   model=cfg["generator"]["model"])
+                   model=cfg["generator"]["model"], flops=load_file(resolved["flops"], "bench_flops"))
     retired = window_requests(data)
     # the program's state goes before the reference runs: the weights stay,
     # the reference reads them
@@ -145,7 +158,7 @@ def execute(resolved: dict, seed: int, seconds: float, trace: bool, device: str 
         torch.cuda.empty_cache()
     no_tf32()
     t = time.monotonic()
-    ref = C.Reference(cfg, corpus, weights, models, device)
+    ref = C.Reference(cfg, corpus, weights, models, device, resolved["reference"])
     chk = traffic["check"]
     picked, checked = C.sample(retired, seed, chk["answer_tokens"], chk["min_answers"], chk["requests"])
     readings = C.check(ref, schedule, picked, checked, control=control)

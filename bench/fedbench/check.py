@@ -35,12 +35,18 @@ that rounding makes in one stage is judged there and does not cascade.
 in float8 (``reference.models.Prec("fp8")``) in the program's place: its
 own top m, its own context, and at each answer position the token it
 puts first.
+
+The generator's answers are judged by the ``decoder_logits`` of the
+configuration's own reference file (``cell.generator_files``), for the
+program and for the control alike; the encoders, retrieval and the
+prompt by ``reference.models``, ``retrieval`` and ``text``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from fedbench import load_file
 from fedbench.traffic import rng
 from reference import models as R
 from reference import retrieval as RT
@@ -81,10 +87,12 @@ def _gap(ref_scores: np.ndarray, chosen: np.ndarray) -> float:
 
 class Reference:
     """The reference's inputs: its own tokens of every chunk and question,
-    from the benchmark's word indices, and the models' weights."""
+    from the benchmark's word indices, and the models' weights; and the
+    generator's forward pass, ``decoder_logits`` of the file ``reference``."""
 
-    def __init__(self, cfg: dict, corpus, weights: dict, models: dict, device):
+    def __init__(self, cfg: dict, corpus, weights: dict, models: dict, device, reference):
         self.cfg, self.w, self.m, self.device = cfg, weights, models, device
+        self.decoder_logits = load_file(reference, "bench_reference_generator").decoder_logits
         vocab = cfg["tokenizer_vocab_size"]
         self.pool_ids = np.asarray([T.word_id(w, vocab) for w in corpus.pool], np.int64)
         texts = corpus.texts
@@ -171,14 +179,14 @@ def check(ref: Reference, schedule, picked, checked, control: bool = False) -> d
         for rec in picked:
             ans = np.asarray(rec.answer).astype(np.int64)
             seq = torch.as_tensor(np.concatenate([np.asarray(rec.prompt), ans[:-1]]), device=dev)
-            lg = R.decoder_logits(gm, gw, seq, len(ans), f32)
+            lg = ref.decoder_logits(gm, gw, seq, len(ans), f32)
             served = lg[torch.arange(len(ans), device=dev), torch.as_tensor(ans, device=dev)]
             gaps = (lg.max(-1).values - served).cpu().numpy()
             out["program"]["answer_gap"] = max(out["program"]["answer_gap"], float(gaps.max()))
             sums["program"] += float(gaps.sum())
             n_tok += len(ans)
             if control:
-                pick = R.decoder_logits(gm, gw, seq, len(ans), fp8).argmax(-1)
+                pick = ref.decoder_logits(gm, gw, seq, len(ans), fp8).argmax(-1)
                 cg = (lg.max(-1).values - lg[torch.arange(len(ans), device=dev), pick]).cpu().numpy()
                 out["control"]["answer_gap"] = max(out["control"]["answer_gap"], float(cg.max()))
                 sums["control"] += float(cg.sum())

@@ -7,6 +7,18 @@ the benchmark's own copy of the program's ``launch/roofline.py``
 out, plus 4 * heads * head_dim * context for each attention layer's
 scores and values), worked from the configuration file's sizes, so
 that a later change to the program cannot move the yardstick.
+
+This file counts a generator of attention layers with a SwiGLU or a
+routed SwiGLU in each.  A configuration whose generator it does not fit
+names its own file in its generator block (``"flops": "<file>.py"``,
+under ``bench/fedbench/``), which supplies ``prefill_flops(m, tokens,
+mean_context)`` and ``decode_flops(m, prompt_len, n_tokens)`` of the
+generator's model block ``m``.  Each is a term per token that does not
+grow with the context (projections, FFNs, a state-space layer's state
+update) and a term per position a token reads (attention's scores and
+values); ``prefill`` and ``decode`` add them up, so that such a file
+says only what its two terms are.  The peaks stay here: they are the
+card's.
 """
 from __future__ import annotations
 
@@ -36,11 +48,20 @@ def attn_flops_per_context(m: dict) -> int:
     return 4 * m["n_heads"] * m["head_dim"] * m["n_layers"]
 
 
+def prefill(per_token: float, per_position: float, tokens: float, mean_context: float) -> float:
+    """``tokens`` prompt tokens, each reading ``mean_context`` positions."""
+    return tokens * (per_token + per_position * mean_context)
+
+
+def decode(per_token: float, per_position: float, prompt_len: int, n_tokens: int) -> float:
+    """A request's answer tokens: token t (1-based) reads prompt_len + t positions."""
+    ctx = n_tokens * prompt_len + n_tokens * (n_tokens + 1) / 2
+    return n_tokens * per_token + per_position * ctx
+
+
 def prefill_flops(m: dict, tokens: float, mean_context: float) -> float:
-    return tokens * (2 * active_params(m) + attn_flops_per_context(m) * mean_context)
+    return prefill(2 * active_params(m), attn_flops_per_context(m), tokens, mean_context)
 
 
 def decode_flops(m: dict, prompt_len: int, n_tokens: int) -> float:
-    """A request's answer tokens: token t (1-based) reads prompt_len + t positions."""
-    ctx = n_tokens * prompt_len + n_tokens * (n_tokens + 1) / 2
-    return n_tokens * 2 * active_params(m) + attn_flops_per_context(m) * ctx
+    return decode(2 * active_params(m), attn_flops_per_context(m), prompt_len, n_tokens)

@@ -7,16 +7,19 @@ the engine's own thread, between two dispatches, after a synchronise,
 so the slice holds whole steps; events stay in memory, no trace file is
 written.
 
-From the slice: the device operations (kernels, copies, fills; the
-profiler's ranges are no operations and are left out) with their
-intervals, so the busy time is the union of those intervals; each
-kernel's kind, by a copy of the classifier of the program's
-``launch/profile_serve.py``; the kernels launched inside
-``models/moe.py``'s ``moe_expert_loop`` range, found through their
-host-side parents as ``profile_serve`` finds them; the engine steps the
-slice holds, from the engine's dispatch counters; and the longest idle
-gaps, each named by the benchmark's span (a ``bench.*`` profiler range)
-that covers most of it: what the host was doing while the device idled.
+From the slice: the device operations (kernels, copies, fills; a
+profiler range's device-side span is no operation, and leaves them by its
+event type, a user annotation) with their intervals, so the busy time is
+the union of those intervals; each operation's total time by its full
+name; each kernel's kind, by a copy of the classifier of the program's
+``launch/profile_serve.py``; for every profiler range opened in the
+slice (``models/moe.py``'s ``moe_expert_loop``, any range a later
+program opens, the harness's ``bench.*`` spans), the device time of the
+kernels launched under it, found through their host-side parents as
+``profile_serve`` finds the expert loop's; the engine steps the slice
+holds, from the engine's dispatch counters; and the longest idle gaps,
+each named by the benchmark's span (a ``bench.*`` profiler range) that
+covers most of it: what the host was doing while the device idled.
 """
 from __future__ import annotations
 
@@ -60,12 +63,14 @@ def kind(name: str) -> str:
 ATTENTION_KINDS = ("mixed_prefill kernel", "paged_decode kernel")
 
 
-def _inside_loop(e) -> bool:
-    while e is not None:
-        if e.name == LOOP:
-            return True
-        e = e.cpu_parent
-    return False
+def _ranges_over(e, memo: dict) -> frozenset:
+    """The names of the profiler ranges among ``e`` and its host-side parents."""
+    if e is None:
+        return frozenset()
+    if id(e) not in memo:
+        up = _ranges_over(e.cpu_parent, memo)
+        memo[id(e)] = up | {e.name} if e.is_user_annotation else up
+    return memo[id(e)]
 
 
 @dataclasses.dataclass
@@ -75,9 +80,15 @@ class SliceData:
     launches: int  # device operations
     engine_steps: int  # engine dispatches the slice holds
     attn_s: float  # the paged attention kernels' device time
-    loop_s: float | None  # device time of kernels under the expert loop; None without one
-    device_ops: list  # [name, seconds] by total time, longest first
+    device_ops: list  # [name, seconds] by total time, longest first, the top few, names cut
     idle_gaps: list  # [span name, seconds], longest first
+    op_s: dict  # every device operation's total seconds, by its full name
+    range_s: dict  # range name -> device seconds of the kernels launched under it; every range opened
+
+    @property
+    def loop_s(self) -> float | None:
+        """Device time of the kernels under the expert loop; None without one."""
+        return self.range_s.get(LOOP)
 
 
 def _union(intervals):
@@ -97,8 +108,8 @@ def _union(intervals):
 
 def reduce(prof, window_s: float, engine_steps: int, top: int = 10) -> SliceData:
     events = prof.events()
-    dev = [e for e in events if e.device_type.name == "CUDA" and e.name != LOOP
-           and not e.name.startswith(SPAN_PREFIX) and e.time_range.elapsed_us() > 0]
+    dev = [e for e in events if e.device_type.name == "CUDA" and not e.is_user_annotation
+           and e.time_range.elapsed_us() > 0]
     busy_us, merged = _union([(e.time_range.start, e.time_range.end) for e in dev])
     by_name: dict[str, float] = {}
     attn_us = 0.0
@@ -107,12 +118,14 @@ def reduce(prof, window_s: float, engine_steps: int, top: int = 10) -> SliceData
         by_name[e.name] = by_name.get(e.name, 0.0) + d
         if kind(e.name) in ATTENTION_KINDS:
             attn_us += d
-    loop_us = None
-    if any(e.name == LOOP for e in events if e.device_type.name == "CPU"):
-        loop_us = sum(k.duration for e in events
-                      if e.device_type.name == "CPU" and e.kernels and e.name != LOOP and _inside_loop(e.cpu_parent)
-                      for k in e.kernels)
-    spans = [e for e in events if e.device_type.name == "CPU" and e.name.startswith(SPAN_PREFIX)]
+    host = [e for e in events if e.device_type.name == "CPU"]
+    range_us = {e.name: 0.0 for e in host if e.is_user_annotation}
+    memo: dict = {}
+    for e in host:
+        for k in e.kernels:
+            for name in _ranges_over(e, memo):
+                range_us[name] += k.duration
+    spans = [e for e in host if e.name.startswith(SPAN_PREFIX)]
     gaps = []
     for (_, a_end), (b_start, _) in zip(merged, merged[1:]):
         # the span that covers most of the gap, the innermost of equals
@@ -123,11 +136,12 @@ def reduce(prof, window_s: float, engine_steps: int, top: int = 10) -> SliceData
                 best, name = over, sp.name
         gaps.append([name, (b_start - a_end) / 1e6])
     gaps.sort(key=lambda g: -g[1])
-    ops = sorted(([n[:160], us / 1e6] for n, us in by_name.items()), key=lambda x: -x[1])
+    op_s = {n: us / 1e6 for n, us in by_name.items()}
+    ops = sorted(([n[:160], s] for n, s in op_s.items()), key=lambda x: -x[1])
     return SliceData(
         window_s=window_s, busy_s=busy_us / 1e6, launches=len(dev), engine_steps=engine_steps,
-        attn_s=attn_us / 1e6, loop_s=None if loop_us is None else loop_us / 1e6,
-        device_ops=ops[:top], idle_gaps=gaps[:top],
+        attn_s=attn_us / 1e6, device_ops=ops[:top], idle_gaps=gaps[:top],
+        op_s=op_s, range_s={n: us / 1e6 for n, us in range_us.items()},
     )
 
 

@@ -24,6 +24,7 @@ class RunData:
     window: object  # drive.Window
     slice: object | None  # profiling.SliceData of a traced run
     model: dict  # the generator's model block of the configuration file
+    flops: object = flops  # the module that counts the generator's FLOPs: the configuration's ``flops`` file
 
 
 def window_requests(run: RunData) -> list:
@@ -49,15 +50,16 @@ def mfu_percent(run: RunData) -> float | None:
     """The model's FLOPs the window completed, over the card's bf16 peak:
     the prompt tokens the engine computed (not served from the prefix
     cache) in the window, at the mean context of the retired prompts, and
-    the answer tokens of the requests retired in the window."""
+    the answer tokens of the requests retired in the window, each counted
+    by the run's FLOP file."""
     done = [r for r in window_requests(run) if r.status == "done" and r.prompt is not None and r.answer is not None]
     if not done:
         return None
     m = run.model
     computed = counter_delta(run, "prefill_tokens") - counter_delta(run, "prefill_saved")
     mean_ctx = float(np.mean([len(r.prompt) for r in done])) / 2
-    total = flops.prefill_flops(m, computed, mean_ctx)
-    total += sum(flops.decode_flops(m, len(r.prompt), len(r.answer) - 1) for r in done)
+    total = run.flops.prefill_flops(m, computed, mean_ctx)
+    total += sum(run.flops.decode_flops(m, len(r.prompt), len(r.answer) - 1) for r in done)
     return 100.0 * total / (flops.PEAK_BF16 * run.seconds)
 
 

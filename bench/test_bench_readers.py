@@ -1,12 +1,15 @@
 """The readers' arithmetic: rates over the requests retired in the
-window, idle from the union of kernel intervals, mfu against a hand
-count, and a split metric read by its quantity's reader."""
+window, idle from the union of kernel intervals, a range's kernels and
+each operation's time, mfu against a hand count, and a split metric read
+by its quantity's reader."""
 import sys
 import types
 from pathlib import Path
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
 
 BENCH = Path(__file__).resolve().parent
 sys.path[:0] = [p for p in (str(BENCH), str(BENCH.parent / "src")) if p not in sys.path]
@@ -76,10 +79,14 @@ def test_mfu_matches_a_hand_count():
     assert load_reader("mfu.offline")(run) == pytest.approx(want)
 
 
-def _ev(name, start, end, dev="CUDA", kernels=(), parent=None):
+def _ev(name, start, end, dev="CUDA", kernels=(), parent=None, user=None):
+    """A profiler event; ``user`` marks a range (``record_function``), on the host and as its device-side
+    span, which by default the program's expert loop and the harness's ``bench.*`` spans are."""
     tr = types.SimpleNamespace(start=start, end=end, elapsed_us=lambda: end - start)
+    if user is None:
+        user = name == profiling.LOOP or name.startswith(profiling.SPAN_PREFIX)
     return types.SimpleNamespace(name=name, time_range=tr, device_type=types.SimpleNamespace(name=dev),
-                                 kernels=list(kernels), cpu_parent=parent)
+                                 kernels=list(kernels), cpu_parent=parent, is_user_annotation=user)
 
 
 def _kernel(ev):  # a CPU op's kernel, as the profiler lists it there: a name and a duration
@@ -110,3 +117,22 @@ def test_readers_without_a_slice_read_nothing():
     run = _run([])
     for name in ("device_idle.decode", "launches_per_step.offline", "attn_ms_per_step.decode", "moe_loop_share.offline"):
         assert load_reader(name)(run) is None
+
+
+def test_a_range_is_read_by_the_kernels_launched_under_it():
+    disp = _ev("bench.engine_dispatch", 0, 1000, dev="CPU")
+    mixer = _ev("mamba2_mixer", 10, 990, dev="CPU", parent=disp, user=True)  # a range a later program opens
+    shadow = _ev("mamba2_mixer", 100, 900, user=True)  # its device-side span: no operation
+    k1, k2 = _ev("ssd_chunk_kernel", 100, 300), _ev("ssd_chunk_kernel", 500, 600)
+    k3, k4 = _ev("nvjet_gemm", 700, 900), _ev("elementwise_add", 950, 1000)
+    op = _ev("aten::ssd", 20, 30, dev="CPU", kernels=[_kernel(k1), _kernel(k2)], parent=mixer)
+    mixer.kernels = [_kernel(k3)]  # launched straight under the range: a ctypes call opens no op
+    after = _ev("aten::add", 992, 995, dev="CPU", kernels=[_kernel(k4)], parent=disp)
+    prof = types.SimpleNamespace(events=lambda: [disp, mixer, op, after, shadow, k1, k2, k3, k4])
+    s = profiling.reduce(prof, window_s=2e-3, engine_steps=2)
+    assert s.launches == 4 and s.busy_s == pytest.approx((200 + 100 + 200 + 50) * 1e-6)  # no shadow in either
+    assert s.range_s == {"mamba2_mixer": pytest.approx(500e-6), "bench.engine_dispatch": pytest.approx(550e-6)}
+    assert s.op_s == {"ssd_chunk_kernel": pytest.approx(300e-6), "nvjet_gemm": pytest.approx(200e-6),
+                      "elementwise_add": pytest.approx(50e-6)}
+    assert s.loop_s is None and s.attn_s == 0.0
+    assert [o[0] for o in s.device_ops] == ["ssd_chunk_kernel", "nvjet_gemm", "elementwise_add"]

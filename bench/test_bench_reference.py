@@ -1,5 +1,7 @@
 """The benchmark's plain reference against the program, at smoke width on
-the CPU and in float32 (the only file that imports both)."""
+the CPU and in float32 (the only file that imports both).  Every
+configuration of BENCHMARK.json's generator is held, at its own smoke cut,
+to its own reference file."""
 import json
 import sys
 import types
@@ -7,12 +9,15 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 BENCH = Path(__file__).resolve().parent
 sys.path[:0] = [p for p in (str(BENCH), str(BENCH.parent / "src")) if p not in sys.path]
 
+from fedbench import cell, load_file  # noqa: E402
 from fedbench.system import make_weights, model_config  # noqa: E402
+from fedbench.testing import smoke_generator  # noqa: E402
 from reference import models as R  # noqa: E402
 from reference import retrieval as RT  # noqa: E402
 from reference import text as T  # noqa: E402
@@ -24,25 +29,26 @@ from repro_torch.models import dual_encoder as DE  # noqa: E402
 from repro_torch.models import lm as LM  # noqa: E402
 
 SMOKE = dict(n_layers=2, d_model=64, n_heads=4, head_dim=16, d_ff=128, dtype="float32")
+SPEC = cell.load_spec()
+UNTIED = "medrag-qwen3-4b"  # held with an untied head too
+CASES = [case for c in SPEC["configs"]
+         for case in [(c["name"], {})] + ([(c["name"], {"tie_embeddings": False})] if c["name"] == UNTIED else [])]
 
 
-def _generator(name, **kw):
-    m = json.loads((BENCH / "configs" / f"{name}.json").read_text())["generator"]["model"]
-    m.update(SMOKE, vocab_size=512, **kw)
-    return m
+def _config(name):
+    entry = next(c for c in SPEC["configs"] if c["name"] == name)
+    return json.loads((BENCH.parent / entry["file"]).read_text())
 
 
-@pytest.mark.parametrize("name,kw", [
-    ("medrag-qwen3-4b", dict(n_kv_heads=2)),
-    ("medrag-qwen3-4b", dict(n_kv_heads=2, tie_embeddings=False)),
-    ("medrag-qwen2-moe-a2.7b", dict(n_kv_heads=4, n_experts=8, moe_d_ff=32, n_shared_experts=1, moe_top_k=2)),
-])
+@pytest.mark.parametrize("name,kw", CASES)
 def test_decoder_matches_the_program(name, kw):
-    m = _generator(name, **kw)
+    cfg = _config(name)
+    m = dict(smoke_generator(cfg["generator"]), dtype="float32", **kw)
+    decoder = load_file(cell.generator_files(cfg)["reference"], "test_reference_generator").decoder_logits
     w = make_weights(LM.param_specs(model_config(m)), 3, "cpu")
     tokens = torch.randint(8, 512, (1, 37), generator=torch.Generator().manual_seed(0))
     want, _ = LM.forward(model_config(m), w, {"tokens": tokens})
-    got = R.decoder_logits(m, w, tokens[0], 37)
+    got = decoder(m, w, tokens[0], 37, R.F32)
     torch.testing.assert_close(got, want[0].float(), atol=2e-4, rtol=1e-4)
 
 
