@@ -234,7 +234,15 @@ only when every phase passed):
               share and mfu printed, a share above 1.05 (a bound the card
               beats: a wrong count) fails; the counter's peak beside
               max_memory_allocated; the hillclimb baselines (A0, B0, C0)
-              on the (16, 16) meta mesh each ok.
+              on the (16, 16) meta mesh each ok;
+21. window    the sliding window at Mellum2-12B-A2.5B's heads (32 query
+              heads over 4 KV heads, head_dim 128, window 1,024):
+              ``mixed_prefill`` (a fill's chunk across the window's edge,
+              one-lane rows around it; packed, bitwise the padded form)
+              and ``paged_decode`` (lengths 1-2,240) against their plain
+              versions, f32 and bf16; a window past every row bitwise the
+              window-0 kernels; both timed in turns with their window-0
+              launches at the cell's serving mix, with both bounds.
 
 Each phase prints its seconds and peak memory.  Every kernel's launch
 counter is set to 0 just before each main-path run (the serves, phase 5's
@@ -3230,6 +3238,104 @@ class StepParts:
                 f"{med['update']:.3f} s")
 
 
+def window_phase(torch, smi: str, timer) -> list[dict]:
+    """Mellum2-12B-A2.5B's sliding window on the kernels: ``mixed_prefill``
+    and ``paged_decode`` with a window of 1,024 keys at its heads (32 query
+    heads over 4 KV heads, G = 8, head_dim 128, bs 32), f32 and bf16,
+    against their plain versions at the dtype's tolerance: a fill's chunk
+    across position 1,024 (the window's edge inside it), its first chunk, a
+    chunk past 1,900 and one-lane rows around the window's length, packed
+    (bitwise the padded form over the same rows), and decode rows from 1 to
+    2,240 positions.  A window wider than every row gives the window-0
+    kernels' output bit for bit.  Then, in bf16 at the cell's serving mix
+    (one fill of 2,900 lanes beside 15 decode rows of 2,900-4,100
+    positions, 16 rows of 4,448 positions), each windowed kernel timed in
+    turns with its window-0 launch, with both bounds."""
+    import numpy as np
+
+    from repro_torch.kernels.chunked_prefill import ops as cp
+    from repro_torch.kernels.decode_attention import ops as da
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(30)
+    h, kv, dh, bs, win = 32, 4, 128, 32, 1024
+
+    def pool(b, n_t, tdt):
+        n_pool = b * n_t + 1
+        kp, vp = (torch.randn(n_pool, bs, kv, dh, generator=gen, device=dev).to(tdt) for _ in range(2))
+        tables = torch.randperm(n_pool - 1, device=dev, generator=gen)[: b * n_t].view(b, n_t).int()
+        return kp, vp, tables
+
+    def packed(rows4):
+        offs = np.cumsum([0] + [d[2] for d in rows4])[:-1]
+        d4 = torch.tensor(rows4, dtype=torch.int32, device=dev)
+        d5 = torch.tensor([(*d, int(o)) for d, o in zip(rows4, offs)], dtype=torch.int32, device=dev)
+        at_r = torch.tensor([i for i, d in enumerate(rows4) for _ in range(d[2])], device=dev)
+        at_j = torch.tensor([j for d in rows4 for j in range(d[2])], device=dev)
+        return d4, d5, at_r, at_j
+
+    rows4 = [(0, 600, 1200, 1800), (1, 0, 600, 600), (2, 1900, 300, 2200), (3, 1022, 1, 1023), (4, 1023, 1, 1024),
+             (5, 1024, 1, 1025), (6, 2239, 1, 2240), (7, 0, 1, 1)]
+    lens = torch.tensor([1, 1023, 1024, 1025, 1087, 1500, 2200, 2240], dtype=torch.int32, device=dev)
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        kp, vp, tables = pool(8, 70, tdt)
+        d4, d5, at_r, at_j = packed(rows4)
+        q = torch.randn(int(d5[-1, 4] + d5[-1, 2]), h, dh, generator=gen, device=dev).to(tdt)
+        o = cp.mixed_prefill_attention(q, kp, vp, tables, d5, window=win)
+        plain = cp.mixed_prefill_attention_plain(q, kp, vp, tables, d5, win)
+        check(f"mixed_prefill window {win}, G=8, packed, {dtype}", (o.float() - plain.float()).abs().max().item(),
+              dtype)
+        del plain
+        qp = torch.zeros((len(rows4), max(d[2] for d in rows4), h, dh), dtype=tdt, device=dev)
+        qp[at_r, at_j] = q
+        if not torch.equal(cp.mixed_prefill_attention(qp, kp, vp, tables, d4, window=win)[at_r, at_j], o):
+            fail(f"mixed_prefill window {win} {dtype}: the packed lanes differ from the padded form's")
+        if not torch.equal(cp.mixed_prefill_attention(q, kp, vp, tables, d5, window=10**6),
+                           cp.mixed_prefill_attention(q, kp, vp, tables, d5)):
+            fail(f"mixed_prefill {dtype}: a window past every row differs from the window-0 kernel")
+        qd = torch.randn(8, h, dh, generator=gen, device=dev).to(tdt)
+        od = da.paged_decode_attention(qd, kp, vp, tables, lens, window=win)
+        err = (od.float() - da.paged_decode_attention_plain(qd, kp, vp, tables, lens, win).float()).abs().max()
+        check(f"paged_decode window {win}, G=8, lengths 1-2,240, {dtype}", err.item(), dtype)
+        if not torch.equal(da.paged_decode_attention(qd, kp, vp, tables, lens, window=10**6),
+                           da.paged_decode_attention(qd, kp, vp, tables, lens)):
+            fail(f"paged_decode {dtype}: a window past every row differs from the window-0 kernel")
+        print(f"  window {win} {dtype}: packed == padded bitwise; a window past every row == window 0 bitwise, "
+              f"both kernels", flush=True)
+        del kp, vp, q, qp
+
+    # the cell's serving mix, bf16: windowed against window 0, in turns
+    kp, vp, tables = pool(16, 139, torch.bfloat16)
+    ctx = [int(x) for x in torch.randint(2900, 4100, (15,), generator=gen, device=dev)]
+    rows4 = [(0, 0, 2900, 2900)] + [(i + 1, c - 1, 1, c) for i, c in enumerate(ctx)]
+    _, d5, _, _ = packed(rows4)
+    d5_h = d5.tolist()
+    q = torch.randn(2915, h, dh, generator=gen, device=dev).to(torch.bfloat16)
+    t = timer.turns(dict(window=lambda: cp.mixed_prefill_attention(q, kp, vp, tables, d5, window=win),
+                         full=lambda: cp.mixed_prefill_attention(q, kp, vp, tables, d5)))
+    b_w, by_w = bound_of(cp.cost(q, kp, vp, tables, d5, desc_host=d5_h, window=win))
+    b_f, by_f = bound_of(cp.cost(q, kp, vp, tables, d5, desc_host=d5_h))
+    out = [{"kernel": "mixed_prefill", "window_ms": t["window"], "full_ms": t["full"], "window_bound_ms": b_w,
+            "full_bound_ms": b_f}]
+    print(f"  mixed_prefill, one fill of 2,900 lanes + 15 decode rows of 2,900-4,100, H=32 KV=4 dh=128 bf16: "
+          f"window {win} {t['window']:.4f} ms (bound {b_w:.6f}, {by_w}; {100 * b_w / t['window']:.1f}%), "
+          f"window 0 {t['full']:.4f} ms (bound {b_f:.6f}, {by_f}; {100 * b_f / t['full']:.1f}%)", flush=True)
+    lens = torch.tensor([2900] + ctx, dtype=torch.int32, device=dev)
+    qd = torch.randn(16, h, dh, generator=gen, device=dev).to(torch.bfloat16)
+    t = timer.turns(dict(window=lambda: da.paged_decode_attention(qd, kp, vp, tables, lens, window=win),
+                         full=lambda: da.paged_decode_attention(qd, kp, vp, tables, lens)))
+    b_w, by_w = bound_of(da.paged_cost(qd, kp, vp, tables, lens, lengths_host=lens.tolist(), window=win))
+    b_f, by_f = bound_of(da.paged_cost(qd, kp, vp, tables, lens, lengths_host=lens.tolist()))
+    out.append({"kernel": "paged_decode", "window_ms": t["window"], "full_ms": t["full"], "window_bound_ms": b_w,
+                "full_bound_ms": b_f})
+    print(f"  paged_decode, 16 rows of 2,900-4,100 positions, H=32 KV=4 dh=128 bf16: window {win} "
+          f"{t['window']:.4f} ms (bound {b_w:.6f}, {by_w}; {100 * b_w / t['window']:.1f}%), window 0 "
+          f"{t['full']:.4f} ms (bound {b_f:.6f}, {by_f}; {100 * b_f / t['full']:.1f}%)", flush=True)
+    print(f"  {json.dumps({'window_kernels': out})}", flush=True)
+    return []
+
+
 def mesh_of(dp: int, tp: int = 1, device: str = "cuda:0"):
     from repro_torch.runtime.compat import make_mesh
 
@@ -3757,6 +3863,8 @@ def main() -> int:
                   "restore, qwen2-moe-a2.7b expert parallelism", multidevice_phase)
     runs += phase("[20] roofline: the dry run's count on meta against the card's, each step's share of its bound, "
                   "the hillclimb baselines", roofline_phase)
+    runs += phase("[21] the sliding window: mixed_prefill and paged_decode at Mellum2's heads, window 1,024",
+                  window_phase, timer)
 
     meta = {
         "retrieval_topk": ("src/repro_torch/kernels/csrc/retrieval_topk.cu", "src/repro/kernels/retrieval_topk/kernel.py:105"),

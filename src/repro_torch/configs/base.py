@@ -53,6 +53,17 @@ class ModelConfig:
     conv_width: int = 4
     ssd_chunk: int = 256
 
+    # --- sliding-window attention (0: every layer sees its whole prefix) ---
+    window: int = 0  # keys a windowed layer's query sees: its own and window - 1 before
+    full_every: int = 0  # with window > 0, full attention on layers where
+    full_offset: int = 0  # i % full_every == full_offset (0: every layer windowed)
+    # --- YaRN RoPE on the full-attention layers (factor 0: plain RoPE) ---
+    yarn_factor: float = 0.0
+    yarn_original_max: int = 0  # original_max_position_embeddings
+    yarn_beta_fast: float = 0.0
+    yarn_beta_slow: float = 0.0
+    yarn_attn_factor: float = 0.0  # scales cos and sin (0: 1)
+
     # --- modality frontend stubs (DESIGN.md §5) ---
     frontend: str = "none"  # none | frames | patches
     n_patches: int = 0  # vlm: precomputed patch embeds replacing first N positions
@@ -97,6 +108,22 @@ class ModelConfig:
             return "attn" if (i % self.attn_every) == self.attn_offset else "mamba"
         return "attn"
 
+    def attn_window(self, i: int) -> int:
+        """Keys before and including its own that a query of layer ``i``
+        sees: ``window`` on a windowed layer, 0 (all of them) on a full one."""
+        if self.window <= 0 or (self.full_every and i % self.full_every == self.full_offset):
+            return 0
+        return self.window
+
+    def rope_yarn(self, i: int) -> tuple | None:
+        """Layer ``i``'s YaRN parameters ``(factor, original_max, beta_fast,
+        beta_slow, attn_factor)``: the full-attention layers' when
+        ``yarn_factor`` is set, else None (plain RoPE)."""
+        if self.yarn_factor <= 0 or self.attn_window(i):
+            return None
+        return (self.yarn_factor, self.yarn_original_max, self.yarn_beta_fast, self.yarn_beta_slow,
+                self.yarn_attn_factor or 1.0)
+
     def ffn_kind(self, i: int) -> str:
         if self.n_experts > 0 and (i % self.moe_every) == self.moe_offset:
             return "moe"
@@ -111,6 +138,8 @@ class ModelConfig:
             p = math.lcm(p, self.attn_every)
         if self.n_experts > 0 and self.moe_every > 1:
             p = math.lcm(p, self.moe_every)
+        if self.window > 0 and self.full_every > 1:
+            p = math.lcm(p, self.full_every)
         assert self.n_layers % p == 0, (self.name, self.n_layers, p)
         return p
 

@@ -50,16 +50,16 @@ SIGNATURES = {
     },
     "mixed_prefill": {
         # q, k_pool, v_pool, tables, desc, out, r, w (0: packed), n, h, kv,
-        # dh, bs, n_t, is_bf16, stream
-        "mixed_prefill_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+        # dh, bs, n_t, window (0: none), is_bf16, stream
+        "mixed_prefill_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
         # q, k_pool, v_pool, tables, desc, owned, o, m, l, r, w (0:
         # packed), n, h, kv, dh, bs, n_t, is_bf16, stream
         "mixed_prefill_partials_launch": [P] * 9 + [I] * 9 + [P],
     },
     "paged_decode": {
         # q, k_pool, v_pool, tables, lengths, out, o_part, m_part, l_part,
-        # b, h, kv, dh, bs, n_t, n_split, is_bf16, stream
-        "paged_decode_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+        # b, h, kv, dh, bs, n_t, n_split, window (0: none), is_bf16, stream
+        "paged_decode_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     },
     "flash_attention": {
         # q, k, v, out, b, sq, sk, h, kv, dh, scale_dh, q strides (batch,

@@ -14,7 +14,9 @@ FLOPs and bytes, which a cost counter records (``_build.counted``).
 Descriptor contract (one row per ``desc[r] = (slot, q_start, q_len,
 kv_len[, q_off])``): lane ``j`` of row ``r`` attends pool position
 ``kpos`` of ``block_tables[slot]`` iff ``kpos <= q_start + j`` and ``kpos
-< kv_len``.  Two layouts of the lanes, one kernel body:
+< kv_len``, and with ``window > 0`` also ``kpos > q_start + j - window``
+(its own position and the ``window - 1`` before it).  Two layouts of the
+lanes, one kernel body:
 
 * packed (the serving path): q ``(N, H, dh)`` and ``desc`` ``(R, 5)``;
   row ``r``'s ``q_len`` lanes lie back to back from lane ``q_off`` of the
@@ -62,16 +64,17 @@ def _as_packed(out_pad, idx, live, n: int, fill: float = 0.0):
     return out
 
 
-def mixed_prefill_attention_plain(q, k_pool, v_pool, block_tables, desc):
+def mixed_prefill_attention_plain(q, k_pool, v_pool, block_tables, desc, window: int = 0):
     """Gather each row's contiguous pool view, dense masked softmax, and
     re-zero probabilities under the mask (dead lanes give exact 0).
 
     Padded: q (R, W, H, dh), desc (R, 4) -> (R, W, H, dh); packed: q (N,
     H, dh), desc (R, 5) -> (N, H, dh), in q's dtype.  Pools (n_pool, bs,
-    KV, dh); block_tables (B, n_t)."""
+    KV, dh); block_tables (B, n_t); ``window`` > 0 masks every key more
+    than ``window - 1`` positions before a lane's own."""
     if q.dim() == 3:
         qp, idx, live = _as_padded(q, desc)
-        out = mixed_prefill_attention_plain(qp, k_pool, v_pool, block_tables, desc[:, :4])
+        out = mixed_prefill_attention_plain(qp, k_pool, v_pool, block_tables, desc[:, :4], window)
         return _as_packed(out, idx, live, q.shape[0])
     r, w, h, dh = q.shape
     bs, kv = k_pool.shape[1], k_pool.shape[2]
@@ -90,6 +93,8 @@ def mixed_prefill_attention_plain(q, k_pool, v_pool, block_tables, desc):
         & (kpos[None, None, :] < desc[:, 3][:, None, None])
         & (lane[None, :, None] < desc[:, 2][:, None, None])
     )  # (R, W, S)
+    if window > 0:
+        valid = valid & (kpos[None, None, :] > qpos[:, :, None] - window)
     vb = valid[:, None, None]
     logits = torch.where(vb, logits, torch.full_like(logits, -1e30))
     p = torch.softmax(logits, dim=-1)
@@ -178,8 +183,20 @@ def _aligned(*ts):
     )
 
 
+def _reach(q0: int, ql: int, kl: int, window: int) -> tuple[int, int]:
+    """The pool positions ``[lo, hi)`` a row's lanes can see."""
+    hi = min(kl, q0 + ql) if ql > 0 else 0
+    return (max(0, q0 - window + 1) if window > 0 else 0), hi
+
+
+def _seen(q0: int, j: int, kl: int, window: int) -> int:
+    """Keys lane ``j`` of a row from ``q0`` sees."""
+    n = min(q0 + j + 1, kl)
+    return max(0, n - max(0, q0 + j + 1 - window)) if window > 0 else n
+
+
 def cost(q, k_pool, v_pool, block_tables, desc, owned=None, partials: bool = False,
-         desc_host=None, tables_host=None):
+         desc_host=None, tables_host=None, window: int = 0):
     """(FLOPs by dtype, bytes) of one call: q of the live lanes, the K/V of
     the pool positions the rows reach, the descriptors and the table
     entries (and ``owned`` mask bytes) read once, every lane's output (the
@@ -189,28 +206,34 @@ def cost(q, k_pool, v_pool, block_tables, desc, owned=None, partials: bool = Fal
     needs, and with ``tables_host`` (the tables as lists) a position that
     several rows' entries alias is read once; None takes every lane live
     and seeing its whole table span, all the shapes tell (packed: the N
-    lanes spread over the R rows)."""
+    lanes spread over the R rows).  ``window`` > 0 counts only the keys
+    inside each lane's window, and the positions and table entries from
+    the row's lowest lane's window start on."""
     r, w, lanes = _lanes(q, desc)
     h, dh = q.shape[-2:]
     bs, kv = k_pool.shape[1], k_pool.shape[2]
     span = block_tables.shape[1] * bs
     if desc_host is None:
         desc_host = [(i, 0, lanes // r + (i < lanes % r), span) for i in range(r)]
-        flops = 4 * h * dh * lanes * span
+        if window > 0:
+            flops = sum(4 * h * dh * _seen(q0, j, kl, window) for _, q0, ql, kl in desc_host for j in range(ql))
+        else:
+            flops = 4 * h * dh * lanes * span
     else:
         desc_host = [d[:4] for d in desc_host]
-        flops = sum(4 * h * dh * min(q0 + j + 1, kl) for _, q0, ql, kl in desc_host for j in range(ql))
+        flops = sum(4 * h * dh * _seen(q0, j, kl, window) for _, q0, ql, kl in desc_host for j in range(ql))
     n_q = sum(ql for _, _, ql, _ in desc_host)
-    n_kv = [min(kl, q0 + ql) if ql > 0 else 0 for _, q0, ql, kl in desc_host]
+    reach = [_reach(q0, ql, kl, window) for _, q0, ql, kl in desc_host]
     if tables_host is None:
-        positions = sum(n_kv)
+        positions = sum(max(0, hi - lo) for lo, hi in reach)
     else:
-        positions = len({(tables_host[d[0]][p // bs], p % bs) for d, n in zip(desc_host, n_kv) for p in range(n)})
+        positions = len({(tables_host[d[0]][p // bs], p % bs) for d, (lo, hi) in zip(desc_host, reach)
+                         for p in range(lo, hi)})
     es = q.element_size()
     out = lanes * h * (dh + 2) * 4 if partials else lanes * h * dh * es
     entry = 5 if owned is not None else 4
     nbytes = (n_q * h * dh * es + out + 2 * positions * kv * dh * es + r * (5 if w == 0 else 4) * 4
-              + sum(-(-n // bs) for n in n_kv) * entry)
+              + sum(-(-hi // bs) - lo // bs for lo, hi in reach if hi > lo) * entry)
     return _build.flops((flops, q.dtype)), nbytes
 
 
@@ -261,17 +284,20 @@ def _partials(q, k_pool, v_pool, block_tables, desc, owned):
     return o, m, l
 
 
-def mixed_prefill_attention(q, k_pool, v_pool, block_tables, desc):
+def mixed_prefill_attention(q, k_pool, v_pool, block_tables, desc, window: int = 0):
     """Ragged mixed prefill/decode attention through a block table (see
-    the module docstring for the descriptor contract)."""
+    the module docstring for the descriptor contract); ``window`` > 0: a
+    sliding window of that many keys."""
     _build.refuse_grad("mixed_prefill_attention", q, k_pool, v_pool)
-    return _build.counted("mixed_prefill", lambda: cost(q, k_pool, v_pool, block_tables, desc),
-                          lambda: _attention(q, k_pool, v_pool, block_tables, desc))
+    if window < 0:
+        raise ValueError(f"mixed_prefill_attention: window={window}")
+    return _build.counted("mixed_prefill", lambda: cost(q, k_pool, v_pool, block_tables, desc, window=window),
+                          lambda: _attention(q, k_pool, v_pool, block_tables, desc, window))
 
 
-def _attention(q, k_pool, v_pool, block_tables, desc):
+def _attention(q, k_pool, v_pool, block_tables, desc, window: int):
     if q.device.type == "cpu":
-        return _build.fresh(mixed_prefill_attention_plain(q, k_pool, v_pool, block_tables, desc))
+        return _build.fresh(mixed_prefill_attention_plain(q, k_pool, v_pool, block_tables, desc, window))
     if q.device.type == "meta":
         return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.device.type != "cuda":
@@ -289,7 +315,7 @@ def _attention(q, k_pool, v_pool, block_tables, desc):
     lib = _build.load("mixed_prefill")
     err = lib.mixed_prefill_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        desc.data_ptr(), out.data_ptr(), r, w, n, h, kv, dh, bs, tables.shape[1],
+        desc.data_ptr(), out.data_ptr(), r, w, n, h, kv, dh, bs, tables.shape[1], window,
         int(q.dtype == torch.bfloat16),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )

@@ -47,6 +47,13 @@
 //   int part_index(int row)     the row's index in o_part / m_part /
 //                               l_part (o_part rows of DH floats), or -1
 //                               for a row that is not stored
+//   static constexpr bool kWindow     true: a sliding window, through
+//   int k_lo                    the lowest key any row of the tile sees:
+//                               the key tiles wholly below it are
+//                               neither loaded nor computed
+//   int row_start(int row)      the row sees the keys pos >= row_start
+// With kWindow false none of the three is read, and the walk is the one
+// without a window.
 #pragma once
 
 #include "common.cuh"
@@ -103,6 +110,8 @@ __device__ __forceinline__ void attend_tile(const Src& src, uint8_t* smem_raw, i
   const uint32_t k_base = q_base + TL::BYTES;  // stage st at + st * BYTES
   const uint32_t v_base = k_base + kStages * TL::BYTES;
   const int n_tiles = (n_kv + TK - 1) / TK;
+  int t0 = 0;  // the first key tile the walk reads
+  if constexpr (Src::kWindow) t0 = src.k_lo / TK;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, quad = lane & 3;
 
   // Q: 64 rows x CHUNKS, zero where the caller says so
@@ -132,9 +141,9 @@ __device__ __forceinline__ void attend_tile(const Src& src, uint8_t* smem_raw, i
   // {V(t+1)} with one V buffer
   constexpr bool v_ring = TL::V_STAGES > 1;
   auto v_at = [&](int t) { return v_base + (uint32_t)(t % TL::V_STAGES) * TL::BYTES; };
-  if (n_tiles > 0) load_k(k_base, 0);
+  if (n_tiles > t0) load_k(k_base + (uint32_t)(t0 % kStages) * TL::BYTES, t0);
   repro::cp_async_commit();
-  if (n_tiles > 0) load_v(v_base, 0);
+  if (n_tiles > t0) load_v(v_at(t0), t0);
   repro::cp_async_commit();
 
   // this thread's two rows of the tile (r = 0, 1) and the keys they see
@@ -142,12 +151,17 @@ __device__ __forceinline__ void attend_tile(const Src& src, uint8_t* smem_raw, i
   int lim[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) lim[r] = src.row_limit(row0 + 8 * r);
+  int lo[2] = {0, 0};
+  if constexpr (Src::kWindow) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) lo[r] = src.row_start(row0 + 8 * r);
+  }
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float o[NO];
 #pragma unroll
   for (int x = 0; x < NO; ++x) o[x] = 0.f;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t0; t < n_tiles; ++t) {
     // K(t + 1) into the stage that S(t - 1) read (and V(t + 1) likewise)
     if (t + 1 < n_tiles) {
       load_k(k_base + (uint32_t)((t + 1) % kStages) * TL::BYTES, t + 1);
@@ -181,7 +195,9 @@ __device__ __forceinline__ void attend_tile(const Src& src, uint8_t* smem_raw, i
 #pragma unroll
     for (int x = 0; x < 32; ++x) {
       const int r = (x >> 1) & 1, pos = c0 + (x >> 2) * 8 + quad * 2 + (x & 1);
-      s[x] = pos < lim[r] && src.key_ok(pos) ? s[x] * scale_log2 : NEG_INF;
+      bool seen = pos < lim[r] && src.key_ok(pos);
+      if constexpr (Src::kWindow) seen = seen && pos >= lo[r];
+      s[x] = seen ? s[x] * scale_log2 : NEG_INF;
       mx[r] = fmaxf(mx[r], s[x]);
     }
     float alpha[2], sum[2] = {0.f, 0.f};

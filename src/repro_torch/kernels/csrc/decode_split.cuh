@@ -43,6 +43,13 @@
 //     positions with every score at NEG_INF, giving m = NEG_INF, l = the
 //     split's count, o = the sum of its V rows; merged, l = S, o = sum V,
 //     and the normalised output is mean V.
+//   * A sliding window (PagedKVWindow: row b sees its last `window`
+//     positions, lo = max(0, len - window) on) splits only [lo, len):
+//     split sp covers the 64 positions from (lo / 64 + sp) * 64, so the
+//     grid's third axis is (window - 1) / 64 + 2 splits at most, and the
+//     positions below lo in the first split score NEG_INF.  The window is
+//     the address policy's (a compile-time flag, kWindow), so the kernels
+//     without one are compiled as before.
 #pragma once
 
 #include "common.cuh"
@@ -83,6 +90,7 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&x)[8]) {
 // pool block tables[b, pos / bs] in (n_pool, bs, kv, DH) pools.  `stage`
 // reads the entries a split reaches into shared memory once.
 struct PagedKV {
+  static constexpr bool kWindow = false;
   const int* tables;
   int bs, n_t, kv;
   __device__ __forceinline__ int cap() const { return n_t * bs; }
@@ -100,9 +108,18 @@ struct PagedKV {
   }
 };
 
+// PagedKV with a sliding window: row b sees its last `window` positions
+struct PagedKVWindow : PagedKV {
+  static constexpr bool kWindow = true;
+  int window;
+  // the lowest position a row of `len` positions sees
+  __device__ __forceinline__ int lo(int len) const { return max(0, len - window); }
+};
+
 // K/V in a contiguous (B, S, KV, DH) cache, each read through its own
 // batch / sequence / head element strides, head_dim contiguous
 struct StridedKV {
+  static constexpr bool kWindow = false;
   Strides ks, vs;
   int s_len;
   __device__ __forceinline__ int cap() const { return s_len; }
@@ -150,7 +167,12 @@ decode_split(const T* __restrict__ q, const T* __restrict__ kp, const T* __restr
   const int raw = lengths[b];
   const bool empty = MEAN_EMPTY && raw <= 0;  // every score NEG_INF: uniform weights
   const int len = walk_len<MEAN_EMPTY>(raw, src.cap());
-  const int s0 = sp * PS, n = min(PS, len - s0);
+  int s0 = sp * PS, lo = 0;
+  if constexpr (KV::kWindow) {  // the splits start at the one that holds the window's first position
+    lo = src.lo(len);
+    s0 += lo / PS * PS;
+  }
+  const int n = min(PS, len - s0);
   const size_t part = ((size_t)(b * kv + kvh) * n_split + sp) * g;  // (row, KV head, split) partials
   if (n <= 0) {
     if (tid < g) {
@@ -182,7 +204,8 @@ decode_split(const T* __restrict__ q, const T* __restrict__ kp, const T* __restr
     const int c = lane % C::CH, sub = lane / C::CH;
     for (int p0 = warp * C::RPW; p0 < PS; p0 += kWarps * C::RPW) {  // warp-uniform
       const int p = p0 + sub;
-      const bool valid = p < n;
+      bool valid = p < n;
+      if constexpr (KV::kWindow) valid = valid && s0 + p >= lo;
       float kx[C::VEC];
       load16(k_s + (valid ? p : 0) * DH + c * C::VEC, kx);
       for (int gg = 0; gg < g; ++gg) {
@@ -236,7 +259,8 @@ decode_combine(const float* __restrict__ o_part, const float* __restrict__ m_par
                float* __restrict__ l_out, int h, int kv, int n_split) {
   const int g = h / kv, b = blockIdx.x, kvh = blockIdx.y;
   const int len = walk_len<MEAN_EMPTY>(lengths[b], src.cap());
-  const int live = len > 0 ? (len + PS - 1) / PS : 0;
+  int live = len > 0 ? (len + PS - 1) / PS : 0;
+  if constexpr (KV::kWindow) live -= src.lo(len) / PS;  // the splits start at the window's
   const size_t part = (size_t)(b * kv + kvh) * n_split * g;
   const size_t head0 = (size_t)(b * kv + kvh) * g;
   for (int e = threadIdx.x; e < g * DH; e += kThreads) {

@@ -88,6 +88,7 @@ struct DenseSrc {
   __device__ __forceinline__ const __nv_bfloat16* k_row(int pos) const { return kb + (size_t)pos * ks.s; }
   __device__ __forceinline__ const __nv_bfloat16* v_row(int pos) const { return vb + (size_t)pos * vs.s; }
   static constexpr bool kPartials = false;
+  static constexpr bool kWindow = false;
   __device__ __forceinline__ int row_limit(int row) const {
     return causal ? min(n_kv, (i0 + row) / g + 1) : n_kv;
   }

@@ -74,6 +74,16 @@
 // row's last owned block, so a shard's call on the rows it does not own
 // (row affinity: all but its own) reads no K/V and does no products.
 //
+// Sliding window (window > 0, mixed_prefill_launch's window argument):
+// lane j of a row also needs kpos > q_start + j - window.  The windowed
+// kernels (mixed_prefill_window_bf16, mixed_prefill_window) are the same
+// bodies with the window as a template flag, so the kernels without it
+// are compiled exactly as before.  A block starts its walk at the key tile
+// (chunk, in f32) that holds the lowest key its first live lane sees: the
+// tiles wholly below every lane's window are neither loaded nor computed,
+// so a windowed row's prefill reads about `window` keys a lane tile
+// however long its prefix.  The partials form has no window.
+//
 // f32 (the smoke-width checks and the tests): the first version's design
 // on the CUDA cores, 4 threads per query row, each scoring 8 of the 32
 // keys of a chunk staged in shared memory as f32 (one fmaf chain over
@@ -141,10 +151,12 @@ inline int tile_slots(int n, int g, int nr) { return (int)((long long)n * g / TQ
 
 // rows i0 + row = lane * g + group of (batch row r, KV head kvh); keys
 // through the block table entries staged in shared memory (with PART, a
-// block this shard does not own staged as -1)
-template <int DH, bool PART>
+// block this shard does not own staged as -1); with WIN, a lane at
+// position p sees the keys from p - window + 1 on
+template <int DH, bool PART, bool WIN>
 struct PagedSrc {
   static constexpr bool kPartials = PART;
+  static constexpr bool kWindow = WIN;
   const __nv_bfloat16* q;  // at (q_off, kvh * g) of the (lanes, H, dh) q
   const __nv_bfloat16 *kp, *vp;
   __nv_bfloat16* out;      // at (q_off, kvh * g) of the output
@@ -152,6 +164,7 @@ struct PagedSrc {
   const int* tbl_s;        // tables[slot, :] in shared memory
   int i0, g, h, kv, kvh, rows_total, q_start, q_len, bs, n_kv;
   int ps_lane, ps_group;   // a lane's and a group's strides in the partials
+  int window, k_lo;        // WIN: the window, and the lowest key the tile's first lane sees
 
   __device__ __forceinline__ const __nv_bfloat16* q_row(int row, bool& ok) const {
     const int i = i0 + row, lane = i / g;
@@ -168,6 +181,10 @@ struct PagedSrc {
     const int i = i0 + row, lane = i / g;
     return i < rows_total && lane < q_len ? min(n_kv, q_start + lane + 1) : 0;
   }
+  __device__ __forceinline__ int row_start(int row) const {
+    const int lane = (i0 + row) / g;
+    return max(0, q_start + lane - window + 1);
+  }
   __device__ __forceinline__ bool key_ok(int pos) const { return !PART || tbl_s[pos / bs] >= 0; }
   __device__ __forceinline__ __nv_bfloat16* out_row(int row) const {
     const int i = i0 + row, lane = i / g;
@@ -183,14 +200,13 @@ struct PagedSrc {
 // position up to 63 past the walk, whose value is never used
 constexpr int kTblSlack = 64;
 
-template <int DH, bool PART>
-__global__ void __launch_bounds__(kWgThreads)
-mixed_prefill_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
-                   const __nv_bfloat16* __restrict__ vp, const int* __restrict__ tables,
-                   const int* __restrict__ desc, const uint8_t* __restrict__ owned,
-                   __nv_bfloat16* __restrict__ out, float* __restrict__ o_part,
-                   float* __restrict__ m_part, float* __restrict__ l_part, int nr, int w, int h,
-                   int kv, int bs, int n_t, int n_slots, float scale_log2) {
+template <int DH, bool PART, bool WIN>
+__device__ __forceinline__ void mixed_prefill_bf16_body(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
+    const __nv_bfloat16* __restrict__ vp, const int* __restrict__ tables, const int* __restrict__ desc,
+    const uint8_t* __restrict__ owned, __nv_bfloat16* __restrict__ out, float* __restrict__ o_part,
+    float* __restrict__ m_part, float* __restrict__ l_part, int nr, int w, int h, int kv, int bs, int n_t,
+    int n_slots, float scale_log2, int window) {
   extern __shared__ uint8_t smem_raw[];
   int* tbl_s = reinterpret_cast<int*>(smem_raw + repro::attn::Tile<DH>::SMEM);  // [n_t]
   const int g = h / kv, kvh = blockIdx.x % kv;
@@ -214,28 +230,62 @@ mixed_prefill_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   }
   const size_t row0 = ((size_t)row.q_off * h + (size_t)kvh * g) * DH;
   const size_t part0 = row.part0(w, h, kv, kvh, g);
-  const PagedSrc<DH, PART> src{q + row0, kp, vp, PART ? out : out + row0,
-                               PART ? o_part + part0 * DH : o_part, PART ? m_part + part0 : m_part,
-                               PART ? l_part + part0 : l_part, tbl_s, row.i0, g, h, kv, kvh,
-                               row.rows_total, row.q_start, row.q_len, bs, n_kv,
-                               w ? 1 : h, w ? w : 1};
+  const int k_lo = WIN ? max(0, row.q_start + row.i0 / g - window + 1) : 0;
+  const PagedSrc<DH, PART, WIN> src{q + row0, kp, vp, PART ? out : out + row0,
+                                    PART ? o_part + part0 * DH : o_part, PART ? m_part + part0 : m_part,
+                                    PART ? l_part + part0 : l_part, tbl_s, row.i0, g, h, kv, kvh,
+                                    row.rows_total, row.q_start, row.q_len, bs, n_kv,
+                                    w ? 1 : h, w ? w : 1, window, k_lo};
   repro::attn::attend_tile<DH>(src, smem_raw, n_kv, scale_log2);
+}
+
+template <int DH, bool PART>
+__global__ void __launch_bounds__(kWgThreads)
+mixed_prefill_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
+                   const __nv_bfloat16* __restrict__ vp, const int* __restrict__ tables,
+                   const int* __restrict__ desc, const uint8_t* __restrict__ owned,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ o_part,
+                   float* __restrict__ m_part, float* __restrict__ l_part, int nr, int w, int h,
+                   int kv, int bs, int n_t, int n_slots, float scale_log2) {
+  mixed_prefill_bf16_body<DH, PART, false>(q, kp, vp, tables, desc, owned, out, o_part, m_part, l_part, nr, w, h,
+                                           kv, bs, n_t, n_slots, scale_log2, 0);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads)
+mixed_prefill_window_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
+                          const __nv_bfloat16* __restrict__ vp, const int* __restrict__ tables,
+                          const int* __restrict__ desc, __nv_bfloat16* __restrict__ out, int nr, int w, int h,
+                          int kv, int bs, int n_t, int n_slots, float scale_log2, int window) {
+  mixed_prefill_bf16_body<DH, false, true>(q, kp, vp, tables, desc, nullptr, out, nullptr, nullptr, nullptr, nr,
+                                           w, h, kv, bs, n_t, n_slots, scale_log2, window);
 }
 
 template <int DH, bool PART>
 cudaError_t launch_bf16(const void* q, const void* kp, const void* vp, const int* tables,
                         const int* desc, const uint8_t* owned, void* out, float* o_part,
                         float* m_part, float* l_part, int r, int w, int n, int h, int kv, int bs,
-                        int n_t, cudaStream_t st) {
+                        int n_t, int window, cudaStream_t st) {
   const size_t smem = repro::attn::Tile<DH>::SMEM + sizeof(int) * ((size_t)n_t + (PART ? kTblSlack : 0));
+  const int n_slots = tile_slots(n, h / kv, r);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)DH);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(kp);
+  const auto* vb = static_cast<const __nv_bfloat16*>(vp);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  if (!PART && window > 0) {
+    static size_t allowed_w = 0;
+    cudaError_t e = repro::allow_smem(mixed_prefill_window_bf16<DH>, smem, allowed_w);
+    if (e != cudaSuccess) return e;
+    mixed_prefill_window_bf16<DH><<<n_slots * kv, kWgThreads, smem, st>>>(
+        qb, kb, vb, tables, desc, ob, r, w, h, kv, bs, n_t, n_slots, scale_log2, window);
+    return cudaGetLastError();
+  }
   static size_t allowed = 0;
   cudaError_t e = repro::allow_smem(mixed_prefill_bf16<DH, PART>, smem, allowed);
   if (e != cudaSuccess) return e;
-  const int n_slots = tile_slots(n, h / kv, r);
   mixed_prefill_bf16<DH, PART><<<n_slots * kv, kWgThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), tables, desc, owned, static_cast<__nv_bfloat16*>(out),
-      o_part, m_part, l_part, r, w, h, kv, bs, n_t, n_slots, 1.4426950408889634f / sqrtf((float)DH));
+      qb, kb, vb, tables, desc, owned, ob, o_part, m_part, l_part, r, w, h, kv, bs, n_t, n_slots, scale_log2);
   return cudaGetLastError();
 }
 
@@ -251,13 +301,12 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * ((size_t)TQ * (DH + 1) + 2 * KC * (DH + 1) + TQ * (KC + 1) + KC);
 }
 
-template <typename T, int DH, bool PART>
-__global__ void __launch_bounds__(kThreads)
-mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
-              const int* __restrict__ tables, const int* __restrict__ desc,
-              const uint8_t* __restrict__ owned, T* __restrict__ out, float* __restrict__ o_part,
-              float* __restrict__ m_part, float* __restrict__ l_part, int nr, int w, int h, int kv,
-              int bs, int n_t, int n_slots, float scale) {
+template <typename T, int DH, bool PART, bool WIN>
+__device__ __forceinline__ void mixed_prefill_body(
+    const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp, const int* __restrict__ tables,
+    const int* __restrict__ desc, const uint8_t* __restrict__ owned, T* __restrict__ out,
+    float* __restrict__ o_part, float* __restrict__ m_part, float* __restrict__ l_part, int nr, int w, int h,
+    int kv, int bs, int n_t, int n_slots, float scale, int window) {
   constexpr int LD = DH + 1;  // padded rows: no shared-memory bank conflicts
   constexpr int PLD = KC + 1;
   constexpr int NC = DH / 4;  // output columns per thread
@@ -299,8 +348,15 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
   float acc[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) acc[c] = 0.f;
+  // WIN: the chunk holding the lowest key the block's first lane sees, and
+  // the lowest this thread's lane sees
+  int c_first = 0, lo = 0;
+  if constexpr (WIN) {
+    c_first = max(0, q_start + i0 / g - window + 1) / KC * KC;
+    lo = qpos - window + 1;
+  }
 
-  for (int c0 = 0; c0 < n_kv; c0 += KC) {
+  for (int c0 = c_first; c0 < n_kv; c0 += KC) {
     __syncthreads();  // the previous chunk is consumed (and q_s is staged)
     for (int e = tid; e < KC * DH; e += kThreads) {
       const int kk = e / DH, col = e - kk * DH, pos = c0 + kk;
@@ -327,7 +383,7 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
       float dot = 0.f;
 #pragma unroll 8
       for (int col = 0; col < DH; ++col) dot = fmaf(q_s[row * LD + col], k_s[key * LD + col], dot);
-      const bool valid = live && own_s[key] && pos <= qpos && pos < kv_len;
+      const bool valid = live && own_s[key] && pos <= qpos && pos < kv_len && (!WIN || pos >= lo);
       s[j] = valid ? dot * scale : NEG_INF;
       mx = fmaxf(mx, s[j]);
     }
@@ -338,7 +394,7 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
 #pragma unroll
     for (int j = 0; j < KC / 4; ++j) {
       const int key = part + 4 * j, pos = c0 + key;
-      const bool valid = live && own_s[key] && pos <= qpos && pos < kv_len;
+      const bool valid = live && own_s[key] && pos <= qpos && pos < kv_len && (!WIN || pos >= lo);
       const float p = valid ? expf(s[j] - m_new) : 0.f;
       p_s[row * PLD + key] = p;
       psum += p;
@@ -376,19 +432,48 @@ mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __rest
 }
 
 template <typename T, int DH, bool PART>
+__global__ void __launch_bounds__(kThreads)
+mixed_prefill(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
+              const int* __restrict__ tables, const int* __restrict__ desc,
+              const uint8_t* __restrict__ owned, T* __restrict__ out, float* __restrict__ o_part,
+              float* __restrict__ m_part, float* __restrict__ l_part, int nr, int w, int h, int kv,
+              int bs, int n_t, int n_slots, float scale) {
+  mixed_prefill_body<T, DH, PART, false>(q, kp, vp, tables, desc, owned, out, o_part, m_part, l_part, nr, w, h, kv,
+                                         bs, n_t, n_slots, scale, 0);
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+mixed_prefill_window(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
+                     const int* __restrict__ tables, const int* __restrict__ desc, T* __restrict__ out, int nr,
+                     int w, int h, int kv, int bs, int n_t, int n_slots, float scale, int window) {
+  mixed_prefill_body<T, DH, false, true>(q, kp, vp, tables, desc, nullptr, out, nullptr, nullptr, nullptr, nr, w, h,
+                                         kv, bs, n_t, n_slots, scale, window);
+}
+
+template <typename T, int DH, bool PART>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tables,
                    const int* desc, const uint8_t* owned, void* out, float* o_part, float* m_part,
-                   float* l_part, int r, int w, int n, int h, int kv, int bs, int n_t,
+                   float* l_part, int r, int w, int n, int h, int kv, int bs, int n_t, int window,
                    cudaStream_t st) {
   const size_t smem = smem_bytes<DH>();
+  const int n_slots = tile_slots(n, h / kv, r);
+  const float scale = 1.0f / sqrtf((float)DH);
+  if (!PART && window > 0) {
+    static size_t allowed_w = 0;
+    cudaError_t e = repro::allow_smem(mixed_prefill_window<T, DH>, smem, allowed_w);
+    if (e != cudaSuccess) return e;
+    mixed_prefill_window<T, DH><<<n_slots * kv, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), tables, desc,
+        static_cast<T*>(out), r, w, h, kv, bs, n_t, n_slots, scale, window);
+    return cudaGetLastError();
+  }
   static size_t allowed = 0;
   cudaError_t e = repro::allow_smem(mixed_prefill<T, DH, PART>, smem, allowed);
   if (e != cudaSuccess) return e;
-  const int n_slots = tile_slots(n, h / kv, r);
   mixed_prefill<T, DH, PART><<<n_slots * kv, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), tables,
-      desc, owned, static_cast<T*>(out), o_part, m_part, l_part, r, w, h, kv, bs, n_t, n_slots,
-      1.0f / sqrtf((float)DH));
+      desc, owned, static_cast<T*>(out), o_part, m_part, l_part, r, w, h, kv, bs, n_t, n_slots, scale);
   return cudaGetLastError();
 }
 
@@ -396,7 +481,7 @@ template <bool PART>
 cudaError_t dispatch(const void* q, const void* kp, const void* vp, const void* tables,
                      const void* desc, const void* owned, void* out, void* o_part, void* m_part,
                      void* l_part, int r, int w, int n, int h, int kv, int dh, int bs, int n_t,
-                     int is_bf16, cudaStream_t st) {
+                     int window, int is_bf16, cudaStream_t st) {
   const int* tb = static_cast<const int*>(tables);
   const int* ds = static_cast<const int*>(desc);
   const uint8_t* ow = static_cast<const uint8_t*>(owned);
@@ -405,8 +490,9 @@ cudaError_t dispatch(const void* q, const void* kp, const void* vp, const void* 
   float* lp = static_cast<float*>(l_part);
   return repro::with_head_dim(dh, [&](auto d) {
     constexpr int DH = decltype(d)::value;
-    return is_bf16 ? launch_bf16<DH, PART>(q, kp, vp, tb, ds, ow, out, op, mp, lp, r, w, n, h, kv, bs, n_t, st)
-                   : launch<float, DH, PART>(q, kp, vp, tb, ds, ow, out, op, mp, lp, r, w, n, h, kv, bs, n_t, st);
+    return is_bf16
+               ? launch_bf16<DH, PART>(q, kp, vp, tb, ds, ow, out, op, mp, lp, r, w, n, h, kv, bs, n_t, window, st)
+               : launch<float, DH, PART>(q, kp, vp, tb, ds, ow, out, op, mp, lp, r, w, n, h, kv, bs, n_t, window, st);
   });
 }
 
@@ -417,13 +503,15 @@ cudaError_t dispatch(const void* q, const void* kp, const void* vp, const void* 
 // dh), desc (r, 4) int32, out (r, w, h, dh), n = r * w.  k_pool / v_pool
 // (n_pool, bs, kv, dh); tables (B, n_t) int32.  q, pools and out share one
 // dtype (f32 or bf16).  dh in {16, 32, 64, 128}.  bf16: q and the pools
-// 16-byte aligned (the 16-byte copies).
+// 16-byte aligned (the 16-byte copies).  window > 0: a lane sees its own
+// key and the window - 1 before it (the windowed kernels); 0: no window.
 extern "C" int mixed_prefill_launch(const void* q, const void* kp, const void* vp,
                                     const void* tables, const void* desc, void* out, int r,
                                     int w, int n, int h, int kv, int dh, int bs, int n_t,
-                                    int is_bf16, void* stream) {
+                                    int window, int is_bf16, void* stream) {
+  if (window < 0) return (int)cudaErrorInvalidValue;
   return (int)dispatch<false>(q, kp, vp, tables, desc, nullptr, out, nullptr, nullptr, nullptr, r, w,
-                              n, h, kv, dh, bs, n_t, is_bf16, static_cast<cudaStream_t>(stream));
+                              n, h, kv, dh, bs, n_t, window, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // The partials form: as mixed_prefill_launch, with owned (B, n_t) uint8
@@ -436,5 +524,5 @@ extern "C" int mixed_prefill_partials_launch(const void* q, const void* kp, cons
                                              int w, int n, int h, int kv, int dh, int bs, int n_t,
                                              int is_bf16, void* stream) {
   return (int)dispatch<true>(q, kp, vp, tables, desc, owned, nullptr, o, m, l, r, w, n, h, kv, dh, bs,
-                             n_t, is_bf16, static_cast<cudaStream_t>(stream));
+                             n_t, 0, is_bf16, static_cast<cudaStream_t>(stream));
 }

@@ -9,7 +9,8 @@ return empty outputs for ``meta`` tensors; anything else raises.
 ``flash_decode_launches`` and ``launches`` count the launches of the two
 kernels; ``decode_cost`` and ``paged_cost`` are one call's FLOPs and
 bytes, which a cost counter records (``_build.counted``).  Row ``b``
-attends its first ``lengths[b]`` positions.  ``combine_partials`` merges the ``(o, m, l)``
+attends its first ``lengths[b]`` positions (through a block table with
+``window > 0``, only the last ``window`` of them).  ``combine_partials`` merges the ``(o, m, l)``
 partials of disjoint cache shards.
 
 Both kernels split each row's positions over blocks of ``SPLIT`` (one
@@ -53,10 +54,10 @@ def _check_decode(name, q, k, v, lengths) -> None:
             raise ValueError(f"{name}: tensors on {q.device} and {t.device}")
 
 
-def _split_scratch(b, kv, g, dh, cap, device):
+def _split_scratch(b, kv, g, dh, cap, device, n_split: int | None = None):
     """The splits' f32 partials: o (B, KV, n_split, G, dh), m and l
-    (B, KV, n_split, G), n_split = ceil(cap / SPLIT)."""
-    n_split = -(-cap // SPLIT)
+    (B, KV, n_split, G), n_split = ceil(cap / SPLIT) unless given."""
+    n_split = -(-cap // SPLIT) if n_split is None else n_split
     o = torch.empty((b, kv, n_split, g, dh), dtype=torch.float32, device=device)
     m, l = (torch.empty((b, kv, n_split, g), dtype=torch.float32, device=device) for _ in range(2))
     return n_split, o, m, l
@@ -174,44 +175,71 @@ def _decode(q, k_cache, v_cache, lengths, return_partials: bool, empty_zero: boo
     return result
 
 
-def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths):
+def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths, window: int = 0):
     """Gather each row's contiguous view from its table, dense masked
     softmax.  q (B, H, dh); pools (n_pool, bs, KV, dh); block_tables
-    (B, n_t); lengths (B,) -> (B, H, dh) in q's dtype."""
+    (B, n_t); lengths (B,) -> (B, H, dh) in q's dtype.  ``window`` > 0:
+    row ``b`` sees only its last ``window`` positions."""
     b, n_t = block_tables.shape
     bs, kv, dh = k_pool.shape[1:]
     tbl = block_tables.long()
     k_view = k_pool[tbl].reshape(b, n_t * bs, kv, dh)
     v_view = v_pool[tbl].reshape(b, n_t * bs, kv, dh)
-    return decode_attention_plain(q, k_view, v_view, lengths)
+    if window <= 0:
+        return decode_attention_plain(q, k_view, v_view, lengths)
+    g = q.shape[1] // kv
+    qr = q.float().reshape(b, kv, g, dh)
+    logits = torch.einsum("bkgd,bskd->bkgs", qr, k_view.float()) / math.sqrt(dh)
+    pos = torch.arange(n_t * bs, device=q.device)[None, :]
+    ln = lengths.long()[:, None]
+    valid = ((pos < ln) & (pos >= ln - window))[:, None, None, :]
+    p = torch.softmax(torch.where(valid, logits, torch.full_like(logits, -1e30)), dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_view.float())
+    return out.reshape(b, kv * g, dh).to(q.dtype)
 
 
-def paged_cost(q, k_pool, v_pool, block_tables, lengths, lengths_host=None):
+def _window_splits(cap: int, window: int) -> int:
+    """Splits of a windowed row: the ``SPLIT``-aligned blocks that ``window``
+    consecutive positions can touch, no more than the cache has."""
+    n_split = -(-cap // SPLIT)
+    return min(n_split, (window - 1) // SPLIT + 2) if window > 0 else n_split
+
+
+def paged_cost(q, k_pool, v_pool, block_tables, lengths, lengths_host=None, window: int = 0):
     """(FLOPs by dtype, bytes) of one ``paged_decode_attention`` call: q,
     the K/V of the positions read, the table entries they reach and the
     lengths read once, the output written once; Q.K and P.V over those
     positions.  ``lengths_host`` (the lengths as a list) is what the data
-    needs; None takes every table entry's whole block."""
+    needs; None takes every table entry's whole block.  ``window`` > 0
+    counts a row's last ``window`` positions and their entries alone."""
     b, h, dh = q.shape
     bs, kv = k_pool.shape[1], k_pool.shape[2]
     lens = [block_tables.shape[1] * bs] * b if lengths_host is None else lengths_host
+    lo = [max(0, n - window) if window > 0 else 0 for n in lens]
     es = q.element_size()
-    nbytes = 2 * b * h * dh * es + 2 * sum(lens) * kv * dh * es + sum(-(-n // bs) for n in lens) * 4 + b * 4
-    return _build.flops((4 * sum(lens) * h * dh, q.dtype)), nbytes
+    read = sum(n - s for n, s in zip(lens, lo))
+    entries = sum(-(-n // bs) - s // bs for n, s in zip(lens, lo) if n > s)
+    nbytes = 2 * b * h * dh * es + 2 * read * kv * dh * es + entries * 4 + b * 4
+    return _build.flops((4 * read * h * dh, q.dtype)), nbytes
 
 
-def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, window: int = 0):
     """Single-token attention through a block table over a shared KV pool.
     A row with ``lengths[b] == 0`` gives 0 (the plain version gives mean(V)
-    over the table's span, as ``decode_attention_plain``)."""
+    over the table's span, as ``decode_attention_plain``).  ``window`` > 0:
+    each row sees its last ``window`` positions, and the kernel splits
+    only those."""
     _build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
-    return _build.counted("paged_decode", lambda: paged_cost(q, k_pool, v_pool, block_tables, lengths),
-                          lambda: _paged(q, k_pool, v_pool, block_tables, lengths))
+    if window < 0:
+        raise ValueError(f"paged_decode_attention: window={window}")
+    return _build.counted("paged_decode",
+                          lambda: paged_cost(q, k_pool, v_pool, block_tables, lengths, window=window),
+                          lambda: _paged(q, k_pool, v_pool, block_tables, lengths, window))
 
 
-def _paged(q, k_pool, v_pool, block_tables, lengths):
+def _paged(q, k_pool, v_pool, block_tables, lengths, window: int):
     if q.device.type == "cpu":
-        return _build.fresh(paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths))
+        return _build.fresh(paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths, window))
     if q.device.type == "meta":
         return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.device.type != "cuda":
@@ -237,12 +265,13 @@ def _paged(q, k_pool, v_pool, block_tables, lengths):
     if b == 0:
         return out
     n_t = tables.shape[1]
-    n_split, o_part, m_part, l_part = _split_scratch(b, kv, h // kv, dh, n_t * bs, q.device)
+    n_split, o_part, m_part, l_part = _split_scratch(b, kv, h // kv, dh, n_t * bs, q.device,
+                                                     _window_splits(n_t * bs, window))
     lib = _build.load("paged_decode")
     err = lib.paged_decode_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-        b, h, kv, dh, bs, n_t, n_split, int(q.dtype == torch.bfloat16),
+        b, h, kv, dh, bs, n_t, n_split, window, int(q.dtype == torch.bfloat16),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     _build.check(err, "paged_decode_attention")

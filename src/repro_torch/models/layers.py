@@ -19,12 +19,18 @@ steps, on the live tokens packed onto one axis) or
 sharded pool (a list of per-shard pools, one per device of a
 ``runtime.compat.Mesh``) runs the distributed dispatch instead, decode as
 its one-lane case: ``_paged_attn_sharded``.
+A layer with a sliding window (``ModelConfig.attn_window``) hands it to
+both paged kernels; the paths without one (whole-sequence attention,
+contiguous decode, the sharded pool) refuse it (``refuse_window``).
+RoPE is the layer's: YaRN's frequencies and scale on the full layers of a
+config that sets ``yarn_factor`` (``yarn_freqs``), else ``rope_theta``'s.
 On CUDA tensors the kernel ops launch the hand-written kernels; on CPU
 tensors they run their plain versions.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -62,21 +68,49 @@ def rope_freqs(head_dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) * 2.0 / head_dim))
 
 
+def yarn_freqs(head_dim: int, theta: float, factor: float, original_max: int, beta_fast: float,
+               beta_slow: float) -> np.ndarray:
+    """YaRN's inverse frequencies (HF ``_compute_yarn_parameters``, with
+    its truncation): the pairs whose wavelength is short against
+    ``original_max`` (index below the floor of beta_fast's correction dim)
+    keep ``theta``'s frequency, those past the ceil of beta_slow's are
+    divided by ``factor``, and a linear ramp blends the two between.
+    Worked in f64, returned in f32."""
+    def corr_dim(rotations: float) -> float:
+        return head_dim * math.log(original_max / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+    low = max(math.floor(corr_dim(beta_fast)), 0)
+    high = min(math.ceil(corr_dim(beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = np.clip((np.arange(head_dim // 2, dtype=np.float64) - low) / (high - low), 0.0, 1.0)
+    extrapolation = 1.0 - ramp  # the share of the original frequency
+    base = 1.0 / theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim)
+    return (base / factor * ramp + base * extrapolation).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=None)
-def _rope_freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
-    """``rope_freqs`` on ``device``, uploaded once: a host-to-device copy
-    waits for the stream to drain, so one a layer would hold the host to
-    the device's pace at every layer of every step."""
-    return torch.as_tensor(rope_freqs(head_dim, theta), device=device)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device, yarn: tuple | None = None) -> torch.Tensor:
+    """``rope_freqs`` (``yarn_freqs`` with ``yarn``'s first four numbers)
+    on ``device``, uploaded once: a host-to-device copy waits for the
+    stream to drain, so one a layer would hold the host to the device's
+    pace at every layer of every step."""
+    freqs = rope_freqs(head_dim, theta) if yarn is None else yarn_freqs(head_dim, theta, *yarn[:4])
+    return torch.as_tensor(freqs, device=device)
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+def apply_rope(x, positions, theta: float, yarn: tuple | None = None):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).  ``yarn``:
+    ``(factor, original_max, beta_fast, beta_slow, attn_factor)``
+    (``ModelConfig.rope_yarn``): YaRN's frequencies, with cos and sin
+    scaled by ``attn_factor``."""
     hd = x.shape[-1]
-    freqs = _rope_freqs_on(hd, theta, x.device)
+    freqs = _rope_freqs_on(hd, theta, x.device, yarn)
     angles = positions.float()[..., None] * freqs  # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
+    if yarn is not None:
+        cos, sin = cos * yarn[4], sin * yarn[4]
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
@@ -178,19 +212,34 @@ def _out_proj(o, wo):
     return o.reshape(*o.shape[:-2], h * hd) @ wo.to(o.dtype).reshape(h * hd, d)
 
 
-def attn_qkv(cfg: ModelConfig, p, x, positions):
-    """Project + qk-norm + rope.  x: (B, S, d) -> q, k, v."""
+def attn_qkv(cfg: ModelConfig, p, x, positions, layer: int = 0):
+    """Project + qk-norm + rope (layer ``layer``'s: YaRN on a full layer of
+    a YaRN config).  x: (B, S, d) -> q, k, v."""
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
+    yarn = cfg.rope_yarn(layer)
+    return apply_rope(q, positions, cfg.rope_theta, yarn), apply_rope(k, positions, cfg.rope_theta, yarn), v
 
 
-def attn_apply(cfg: ModelConfig, p, x, positions, *, causal=None):
+def refuse_window(cfg: ModelConfig, what: str, positions: int | None = None) -> None:
+    """Raise where ``what`` attends over whole prefixes and ``cfg`` has
+    windowed layers: from a window's length on, it would compute another
+    model.  With ``positions`` (the most a query's prefix may hold), only
+    where the window could bite."""
+    if cfg.window > 0 and (positions is None or positions > cfg.window):
+        raise ValueError(
+            f"{cfg.name}: {what} has no sliding window, and this model's windowed layers see only the last "
+            f"{cfg.window} positions" + ("" if positions is None else f" (here up to {positions})")
+            + ": serve it on the paged engine"
+        )
+
+
+def attn_apply(cfg: ModelConfig, p, x, positions, *, causal=None, layer: int = 0):
     """Self-attention over the whole sequence (no cache).  x: (B, S, d)."""
     causal = cfg.causal if causal is None else causal
-    q, k, v = attn_qkv(cfg, p, x, positions)
+    q, k, v = attn_qkv(cfg, p, x, positions, layer)
     return _out_proj(attention_core(cfg, q, k, v, causal=causal), p["wo"])
 
 
@@ -201,6 +250,7 @@ def attn_decode(cfg: ModelConfig, p, x, k_cache, v_cache, pos):
     slot, which must lie below S, and attends to its own prefix
     ``[0, pos]``), through ``kernels/decode_attention`` with ``lengths =
     pos + 1``.  Returns (B, 1, d)."""
+    refuse_window(cfg, "contiguous decode")
     b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     per_row = pos.dim() == 1
@@ -263,42 +313,47 @@ def _paged_attn_sharded(q, k_new, v_new, k_pools, v_pools, block_tables, block, 
     return out.reshape(n, h, dh).to(q.dtype)
 
 
-def attn_mixed_paged(cfg: ModelConfig, p, x, k_pool, v_pool, lanes, block_tables, mesh=None):
+def attn_mixed_paged(cfg: ModelConfig, p, x, k_pool, v_pool, lanes, block_tables, mesh=None, layer: int = 0):
     """Unified mixed prefill + decode attention against the paged pool, on
     a packed step's live tokens.
 
     ``x`` (N, d): the tokens ``lanes`` (an ``lm.Lanes``) lays out, row
     after row, each at its absolute position ``lanes.pos``.  Their K/V
     land in ``pool[lanes.block, lanes.offset]`` first; then every token
-    attends through the pool.  A sharded pool (lists of per-shard pools,
-    over ``mesh``) runs ``_paged_attn_sharded``.  Returns ``(N, d)``; the
-    pools are updated in place."""
-    q, k_new, v_new = attn_qkv(cfg, p, x, lanes.pos)
+    attends through the pool, over the last ``cfg.attn_window(layer)`` of
+    its positions on a windowed layer.  A sharded pool (lists of per-shard
+    pools, over ``mesh``) runs ``_paged_attn_sharded``, which has no
+    window.  Returns ``(N, d)``; the pools are updated in place."""
+    q, k_new, v_new = attn_qkv(cfg, p, x, lanes.pos, layer)
     if isinstance(k_pool, list):
+        refuse_window(cfg, "the sharded pool's attention")
         out = _paged_attn_sharded(q, k_new, v_new, k_pool, v_pool, block_tables, lanes.block, lanes.offset,
                                   lanes.desc, mesh)
         return _out_proj(out, p["wo"])
     k_pool[lanes.block, lanes.offset] = k_new.to(k_pool.dtype)
     v_pool[lanes.block, lanes.offset] = v_new.to(v_pool.dtype)
-    return _out_proj(mixed_prefill_attention(q, k_pool, v_pool, block_tables, lanes.desc), p["wo"])
+    out = mixed_prefill_attention(q, k_pool, v_pool, block_tables, lanes.desc, window=cfg.attn_window(layer))
+    return _out_proj(out, p["wo"])
 
 
 def attn_decode_paged(cfg: ModelConfig, p, x, k_pool, v_pool, pos, block_tables, block_size: int,
-                      mesh=None):
+                      mesh=None, layer: int = 0):
     """One-token decode against the paged pool.  ``x`` (B, 1, d); ``pos``
-    (B,) per-row write positions; row ``b`` then attends ``[0, pos[b]]``.
+    (B,) per-row write positions; row ``b`` then attends ``[0, pos[b]]``,
+    or its last ``cfg.attn_window(layer)`` positions on a windowed layer.
     On a sharded pool decode is the one-lane case of the distributed mixed
     dispatch (a free slot's all-trash table matches no shard, so its
     discarded lane gives exact zeros).  Returns ``(B, 1, d)``; the pools
     are updated in place."""
     b = x.shape[0]
-    q, k_new, v_new = attn_qkv(cfg, p, x, pos[:, None])
+    q, k_new, v_new = attn_qkv(cfg, p, x, pos[:, None], layer)
     s_pad = block_tables.shape[1] * block_size
     pos_c = torch.clamp(pos, max=s_pad - 1).long()
     rows = torch.arange(b, device=x.device)
     bid = block_tables.long()[rows, pos_c // block_size]
     off = pos_c % block_size
     if isinstance(k_pool, list):
+        refuse_window(cfg, "the sharded pool's attention")
         one = torch.ones_like(pos)
         desc = torch.stack([rows.to(pos.dtype), pos, one, pos + 1, rows.to(pos.dtype)], dim=1)
         out = _paged_attn_sharded(q[:, 0], k_new[:, 0], v_new[:, 0], k_pool, v_pool, block_tables, bid, off, desc,
@@ -306,8 +361,8 @@ def attn_decode_paged(cfg: ModelConfig, p, x, k_pool, v_pool, pos, block_tables,
         return _out_proj(out[:, None], p["wo"])
     k_pool[bid, off] = k_new[:, 0].to(k_pool.dtype)
     v_pool[bid, off] = v_new[:, 0].to(v_pool.dtype)
-    out = paged_decode_attention(q[:, 0], k_pool, v_pool, block_tables, pos + 1)[:, None]
-    return _out_proj(out, p["wo"])
+    out = paged_decode_attention(q[:, 0], k_pool, v_pool, block_tables, pos + 1, window=cfg.attn_window(layer))
+    return _out_proj(out[:, None], p["wo"])
 
 
 # --------------------------------------------------------------------- #

@@ -36,6 +36,14 @@ page, so the paged steps (``mixed_step``, ``init_paged_cache``, paged
 ``decode_step``) take all-attention models only, as the reference's
 unified path does.
 
+A config with a sliding window (``cfg.window``, on the layers
+``cfg.attn_window`` names) runs it in the paged steps: ``mixed_step``,
+``verify_step`` and paged ``decode_step`` hand each ``pos{j}``'s attention
+its window and RoPE (YaRN on the full layers of a config that sets it).
+The paths that attend over whole prefixes (``forward`` and ``prefill``
+through ``flash_attention``, contiguous decode) refuse it wherever the
+window could bite.
+
 The ``vlm`` family is a dense backbone whose batch may carry
 ``patch_embeds`` (B, n_patches, d): precomputed patch embeddings that
 replace the first positions' token embeddings in ``forward`` and
@@ -241,7 +249,7 @@ def _block(cfg: ModelConfig, params, i: int, h, positions, aux, pol=None):
         if cfg.mixer_kind(j) == "mamba":
             o, _ = M.mamba_apply(cfg, pp["mamba"], x)
         else:
-            o = L.attn_apply(cfg, pp["attn"], x, positions)
+            o = L.attn_apply(cfg, pp["attn"], x, positions, layer=j)
         h, a = _ffn(cfg, pp, h + o, pol)
         if a is not None:
             aux = aux + a
@@ -262,6 +270,7 @@ def forward(cfg: ModelConfig, params, batch, pol=None):
     ``runtime.sharding.ShardingPolicy``) the MoE layers run expert-parallel
     over its mesh; nothing else changes."""
     tokens = batch["tokens"]
+    L.refuse_window(cfg, "forward", tokens.shape[1])
     h = _embed_inputs(cfg, params, batch)
     positions = _positions(tokens.shape, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -328,6 +337,7 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int | None = None):
     prompt's K/V fill ``[0, S)``).  Returns ``(logits (B, S, V), cache)``."""
     tokens = batch["tokens"]
     b, s = tokens.shape
+    L.refuse_window(cfg, "prefill", cache_len or s)
     h = _embed_inputs(cfg, params, batch)
     positions = _positions(tokens.shape, tokens.device)
     cache = init_cache(cfg, b, cache_len or s, dtype=L.torch_dtype(cfg.dtype), device=tokens.device)
@@ -342,7 +352,7 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int | None = None):
                     leaf[i] = new
                 c["ssm"][i] = ssm
             else:
-                q, k, v = L.attn_qkv(cfg, pp["attn"], x, positions)
+                q, k, v = L.attn_qkv(cfg, pp["attn"], x, positions, j)
                 c["k"][i, :, :s] = k.to(c["k"].dtype)
                 c["v"][i, :, :s] = v.to(c["v"].dtype)
                 o = L._out_proj(L.attention_core(cfg, q, k, v, causal=cfg.causal), pp["attn"]["wo"])
@@ -440,7 +450,8 @@ def mixed_step(cfg: ModelConfig, params, tokens, cache, block_tables, lanes: Lan
             c = cache[f"pos{j}"]
             x = L.rmsnorm(h, pp["mixer_norm"], cfg.norm_eps)
             h = h + L.attn_mixed_paged(
-                cfg, pp["attn"], x, _layer_pool(c["k"], i), _layer_pool(c["v"], i), lanes, block_tables, mesh
+                cfg, pp["attn"], x, _layer_pool(c["k"], i), _layer_pool(c["v"], i), lanes, block_tables, mesh,
+                layer=j,
             )
             h, _ = _ffn(cfg, pp, h)
     h = L.rmsnorm(h[lanes.reads], params["final_norm"], cfg.norm_eps)
@@ -489,7 +500,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, block_tables=None,
                 o = L.attn_decode(cfg, pp["attn"], x, c["k"][i], c["v"][i], pos)
             else:
                 o = L.attn_decode_paged(cfg, pp["attn"], x, _layer_pool(c["k"], i), _layer_pool(c["v"], i), pos,
-                                        block_tables, block_size, mesh)
+                                        block_tables, block_size, mesh, layer=j)
             h, _ = _ffn(cfg, pp, h + o)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return L.head_apply(cfg, params, h)

@@ -76,7 +76,11 @@ with Mamba2 layers (the ``ssm`` family, and the ``hybrid`` family's jamba,
 whose cache holds K/V stripes and conv / SSM state side by side) serves on
 the contiguous path and the lock-step baseline, whose admit prefills carry
 its conv and SSM state into the slot; the paged path refuses it, as the
-reference's does.
+reference's does.  A model with a sliding window on some layers
+(``ModelConfig.window``) serves on the paged path alone, on one pool: the
+contiguous path and the sharded pool refuse it.  Every ``engine.step``
+span carries what one full and one windowed attention layer read over the
+step's rows (``_kv_reads``), as host integers from its descriptors.
 
 Sharded paged serving (``shards=N``, paged only): the block pool splits
 over the N devices of a ``runtime.compat.Mesh``, ``n_pool_blocks / N``
@@ -176,6 +180,39 @@ def _targets(logits, read_dst, b: int, width: int):
     return tgt.view(b, width)
 
 
+def _kv_reads(q_start, q_len, window: int) -> dict:
+    """What one attention layer reads over a step's rows, as host integers
+    from the descriptors (no device read): ``kv_read_full`` /
+    ``kv_read_window``, the key positions a full layer and a layer with a
+    sliding window of ``window`` keys read (a row of ``q_len`` lanes from
+    ``q_start`` reads its prefix up to its last lane, from its first
+    lane's window start on), and ``kv_pairs_full`` / ``kv_pairs_window``,
+    the query-key pairs they score (lane ``j`` sees ``q_start + j + 1``
+    keys, at most ``window``).  Without a window (0) the two agree."""
+    qs, ql = (np.asarray(a, np.int64).reshape(-1) for a in (q_start, q_len))
+    qs, ql = qs[ql > 0], ql[ql > 0]
+    end = qs + ql
+    pairs = ql * qs + ql * (ql + 1) // 2
+    read_w, pairs_w = end, pairs
+    if window > 0:
+        read_w = end - np.maximum(0, qs - window + 1)
+        n1 = np.clip(window - qs, 0, ql)  # the lanes that see their whole prefix
+        pairs_w = n1 * (qs + 1) + n1 * (n1 - 1) // 2 + (ql - n1) * window
+    return {"kv_read_full": int(end.sum()), "kv_read_window": int(read_w.sum()),
+            "kv_pairs_full": int(pairs.sum()), "kv_pairs_window": int(pairs_w.sum())}
+
+
+def _decode_reads(lengths, em_before, em_after, rows, window: int) -> dict:
+    """``_kv_reads`` of a fused decode chunk: at each of its steps every
+    decoding row reads its prefix through its last emitted token (a row
+    done before the chunk's last step re-reads the same one)."""
+    rows = np.asarray(rows, np.int64)
+    e0, e1 = em_before[rows], em_after[rows]
+    t = np.arange(int((e1 - e0).max(initial=0)))
+    pos = lengths[rows][:, None] + np.minimum(e0[:, None] + t[None, :], e1[:, None]) - 1
+    return _kv_reads(pos, np.ones_like(pos), window)
+
+
 def _decode_lanes(em_before, em_after, rows, b: int) -> dict:
     """A fused decode chunk's lanes: each of the decoding ``rows`` that was
     not done at a step emitted one token there, and the chunk ran as many
@@ -243,6 +280,12 @@ class ServeEngine:
                 )
             if scfg.spill_bytes < 1:
                 raise ValueError(f"spill_bytes={scfg.spill_bytes} must be >= 1")
+        if cfg.window > 0 and (not scfg.paged or scfg.shards is not None):
+            raise ValueError(
+                f"{cfg.name} has a sliding window of {cfg.window} keys on some layers, which only the "
+                "paged engine's single pool applies: the contiguous engine and the sharded pool attend "
+                "over whole prefixes"
+            )
         if scfg.paged and any(cfg.mixer_kind(i) != "attn" for i in range(cfg.n_layers)):
             raise ValueError(
                 "paged serving runs the unified chunked-prefill path, which "
@@ -798,6 +841,7 @@ class ServeEngine:
         em_h = np.ones((B,), np.int64)
         dn_h = np.ones((B,), bool)
         bu_h = np.ones((B,), np.int64)
+        ln_h = np.ones((B,), np.int64)
         steps = 0
         a0, d0, m0 = self.admit_dispatches, self.decode_dispatches, self.mixed_dispatches
 
@@ -821,7 +865,7 @@ class ServeEngine:
                     scheduler.record_tenant_admit(req.tenant, prefill_tokens=length)
                     slots[slot] = req
                     em_h[slot], dn_h[slot] = 1, b_new <= 1
-                    bu_h[slot] = b_new
+                    bu_h[slot], ln_h[slot] = b_new, length
                 sp.attrs["rids"] = [slots[s].rid for s, _, _, _ in admits]
             while admits:
                 # power-of-2 groups: k waiting requests prefill in O(log k)
@@ -830,7 +874,8 @@ class ServeEngine:
                 group, admits = admits[:g], admits[g:]
                 lens = [ln for _, _, ln, _ in group]
                 with trace.span("engine.step", kind="admit", rows=g, lanes_live=sum(lens), lanes_run=g * width,
-                                fill_lanes=sum(lens), rids=[slots[s].rid for s, _, _, _ in group]):
+                                fill_lanes=sum(lens), rids=[slots[s].rid for s, _, _, _ in group],
+                                **_kv_reads(np.zeros(g), lens, self.cfg.window)):
                     with trace.span("engine.launch"):
                         st = self._admit_rows(
                             st, cache, self._dev(self._pack([p for _, p, _, _ in group])),
@@ -865,7 +910,8 @@ class ServeEngine:
                     with trace.span("engine.launch"):
                         st = self._decode_chunk(st, n, cache)
                     em_before, (em_h, dn_h) = em_h, self._readback(st)
-                    sp.attrs.update(_decode_lanes(em_before, em_h, dec, B))
+                    sp.attrs.update(_decode_lanes(em_before, em_h, dec, B),
+                                    **_decode_reads(ln_h, em_before, em_h, dec, self.cfg.window))
                 self.decode_dispatches += 1
                 steps += 1
             else:
@@ -1241,9 +1287,9 @@ class ServeEngine:
                             ones = np.ones((B,), np.int64)
                             ks = [pack_lanes(dec_pos + t, ones, ones * (t < kd), d_dec_tab, bs)
                                   for t in range(kd + 1)]
+                            d_qs = np.zeros((B,), np.int64)
                             d_ql = np.zeros((B,), np.int64)
                             if d_fill_rows:
-                                d_qs = np.zeros((B,), np.int64)
                                 d_prompt: list = [None] * B
                                 d_lanes = W
                                 for i in d_fill_rows:
@@ -1277,7 +1323,10 @@ class ServeEngine:
                             sp.attrs.update(rows=len(rows), rids=[slots[i].rid for i in rows],
                                             lanes_live=int(d_ql.sum()) + (kd + 1) * len(draft_ok),
                                             lanes_run=int(d_ql.sum()) + B * (kd + 1), fill_lanes=0,
-                                            head_lanes=B * kd)
+                                            head_lanes=B * kd,
+                                            **_kv_reads(np.concatenate([d_qs] + [dec_pos + t for t in range(kd + 1)]),
+                                                        np.concatenate([d_ql] + [ones] * (kd + 1)),
+                                                        self._draft_cfg.window))
                     prompt: list = [None] * B
                     q_start_h = np.zeros((B,), np.int64)
                     q_len_h = np.zeros((B,), np.int64)
@@ -1310,7 +1359,7 @@ class ServeEngine:
                         up, head = self._target_step(is_spec, prompt, q_start_h, q_len_h, row_len_h, b_new_h, kd + 1)
                         with trace.span("engine.step", kind="spec", rows=len(rows), rids=[slots[i].rid for i in rows],
                                         lanes_live=int(q_len_h.sum()), lanes_run=int(q_len_h.sum()), fill_lanes=fill,
-                                        head_lanes=head):
+                                        head_lanes=head, **_kv_reads(q_start_h, q_len_h, self.cfg.window)):
                             em_before = em_h.copy()
                             if drafts is None:
                                 drafts = torch.zeros((B, kd), dtype=torch.int32, device=dev)
@@ -1352,7 +1401,7 @@ class ServeEngine:
                         up, head = self._target_step(is_dec, prompt, q_start_h, q_len_h, row_len_h, b_new_h, 1)
                         sp.attrs.update(rows=len(rows), rids=[slots[i].rid for i in rows],
                                         lanes_live=int(q_len_h.sum()), lanes_run=int(q_len_h.sum()), fill_lanes=fill,
-                                        head_lanes=head)
+                                        head_lanes=head, **_kv_reads(q_start_h, q_len_h, self.cfg.window))
                         st = mark_oom(st, oom)
                         with trace.span("engine.launch"):
                             st = self._mixed_rows(st, self._upload(up)[0])
@@ -1373,7 +1422,8 @@ class ServeEngine:
                         with trace.span("engine.launch"):
                             st = self._decode_chunk(st, n, self._cache, self._dev(tables_h))
                         em_before, (em_h, dn_h) = em_h, self._readback(st)
-                        sp.attrs.update(_decode_lanes(em_before, em_h, dec_rows, B))
+                        sp.attrs.update(_decode_lanes(em_before, em_h, dec_rows, B),
+                                        **_decode_reads(ln_h, em_before, em_h, dec_rows, self.cfg.window))
                     self.decode_dispatches += 1
                     steps += 1
                 _stamp_first_tokens(slots, [i for i in active if fills[i] is None], em_h)

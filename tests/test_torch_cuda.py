@@ -1530,3 +1530,66 @@ def test_meta_count_equals_the_cards(cuda_device, arch):
     assert getattr(*counter) > before
     for k in ("flops", "bytes", "convert_bytes", "dus_bytes", "collectives", "kernels"):
         assert getattr(meta, k) == getattr(card, k), k
+
+
+# ---------------- the sliding window (Mellum2-12B-A2.5B's layers) ----------------
+
+
+def _window_pool(rng, b, n_t, kv, dh, bs, dtype, device):
+    n_pool = b * n_t + 1
+    kp, vp = (torch.as_tensor(rng.standard_normal((n_pool, bs, kv, dh)), dtype=torch.float32).to(dtype).to(device)
+              for _ in range(2))
+    tables = torch.as_tensor(rng.permutation(n_pool - 1)[: b * n_t].reshape(b, n_t), dtype=torch.int32,
+                             device=device)
+    return kp, vp, tables
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [1, 37, 64, 100, 1024])
+@pytest.mark.parametrize("h,kv,dh,bs", [(8, 4, 32, 16), (32, 4, 128, 32)], ids=["G2", "G8-dh128"])
+def test_windowed_mixed_prefill_matches_plain(cuda_device, h, kv, dh, bs, window, dtype):
+    """A fill's later chunks (900-1,299 and 1,000-1,063: the window's edge
+    inside them at 1,024), its first chunk, one-lane rows at the window's
+    length and around a 64-key tile, packed; against the plain version,
+    bitwise the padded form's lanes, and a window past every row bitwise
+    the window-0 kernel."""
+    rng = np.random.default_rng(window + h)
+    rows4 = [(0, 900, 400, 1300), (1, 0, 300, 300), (2, 1000, 64, 1064), (3, window - 1, 1, window),
+             (4, window, 1, window + 1), (5, 1300, 1, 1301), (6, 63, 2, 65)]
+    kp, vp, tables = _window_pool(rng, len(rows4), -(-1400 // bs), kv, dh, bs, dtype, cuda_device)
+    w = max(d[2] for d in rows4)
+    q = torch.as_tensor(rng.standard_normal((len(rows4), w, h, dh)), dtype=torch.float32).to(dtype).to(cuda_device)
+    desc = torch.as_tensor(rows4, dtype=torch.int32, device=cuda_device)
+    qp, d5, rows, lanes = pack_rows(q, desc)
+    o = cp_ops.mixed_prefill_attention(qp, kp, vp, tables, d5, window=window)
+    o_p = cp_ops.mixed_prefill_attention_plain(qp, kp, vp, tables, d5, window)
+    pad = cp_ops.mixed_prefill_attention(q, kp, vp, tables, desc, window=window)
+    wide = cp_ops.mixed_prefill_attention(qp, kp, vp, tables, d5, window=10**6)
+    full = cp_ops.mixed_prefill_attention(qp, kp, vp, tables, d5)
+    torch.cuda.synchronize()
+    tol = _tol(dtype)
+    np.testing.assert_allclose(o.float().cpu().numpy(), o_p.float().cpu().numpy(), rtol=tol, atol=tol)
+    assert torch.equal(o, pad[torch.as_tensor(rows), torch.as_tensor(lanes)])
+    assert torch.equal(wide, full)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [1, 63, 64, 65, 1024])
+@pytest.mark.parametrize("h,kv,dh,bs", [(8, 4, 32, 16), (32, 4, 128, 32)], ids=["G2", "G8-dh128"])
+def test_windowed_paged_decode_matches_plain(cuda_device, h, kv, dh, bs, window, dtype):
+    """Rows from 1 position to 2,240, around the window's length and the
+    64-position splits; against the plain version, and a window past every
+    row bitwise the window-0 kernel."""
+    rng = np.random.default_rng(window * h)
+    lens_h = [1, 63, 64, 65, 127, window, window + 1, window + 63, 2048, 2240]
+    kp, vp, tables = _window_pool(rng, len(lens_h), 2240 // bs, kv, dh, bs, dtype, cuda_device)
+    q = torch.as_tensor(rng.standard_normal((len(lens_h), h, dh)), dtype=torch.float32).to(dtype).to(cuda_device)
+    lens = torch.as_tensor(lens_h, dtype=torch.int32, device=cuda_device)
+    o = da_ops.paged_decode_attention(q, kp, vp, tables, lens, window=window)
+    o_p = da_ops.paged_decode_attention_plain(q, kp, vp, tables, lens, window)
+    wide = da_ops.paged_decode_attention(q, kp, vp, tables, lens, window=10**6)
+    full = da_ops.paged_decode_attention(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    tol = _tol(dtype)
+    np.testing.assert_allclose(o.float().cpu().numpy(), o_p.float().cpu().numpy(), rtol=tol, atol=tol)
+    assert torch.equal(wide, full)

@@ -22,11 +22,21 @@ from repro_torch.data import tokenizer as T_tok  # noqa: E402
 from repro_torch.data.embeddings import bag_embed, token_vectors  # noqa: E402
 
 
+def _same_fields(r, t) -> None:
+    """Every field of the reference's config equal in the port's, and each
+    field only the port has (its sliding window and YaRN) at its default."""
+    rd, td = dataclasses.asdict(r), dataclasses.asdict(t)
+    assert td.keys() >= rd.keys()
+    assert {k: td[k] for k in rd} == rd
+    defaults = {f.name: f.default for f in dataclasses.fields(t)}
+    assert {k: td[k] for k in td.keys() - rd.keys()} == {k: defaults[k] for k in td.keys() - rd.keys()}
+
+
 @pytest.mark.parametrize("name", sorted(R_cfg._MODULES))
 def test_configs_equal_field_by_field(name):
     r, t = R_cfg.get_config(name), T_cfg.get_config(name)
-    assert dataclasses.asdict(r) == dataclasses.asdict(t)
-    assert dataclasses.asdict(R_cfg.smoke_config(r)) == dataclasses.asdict(T_cfg.smoke_config(t))
+    _same_fields(r, t)
+    _same_fields(R_cfg.smoke_config(r), T_cfg.smoke_config(t))
     assert r.n_blocks == t.n_blocks and r.param_count() == t.param_count()
 
 

@@ -254,6 +254,23 @@ def test_shape_only_hooks_take_the_whole_cache():
                                                                        lengths_host=[NT * BS] * R)
 
 
+def test_a_window_halves_the_bytes_of_a_steps_attention():
+    """A sliding window counts only the positions it reads: a step of 8
+    decode rows at 2,048 positions with a window of 1,024 reads half the
+    K/V and half the block-table entries (bs 32) and does half the FLOPs,
+    through ``paged_decode`` and through ``mixed_prefill`` alike; the rest
+    (q, the output, the lengths or descriptors) stays."""
+    q, pool, tables = _m(8, 32, 128), _m(8 * 64 + 1, 32, 8, 128), _m(8, 64)
+    half = (2 * 8 * 2048 * 8 * 128 * 2 + 8 * 64 * 4) // 2  # K/V and table entries, halved
+    f_full, b_full = da.paged_cost(q, pool, None, tables, None, lengths_host=[2048] * 8)
+    f_win, b_win = da.paged_cost(q, pool, None, tables, None, lengths_host=[2048] * 8, window=1024)
+    assert b_full - b_win == half and f_win["bfloat16"] * 2 == f_full["bfloat16"]
+    desc = [(i, 2047, 1, 2048, i) for i in range(8)]
+    f_full, b_full = cp.cost(q, pool, None, tables, _m(8, 5), desc_host=desc)
+    f_win, b_win = cp.cost(q, pool, None, tables, _m(8, 5), desc_host=desc, window=1024)
+    assert b_full - b_win == half and f_win["bfloat16"] * 2 == f_full["bfloat16"]
+
+
 # --- report ----------------------------------------------------------------
 
 

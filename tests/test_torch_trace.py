@@ -8,6 +8,7 @@ finish on the paged, speculative and contiguous paths and is filed before
 the request finishes, and the profiler
 sees the program's spans only with the mirror on; and how
 ``launch/profile_serve.py`` names the device's idle gaps."""
+import dataclasses
 import threading
 import time
 import types
@@ -172,6 +173,82 @@ def test_a_decode_chunk_checks_its_stop_at_most_once_a_token(paged):
         stepped = s.attrs["lanes_run"] // B
         assert checks <= n and stepped <= checks <= stepped + 1  # one check a step, and the one that stops
         assert s.attrs["lanes_live"] <= s.attrs["lanes_run"] and s.attrs["syncs"] >= checks + 2
+
+
+def _windowed_engine(window, **kw):
+    """qwen3's smoke engine with a sliding window of ``window`` keys on
+    every other layer (0: none)."""
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    if window:
+        cfg = dataclasses.replace(cfg, window=window, full_every=2, full_offset=1)
+    params = init_params(LM.param_specs(cfg), torch.Generator().manual_seed(0), device="cpu")
+    return ServeEngine(cfg, params, ServeConfig(max_batch=B, max_prompt_len=WIDTH, max_new_tokens=6, **kw),
+                       device="cpu")
+
+
+def _hand_count(rows, window):
+    """(kv_read_full, kv_read_window, kv_pairs_full, kv_pairs_window) of
+    ``(q_start, q_len, kv_len)`` rows, key by key."""
+    out = np.zeros(4, np.int64)
+    for q0, ql, kl in rows:
+        seen_full, seen_win = set(), set()
+        for j in range(ql):
+            keys = range(min(q0 + j + 1, kl))
+            near = [k for k in keys if k > q0 + j - window]
+            seen_full |= set(keys)
+            seen_win |= set(near)
+            out[2:] += (len(keys), len(near))
+        out[:2] += (len(seen_full), len(seen_win))
+    return out.tolist()
+
+
+def test_a_steps_kv_reads_are_a_hand_count_of_its_descriptors(monkeypatch):
+    """Every mixed step's and decode chunk's ``kv_read_*`` / ``kv_pairs_*``
+    equal a key-by-key count of what its attention calls were handed (a
+    decode chunk: the rows that were decoding at its start, at each of its
+    steps' positions), fills split over steps with the window's edge inside
+    chunks; and the steps' host reads are the window-0 engine's."""
+    window = 8
+    eng = _windowed_engine(window, paged=True, block_size=4, token_budget=BUDGET, sched_chunk=3)
+    calls = []
+    mixed_step, decode_step, chunk = LM.mixed_step, LM.decode_step, eng._decode_chunk
+
+    def mixed(cfg, params, tokens, cache, tables, lanes, *a, **kw):
+        calls.append(("mixed", [(q0, ql, kl) for _, q0, ql, kl, _ in lanes.desc.tolist()]))
+        return mixed_step(cfg, params, tokens, cache, tables, lanes, *a, **kw)
+
+    def decode(cfg, params, cache, tokens, pos, *a, **kw):
+        live = calls[-1][2]
+        calls[-1][1].extend((int(p), 1, int(p) + 1) for r, p in enumerate(pos.tolist()) if live[r])
+        return decode_step(cfg, params, cache, tokens, pos, *a, **kw)
+
+    def decode_chunk(st, n, *a, **kw):
+        calls.append(("decode", [], ~st[3].numpy()))  # the rows not done at the chunk's start
+        return chunk(st, n, *a, **kw)
+
+    monkeypatch.setattr(LM, "mixed_step", mixed)
+    monkeypatch.setattr(LM, "decode_step", decode)
+    eng._decode_chunk = decode_chunk
+    prompts = _prompts()
+    _, spans = _serve(eng, prompts)
+    steps = [s for s in spans if s.name == "engine.step"]
+    assert [s.attrs["kind"] for s in steps] == [c[0] for c in calls] and {"mixed", "decode"} <= {c[0] for c in calls}
+    names = ("kv_read_full", "kv_read_window", "kv_pairs_full", "kv_pairs_window")
+    for s, call in zip(steps, calls):
+        assert [s.attrs[k] for k in names] == _hand_count(call[1], window), s.attrs
+    assert any(s.attrs["kv_read_window"] < s.attrs["kv_read_full"] for s in steps)
+    monkeypatch.undo()
+    _, plain = _serve(_windowed_engine(0, paged=True, block_size=4, token_budget=BUDGET, sched_chunk=3), prompts)
+    plain = [s for s in plain if s.name == "engine.step"]
+    assert all(s.attrs["kv_read_window"] == s.attrs["kv_read_full"] for s in plain)
+
+    def reads(ss, kind):
+        """A step's host reads, less a decode chunk's one stop check a token."""
+        return {s.attrs["syncs"] - (s.attrs["lanes_run"] // B if kind == "decode" else 0)
+                for s in ss if s.attrs["kind"] == kind}
+
+    for kind in ("mixed", "decode"):  # the counters read nothing from the device
+        assert reads(steps, kind) == reads(plain, kind), kind
 
 
 @pytest.mark.parametrize("kw", [dict(paged=True, block_size=8, token_budget=BUDGET),
